@@ -1,0 +1,47 @@
+"""Carry trained weights into the port's models from plain arrays.
+
+The reference's `ALSModel` holds numpy factors, two id→row maps and a CSR
+of seen items; pull those out as numpy arrays and dicts and
+`als_model_from_arrays` builds the port's `ALSModel` from them, so a model
+the reference trained serves through the port unchanged.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import numpy as np
+
+from predictionio_torch.data.bimap import BiMap
+from predictionio_torch.models.als_model import ALSModel, SeenItems
+
+
+def als_model_from_arrays(
+    user_factors: np.ndarray,
+    item_factors: np.ndarray,
+    user_ids: Mapping[str, int],
+    item_ids: Mapping[str, int],
+    seen_user_idx: Optional[np.ndarray] = None,
+    seen_item_idx: Optional[np.ndarray] = None,
+) -> ALSModel:
+    """The port's ALSModel from [n_users, K] / [n_items, K] factors, the
+    id string → row maps, and the (user row, item row) pairs of seen items
+    (None: no seen-item exclusion)."""
+    user_factors = np.asarray(user_factors)
+    item_factors = np.asarray(item_factors)
+    if len(user_ids) != user_factors.shape[0] or \
+            len(item_ids) != item_factors.shape[0]:
+        raise ValueError(
+            f"id maps ({len(user_ids)} users, {len(item_ids)} items) do not "
+            f"match the factors {user_factors.shape} / {item_factors.shape}")
+    seen = None
+    if seen_user_idx is not None:
+        seen = SeenItems(np.asarray(seen_user_idx), np.asarray(seen_item_idx),
+                         user_factors.shape[0])
+    return ALSModel(
+        user_factors=user_factors,
+        item_factors=item_factors,
+        user_ids=BiMap(dict(user_ids)),
+        item_ids=BiMap(dict(item_ids)),
+        seen=seen,
+    )

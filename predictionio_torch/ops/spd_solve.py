@@ -1,0 +1,231 @@
+"""Batched SPD solve by Gauss-Jordan elimination — the port of
+``predictionio_tpu/ops/pallas_solve.py``.
+
+Each ALS half-epoch solves x_r = A_r⁻¹ b_r for thousands of small (K×K,
+K = rank) SPD systems. The public surface is the reference's:
+`gj_applicable`, `gj_solve(a, b, layout=...)` (``PIO_GJ_LAYOUT`` when
+`layout` is not given), `gj_solve_multi` and `schur_solve`.
+
+Layouts:
+
+- ``aug``: row Gauss-Jordan on [A | b]; `auto` picks it below rank 96.
+- ``schur``: recursive Schur complements; the eliminations become f32
+  `torch.bmm` products and the base systems (K ≤ 32, or odd K) go to the
+  multi-RHS kernel; `auto` picks it at rank ≥ 96.
+- ``packed`` and ``blocked2`` are TPU A/B layouts that are not ported
+  yet: asking for them raises ValueError.
+
+Dispatch: a tensor on the CPU runs the kernel's plain PyTorch version
+(`gj_solve_plain`, `gj_solve_multi_plain`); a CUDA tensor launches the
+hand-written kernel from ``csrc/gj_solve.cu`` or raises. `launches`
+counts kernel launches per wrapper.
+
+No pivoting: A = YᵀWY + λ(n)I is SPD. All-zero systems (bucket padding)
+solve to exactly 0 through the pivot guard |d| < 1e-30 → 1.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+
+_MAX_RANK = 256
+_PIVOT_EPS = 1e-30
+# device-memory variant: resident blocks that share the scratch slots
+_SCRATCH_SLOTS = 1024
+_NOT_PORTED = ("packed", "blocked2")
+
+# kernel launches per wrapper (plain ints; the plain versions never count)
+launches = {"gj_aug": 0, "gj_aug_multi": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def gj_applicable(rank: int) -> bool:
+    return rank <= _MAX_RANK
+
+
+# -- plain versions ---------------------------------------------------------
+
+def _gj_plain(work: torch.Tensor, k: int) -> torch.Tensor:
+    """Row Gauss-Jordan on [R, K, W] augmented blocks, the kernel's
+    arithmetic step for step; returns the reduced blocks."""
+    work = work.clone()
+    for p in range(k):
+        d = work[:, p, p]
+        d = torch.where(d.abs() < _PIVOT_EPS, torch.ones_like(d), d)
+        row = work[:, p, :] / d[:, None]
+        col = work[:, :, p].clone()
+        col[:, p] = 0.0
+        work -= col[:, :, None] * row[:, None, :]
+        work[:, p, :] = row
+    return work
+
+
+def gj_solve_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x [R, K] = A⁻¹ b for a [R, K, K], b [R, K] (plain PyTorch)."""
+    k = a.shape[1]
+    work = torch.cat([a.float(), b.float()[..., None]], dim=-1)
+    return _gj_plain(work, k)[:, :, k]
+
+
+def gj_solve_multi_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """X [R, K, M] = A⁻¹ B for a [R, K, K], b [R, K, M] (plain PyTorch)."""
+    k = a.shape[1]
+    work = torch.cat([a.float(), b.float()], dim=-1)
+    return _gj_plain(work, k)[:, :, k:]
+
+
+# -- the CUDA kernel --------------------------------------------------------
+
+_max_shared: dict[int, int] = {}
+
+
+def _bind(lib) -> None:
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.gj_max_shared_bytes.argtypes = [i32]
+    lib.gj_max_shared_bytes.restype = i32
+    lib.gj_aug.argtypes = [p, i64, i64, i64, p, i64, i64, p, p, i64, i32,
+                           i32, p]
+    lib.gj_aug.restype = i32
+    lib.gj_aug_multi.argtypes = [p, i64, i64, i64, p, i64, i64, i64, p, p,
+                                 i64, i32, i32, i32, p]
+    lib.gj_aug_multi.restype = i32
+
+
+def _lib():
+    from predictionio_torch.ops import _build
+
+    lib = _build.load("gj_solve")
+    if not getattr(lib, "_pio_bound", False):
+        _bind(lib)
+        lib._pio_bound = True
+    return lib
+
+
+def shared_fits(k: int, m: int, device: torch.device) -> bool:
+    """Whether a [K, K+M] working copy fits one block's shared memory on
+    `device`; otherwise the device-memory variant runs."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _max_shared:
+        _max_shared[idx] = _lib().gj_max_shared_bytes(idx)
+    w = k + m
+    return (k * w + k + w) * 4 <= _max_shared[idx]
+
+
+def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch `name` on CUDA tensors a [R, K, K] and b [R, K, M] (any
+    strides); returns X [R, K, M]."""
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"{name}: a and b must be on one CUDA device, got "
+                         f"{a.device} and {b.device}")
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise ValueError(f"{name}: needs float32, got {a.dtype}/{b.dtype}")
+    r, k, k2 = a.shape
+    if k2 != k or b.dim() != 3 or b.shape[:2] != (r, k):
+        raise ValueError(f"{name}: shapes {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} are not [R, K, K] and [R, K, M]")
+    m = b.shape[2]
+    x = torch.empty((r, k, m), dtype=torch.float32, device=a.device)
+    if r == 0:
+        return x
+    lib = _lib()
+    scratch = None
+    grid = 0
+    if not shared_fits(k, m, a.device):
+        grid = min(r, _SCRATCH_SLOTS)
+        scratch = torch.empty(grid * k * (k + m), dtype=torch.float32,
+                              device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    sp = None if scratch is None else scratch.data_ptr()
+    if name == "gj_aug":
+        err = lib.gj_aug(a.data_ptr(), *a.stride(), b.data_ptr(),
+                         b.stride(0), b.stride(1), x.data_ptr(), sp, r, k,
+                         grid, stream)
+    else:
+        err = lib.gj_aug_multi(a.data_ptr(), *a.stride(), b.data_ptr(),
+                               *b.stride(), x.data_ptr(), sp, r, k, m, grid,
+                               stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"(R={r}, K={k}, M={m})")
+    launches[name] += 1
+    return x
+
+
+# -- public surface ---------------------------------------------------------
+
+def _solve_aug(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.device.type == "cpu":
+        return gj_solve_plain(a, b)
+    return _launch("gj_aug", a.float(), b.float()[..., None])[..., 0]
+
+
+def gj_solve_multi(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """X = A⁻¹ B for a batch of SPD systems with M right-hand sides.
+
+    a: [R, K, K]; b: [R, K, M] → X: [R, K, M] f32. The base call of
+    `schur_solve`'s recursion."""
+    if a.device.type == "cpu":
+        return gj_solve_multi_plain(a, b)
+    return _launch("gj_aug_multi", a.float(), b.float())
+
+
+def schur_solve(a: torch.Tensor, b: torch.Tensor,
+                base: int = 32) -> torch.Tensor:
+    """x = A⁻¹ b via recursive Schur complements: the elimination work
+    becomes [R, K/2, K/2] f32 batched products plus multi-RHS GJ solves at
+    the `base` size. For SPD A every split pivot block is SPD, so no level
+    needs pivoting.
+
+    a: [R, K, K] SPD; b: [R, K] or [R, K, M]."""
+    single = b.dim() == 2
+    if single:
+        b = b[..., None]
+    x = _schur_rec(a.float(), b.float(), base)
+    return x[..., 0] if single else x
+
+
+def _schur_rec(a: torch.Tensor, b: torch.Tensor, base: int) -> torch.Tensor:
+    k = a.shape[1]
+    if k <= base or k % 2:
+        return gj_solve_multi(a, b)
+    h = k // 2
+    a12 = a[:, :h, h:]
+    a21 = a[:, h:, :h]
+    b1, b2 = b[:, :h], b[:, h:]
+    # one base call solves A11 against [A12 | B1] together
+    w = _schur_rec(a[:, :h, :h], torch.cat([a12, b1], dim=2), base)
+    w12, w1b = w[:, :, :h], w[:, :, h:]
+    s = a[:, h:, h:] - torch.bmm(a21, w12)  # SPD Schur complement
+    y2 = _schur_rec(s, b2 - torch.bmm(a21, w1b), base)
+    y1 = w1b - torch.bmm(w12, y2)
+    return torch.cat([y1, y2], dim=1)
+
+
+def gj_solve(a: torch.Tensor, b: torch.Tensor, layout: str = "") -> torch.Tensor:
+    """Solve x = A⁻¹ b for a batch of SPD systems.
+
+    a: [R, K, K] (all-zero systems yield x = 0); b: [R, K].
+    layout: "auto" (default) picks "schur" at rank ≥ 96 and "aug" below;
+    "aug" and "schur" force a layout; ``PIO_GJ_LAYOUT`` applies when
+    `layout` is empty. Returns x [R, K] f32."""
+    layout = layout or os.environ.get("PIO_GJ_LAYOUT", "auto")
+    k = a.shape[1]
+    if layout == "auto":
+        layout = "schur" if k >= 96 else "aug"
+    if layout == "schur":
+        return schur_solve(a, b)
+    if layout in _NOT_PORTED:
+        raise ValueError(f"gj_solve layout {layout!r} is a TPU A/B layout "
+                         "that is not ported yet (want auto/aug/schur)")
+    if layout != "aug":
+        raise ValueError(f"unknown gj_solve layout {layout!r} "
+                         "(want auto/aug/schur)")
+    return _solve_aug(a, b)

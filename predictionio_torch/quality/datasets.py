@@ -1,0 +1,133 @@
+"""Deterministic planted-factor MovieLens-like datasets with held-out
+splits — own copy of the reference's ``predictionio_tpu/quality/datasets.py``
+(`synth_explicit`, `synth_implicit`, `SCALES`): same seeds, same triplets.
+
+A planted low-rank model + user/item biases + gaussian noise quantized to
+half-star ratings, zipf item popularity and lognormal user activity.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class RatingSplit:
+    """COO triplets, split once; `n_users`/`n_items` cover both halves."""
+
+    train_u: np.ndarray
+    train_i: np.ndarray
+    train_r: np.ndarray
+    test_u: np.ndarray
+    test_i: np.ndarray
+    test_r: np.ndarray
+    n_users: int
+    n_items: int
+
+    @property
+    def n_train(self) -> int:
+        return len(self.train_u)
+
+    @property
+    def n_test(self) -> int:
+        return len(self.test_u)
+
+
+# named scales: (n_users, n_items, n_ratings) of the ML-100K/2M/20M shapes
+SCALES = {
+    "100k": (943, 1682, 100_000),
+    "2m": (13_850, 2_700, 2_000_000),
+    "20m": (138_500, 27_000, 20_000_000),
+}
+
+
+def _sample_pairs(rng, n_users, n_items, n_target):
+    """Heavy-tailed (user, item) pairs, deduplicated: lognormal user
+    activity × zipf item popularity."""
+    user_w = rng.lognormal(0.0, 1.0, n_users)
+    user_p = user_w / user_w.sum()
+    user_cdf = np.cumsum(user_p)
+    pairs = np.zeros(0, np.int64)
+    need = n_target
+    while need > 0:
+        m = int(need * 1.4) + 1024
+        # clip: the float cumsum can end a hair under 1.0
+        u = np.minimum(np.searchsorted(user_cdf, rng.random(m)),
+                       n_users - 1).astype(np.int64)
+        i = (rng.zipf(1.3, m) % n_items).astype(np.int64)
+        pairs = np.unique(np.concatenate([pairs, u * n_items + i]))
+        need = n_target - len(pairs)
+    rng.shuffle(pairs)
+    pairs = pairs[:n_target]
+    return (pairs // n_items).astype(np.int32), (pairs % n_items).astype(np.int32)
+
+
+def synth_explicit(
+    scale: str = "100k",
+    rank_true: int = 32,
+    noise: float = 0.78,
+    test_frac: float = 0.1,
+    seed: int = 0,
+) -> RatingSplit:
+    """Half-star ratings from a planted model:
+    r = clip(round₂(μ + b_u + b_i + s·⟨u*, v*⟩ + ε), 0.5, 5)."""
+    n_users, n_items, n_ratings = SCALES[scale]
+    rng = np.random.default_rng(seed)
+    ui, ii = _sample_pairs(rng, n_users, n_items, n_ratings)
+
+    U = rng.standard_normal((n_users, rank_true)) / np.sqrt(rank_true)
+    V = rng.standard_normal((n_items, rank_true)) / np.sqrt(rank_true)
+    bu = rng.normal(0.0, 0.35, n_users)
+    bi = rng.normal(0.0, 0.35, n_items)
+    latent_scale = 0.6 * np.sqrt(rank_true)
+    r_cont = (3.55 + bu[ui] + bi[ii]
+              + latent_scale * np.einsum("ij,ij->i", U[ui], V[ii])
+              + rng.normal(0.0, noise, n_ratings))
+    r = np.clip(np.round(r_cont * 2.0) / 2.0, 0.5, 5.0).astype(np.float32)
+
+    n_test = int(n_ratings * test_frac)
+    perm = rng.permutation(n_ratings)
+    te, tr = perm[:n_test], perm[n_test:]
+    return RatingSplit(ui[tr], ii[tr], r[tr], ui[te], ii[te], r[te],
+                       n_users, n_items)
+
+
+def synth_implicit(
+    scale: str = "100k",
+    rank_true: int = 32,
+    test_frac: float = 0.1,
+    seed: int = 0,
+) -> RatingSplit:
+    """Binary interactions with planted preference structure: candidate
+    pairs from the popularity/activity model, accepted with probability
+    σ(s·⟨u*, v*⟩). Values are all 1.0."""
+    n_users, n_items, n_ratings = SCALES[scale]
+    rng = np.random.default_rng(seed + 1)
+    U = rng.standard_normal((n_users, rank_true)) / np.sqrt(rank_true)
+    V = rng.standard_normal((n_items, rank_true)) / np.sqrt(rank_true)
+    latent_scale = 1.6 * np.sqrt(rank_true)
+
+    user_w = rng.lognormal(0.0, 1.0, n_users)
+    user_cdf = np.cumsum(user_w / user_w.sum())
+    pairs = np.zeros(0, np.int64)
+    while len(pairs) < n_ratings:
+        m = int((n_ratings - len(pairs)) * 3.2) + 4096
+        u = np.minimum(np.searchsorted(user_cdf, rng.random(m)),
+                       n_users - 1).astype(np.int64)
+        i = (rng.zipf(1.3, m) % n_items).astype(np.int64)
+        score = latent_scale * np.einsum("ij,ij->i", U[u], V[i])
+        keep = rng.random(m) < 1.0 / (1.0 + np.exp(-score))
+        pairs = np.unique(np.concatenate([pairs, u[keep] * n_items + i[keep]]))
+    rng.shuffle(pairs)
+    pairs = pairs[:n_ratings]
+    ui = (pairs // n_items).astype(np.int32)
+    ii = (pairs % n_items).astype(np.int32)
+    r = np.ones(len(pairs), np.float32)
+
+    n_test = int(len(pairs) * test_frac)
+    perm = rng.permutation(len(pairs))
+    te, tr = perm[:n_test], perm[n_test:]
+    return RatingSplit(ui[tr], ii[tr], r[tr], ui[te], ii[te], r[te],
+                       n_users, n_items)

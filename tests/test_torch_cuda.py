@@ -1,0 +1,118 @@
+"""The port's CUDA kernels and device paths on the card. Every test here
+needs a CUDA device (marker `cuda`) and skips without one.
+
+This file imports neither JAX nor the reference package, so it also runs
+where JAX is not installed (tests/conftest.py imports JAX):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from predictionio_torch.ops import als, ranking, spd_solve
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture()
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spd_solve.reset_launches()
+    yield torch.device("cuda")
+    spd_solve.reset_launches()
+
+
+def _spd(gen, r, k, m, device):
+    y = torch.randn(r, k, k, generator=gen, device=device)
+    a = y @ y.transpose(1, 2) + 0.5 * k * torch.eye(k, device=device)
+    b = torch.randn(r, k, m, generator=gen, device=device)
+    a[1] = 0.0
+    b[1] = 0.0
+    return a, b
+
+
+def _rel(x, want):
+    return ((x - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("r,k,m", [(300, 64, 1), (37, 10, 1), (64, 32, 97),
+                                   (9, 128, 1), (8, 255, 1), (5, 250, 3)])
+def test_kernel_matches_plain(dev, r, k, m):
+    gen = torch.Generator(device=dev).manual_seed(r * k + m)
+    a, b = _spd(gen, r, k, m, dev)
+    x = spd_solve.gj_solve_multi(a, b)
+    want = spd_solve.gj_solve_multi_plain(a, b)
+    assert _rel(x, want) < 1e-4
+    assert bool((x[1] == 0).all())
+    assert spd_solve.launches == {"gj_aug": 0, "gj_aug_multi": 1}
+    x1 = spd_solve.gj_solve(a, b[..., 0], layout="aug")
+    assert _rel(x1, spd_solve.gj_solve_plain(a, b[..., 0])) < 1e-4
+    assert spd_solve.launches["gj_aug"] == 1
+
+
+def test_kernel_takes_strided_blocks(dev):
+    """Schur sub-blocks reach the kernel as strided views, uncopied."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    a, b = _spd(gen, 50, 64, 40, dev)
+    sub_a, sub_b = a[:, :32, :32], b[:, :32, 3:20]
+    assert not sub_a.is_contiguous() and not sub_b.is_contiguous()
+    x = spd_solve.gj_solve_multi(sub_a, sub_b)
+    assert _rel(x, spd_solve.gj_solve_multi_plain(sub_a, sub_b)) < 1e-4
+
+
+@pytest.mark.parametrize("k", [64, 96, 128, 200])
+def test_gj_solve_auto_matches_library_solve(dev, k):
+    gen = torch.Generator(device=dev).manual_seed(k)
+    a, b = _spd(gen, 40, k, 1, dev)
+    a[1] = torch.eye(k, device=dev)  # keep the library solve defined
+    x = spd_solve.gj_solve(a, b[..., 0])
+    assert _rel(x, torch.linalg.solve(a, b)[..., 0]) < 1e-4
+    assert sum(spd_solve.launches.values()) > 0
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    a = torch.eye(4, device=dev).expand(2, 4, 4)
+    with pytest.raises(ValueError, match="float32"):
+        spd_solve._launch("gj_aug_multi", a.double(),
+                          torch.ones(2, 4, 1, device=dev, dtype=torch.float64))
+    with pytest.raises(ValueError, match="shapes"):
+        spd_solve._launch("gj_aug_multi", a, torch.ones(2, 3, 1, device=dev))
+    with pytest.raises(ValueError, match="CUDA"):
+        spd_solve._launch("gj_aug_multi", a, torch.ones(2, 4, 1))
+    assert spd_solve.launches == {"gj_aug": 0, "gj_aug_multi": 0}
+
+
+@pytest.mark.parametrize("rank", [16, 100])
+def test_als_gj_matches_chol_on_card(dev, rank):
+    rng = np.random.default_rng(3)
+    ui = rng.integers(0, 300, 6000).astype(np.int32)
+    ii = rng.integers(0, 200, 6000).astype(np.int32)
+    r = rng.uniform(1, 5, 6000).astype(np.float32)
+    base = dict(rank=rank, iterations=4, reg=0.05, seed=0, split_cap=32)
+    gj = als.als_train(ui, ii, r, 300, 200, als.ALSConfig(solver="gj", **base),
+                       device=dev, compute_rmse=True)
+    assert sum(spd_solve.launches.values()) > 0
+    ch = als.als_train(ui, ii, r, 300, 200,
+                       als.ALSConfig(solver="chol", **base), device=dev,
+                       compute_rmse=True)
+    np.testing.assert_allclose(gj.rmse_history, ch.rmse_history, rtol=2e-3)
+
+
+def test_device_topk_matches_host_on_card(dev):
+    rng = np.random.default_rng(4)
+    uf = rng.normal(size=(200, 16)).astype(np.float32)
+    itf = rng.normal(size=(500, 16)).astype(np.float32)
+    ids = np.arange(200, dtype=np.int32)
+    exclude = {int(u): rng.choice(500, 30, replace=False).astype(np.int32)
+               for u in ids}
+    s_dev, i_dev = ranking.topk_device(uf, itf, ids, 10, exclude, device=dev)
+    s_host, i_host = ranking.topk_host(uf, itf, ids, 10, exclude)
+    np.testing.assert_allclose(s_dev, s_host, rtol=1e-5, atol=1e-5)
+    gaps = np.abs(np.diff(s_host, axis=1)) < 1e-5
+    tied = np.zeros_like(s_host, bool)
+    tied[:, :-1] |= gaps
+    tied[:, 1:] |= gaps
+    np.testing.assert_array_equal(i_dev[~tied], i_host[~tied])

@@ -1,0 +1,171 @@
+"""The port stands alone: it imports neither JAX nor the reference
+package, and its entry points never fall back to the CPU quietly."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCKED = ("jax", "jaxlib", "predictionio_tpu")
+
+_BLOCKED_RUN = textwrap.dedent("""
+    import importlib.abc, json, os, sys, tempfile, threading, urllib.request
+
+    BLOCKED = {blocked!r}
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError("blocked import of " + name)
+            return None
+
+    before = {{m for m in sys.modules if m.split(".")[0] in BLOCKED}}
+    sys.meta_path.insert(0, Block())
+
+    from predictionio_torch.tools import console
+    from predictionio_torch.workflow.create_server import PredictionServer
+
+    tmp = tempfile.mkdtemp()
+    events = os.path.join(tmp, "events.jsonl")
+    with open(events, "w") as f:
+        for n in range(120):
+            f.write(json.dumps({{
+                "event": "rate", "entityType": "user",
+                "entityId": "u%d" % (n % 9), "targetEntityType": "item",
+                "targetEntityId": "i%d" % (n % 29),
+                "properties": {{"rating": 1 + n % 5}},
+                "eventTime": "2026-01-01T00:00:%02dZ" % (n % 60)}}) + "\\n")
+    engine_json = os.path.join({repo!r}, "predictionio_torch", "templates",
+                               "recommendation", "engine.json")
+    model = os.path.join(tmp, "model.pio")
+    assert console.main(["train", "--engine-json", engine_json, "--events",
+                         events, "--model-out", model,
+                         "--device", "cpu"]) == 0
+    server = PredictionServer(engine_json, model, ip="127.0.0.1", port=0,
+                              device="cpu")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    req = urllib.request.Request(
+        "http://127.0.0.1:%d/queries.json" % server.port,
+        data=json.dumps({{"user": "u1", "num": 3}}).encode())
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        answer = json.loads(resp.read())
+    server.shutdown()
+    server.server_close()
+    assert len(answer["itemScores"]) == 3, answer
+    after = {{m for m in sys.modules if m.split(".")[0] in BLOCKED}}
+    assert after == before, sorted(after - before)
+    print("ISOLATED-OK")
+""")
+
+
+def test_train_and_serve_with_jax_and_reference_blocked():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("PIO_TORCH_DEVICE", None)
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         _BLOCKED_RUN.format(blocked=BLOCKED, repo=REPO)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "ISOLATED-OK" in proc.stdout
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(os.path.join(REPO,
+                                                   "predictionio_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return files
+
+
+def test_no_port_file_imports_jax_or_the_reference():
+    offenders = []
+    files = _port_files()
+    assert len(files) > 20
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            elif (isinstance(node, ast.Call)
+                  and getattr(node.func, "attr", "") == "import_module"
+                  and node.args and isinstance(node.args[0], ast.Constant)):
+                names = [str(node.args[0].value)]
+            else:
+                continue
+            offenders += [f"{os.path.relpath(path, REPO)}: {n}"
+                          for n in names if n.split(".")[0] in BLOCKED]
+    assert not offenders, offenders
+
+
+@pytest.fixture()
+def no_cuda(monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a machine without CUDA")
+    monkeypatch.delenv("PIO_TORCH_DEVICE", raising=False)
+
+
+def test_entry_points_without_a_device_raise(no_cuda):
+    from predictionio_torch.controller import WorkflowContext
+    from predictionio_torch.ops import als, ranking
+
+    ui = np.arange(20, dtype=np.int32) % 4
+    ii = np.arange(20, dtype=np.int32) % 5
+    r = np.ones(20, np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        als.als_train(ui, ii, r, 4, 5, als.ALSConfig(rank=2, iterations=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        WorkflowContext()
+    f = np.ones((80, 2), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ranking.recommend_topk(f, f, np.arange(80, dtype=np.int32), 3)
+
+
+def test_console_without_a_device_fails(no_cuda, tmp_path, capsys):
+    from predictionio_torch.tools import console
+
+    events = tmp_path / "events.jsonl"
+    events.write_text('{"event": "rate", "entityType": "user", "entityId": '
+                      '"u", "targetEntityType": "item", "targetEntityId": '
+                      '"i", "properties": {"rating": 3}}\n')
+    engine_json = os.path.join(REPO, "predictionio_torch", "templates",
+                               "recommendation", "engine.json")
+    rc = console.main(["train", "--engine-json", engine_json, "--events",
+                       str(events), "--model-out", str(tmp_path / "m.pio")])
+    assert rc == 1
+    assert "CUDA" in capsys.readouterr().err
+    assert not (tmp_path / "m.pio").exists()
+
+
+def test_env_selects_the_cpu(monkeypatch):
+    from predictionio_torch.device import resolve_device
+
+    monkeypatch.setenv("PIO_TORCH_DEVICE", "cpu")
+    assert resolve_device().type == "cpu"
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_context_generator_is_seeded_on_its_device():
+    from predictionio_torch.controller import WorkflowContext
+
+    ctx = WorkflowContext(device="cpu", seed=5)
+    a = torch.randn(4, generator=ctx.generator())
+    assert torch.equal(a, torch.randn(4, generator=ctx.generator()))
+    assert not torch.equal(a, torch.randn(4, generator=ctx.generator(1)))
+    assert ctx.generator().device.type == "cpu"
+
+
+def test_tf32_is_off():
+    import predictionio_torch  # noqa: F401
+
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
