@@ -14,12 +14,15 @@
 // pivot column read BEFORE the step changes any row, zeroed at row p.
 // After K steps the B columns hold X.
 //
-// What bounds it on this card: one system costs ~2*K^2*(K+M) FP32
-// operations and moves (K^2 + 2*K*M)*4 bytes, so at K = 64 it does ~32
-// operations per byte, above the H100's FP32 ridge (67 TFLOP/s over
-// 3.35 TB/s = 20 FLOP/B): the bound is the CUDA cores' FP32 rate, not HBM.
-// The design keeps every operation out of device memory: one thread block
-// owns one system, loads A and B straight (strided, so Schur sub-blocks
+// What bounds it on this card: step p only updates the K+M-1-p columns
+// right of the pivot, so one system costs (2K-1)*K*(K+2M-1)/2 FP32
+// operations and moves (K^2 + 2*K*M)*4 bytes. At K = 64, M = 1 that is
+// ~16 operations per byte, below the H100's FP32 ridge (67 TFLOP/s over
+// 3.35 TB/s = 20 FLOP/B), and at K = 32 it is ~8: at the main path's
+// shapes the bound is HBM, reading A once. The ratio grows as ~K/4, so
+// only K above ~80 (K = 255 among them) is bound by the FP32 rate. So
+// the kernel reads A from device memory exactly once and keeps the K
+// steps on chip: one thread block owns one system, loads A and B straight (strided, so Schur sub-blocks
 // need no copy) into a [K][K+M] working copy in shared memory and runs
 // all K steps there, two barriers a step; only X goes back out. The
 // reference's lane padding and HBM concatenation are not needed.

@@ -23,23 +23,18 @@ from predictionio_torch.device import DeviceLike, resolve_device
 SERVE_HOST_MAX_BATCH = 64
 
 
-def _exclusion_coo(ids, exclude, n_rows: int):
-    """Per-chunk COO exclusion indices, padded to a power of two:
-    (ex_rows [E], ex_cols [E]) int32, padding rows = n_rows."""
+def _exclusion_coo(ids, exclude):
+    """Per-chunk COO exclusion indices: (ex_rows [E], ex_cols [E]) int32,
+    one entry per seen item of each row in `ids`."""
     rows, cols = [], []
     for i, uid in enumerate(ids):
         ex = exclude.get(int(uid))
         if ex is not None and len(ex):
             cols.append(np.asarray(ex, dtype=np.int32))
             rows.append(np.full(len(ex), i, dtype=np.int32))
-    n = sum(len(r) for r in rows)
-    cap = 1 << max(0, (n - 1).bit_length())
-    ex_rows = np.full(cap, n_rows, dtype=np.int32)
-    ex_cols = np.zeros(cap, dtype=np.int32)
-    if n:
-        ex_rows[:n] = np.concatenate(rows)
-        ex_cols[:n] = np.concatenate(cols)
-    return ex_rows, ex_cols
+    if not rows:
+        return np.zeros(0, np.int32), np.zeros(0, np.int32)
+    return np.concatenate(rows), np.concatenate(cols)
 
 
 def topk_host(user_factors: np.ndarray, item_factors: np.ndarray,
@@ -85,14 +80,9 @@ def topk_device(user_factors: np.ndarray, item_factors: np.ndarray,
         u = torch.as_tensor(user_factors[ids], device=dev)
         scores = u @ item_dev.T
         if exclude:
-            ex_rows, ex_cols = _exclusion_coo(ids, exclude, len(ids))
-            # padding entries (row == len(ids)) are dropped here: torch's
-            # index_put_ has no out-of-range drop mode
-            keep = ex_rows < len(ids)
-            rows_t = torch.as_tensor(ex_rows[keep], dtype=torch.int64,
-                                     device=dev)
-            cols_t = torch.as_tensor(ex_cols[keep], dtype=torch.int64,
-                                     device=dev)
+            ex_rows, ex_cols = _exclusion_coo(ids, exclude)
+            rows_t = torch.as_tensor(ex_rows, dtype=torch.int64, device=dev)
+            cols_t = torch.as_tensor(ex_cols, dtype=torch.int64, device=dev)
             scores.index_put_((rows_t, cols_t),
                               torch.tensor(-np.inf, dtype=scores.dtype,
                                            device=dev))
