@@ -7,34 +7,52 @@ Run from the root of a checkout on a machine with a CUDA card:
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build   — nvcc builds every kernel under predictionio_torch/csrc;
-2. kernels — each kernel against its plain PyTorch version on the card at
-             the main path's shapes (max-rel < 1e-4, all-zero systems
-             exactly 0), with its time, the plain version's, one library
-             call's (Cholesky + cholesky_solve) and the card's bound;
-3. train   — `als_train` on synth_explicit("2m") at rank 64 (aug kernel)
-             and rank 128 (Schur recursion over the multi-RHS kernel); each
-             RMSE trajectory within rtol 2e-3 of a solver="chol" run;
+1. build   — nvcc builds every kernel source under predictionio_torch/csrc,
+             one nvcc per source, all started together;
+2. kernels — each of the four solve kernels against its plain PyTorch
+             version on the card at the main paths' shapes (max-rel <
+             1e-4, all-zero systems exactly 0), with its time, the plain
+             version's, one library call's (Cholesky + cholesky_solve) and
+             the card's bound;
+3. train   — `als_train` on synth_explicit("2m") at rank 64 (aug kernel),
+             rank 128 (Schur recursion over the multi-RHS kernel) and rank
+             64 under PIO_GJ_LAYOUT=packed and =blocked2; each RMSE
+             trajectory within rtol 2e-3 of a solver="chol" run;
 4. serve   — synth_explicit("100k") as a JSON-lines events file,
              `console train` on the card, `console deploy --port 0` in a
              subprocess, POST /queries.json answers equal the in-process
              model's and exclude seen items; one 1,024-user batch_predict
              through the device branch of recommend_topk agrees with the
-             host branch wherever scores are not tied.
+             host branch wherever scores are not tied;
+5. eval    — (a) `als_train_grid` at `2m`, rank 64, λ ∈ {0.01, 0.1} with
+             solver chol and with gj under the auto, packed and blocked2
+             layouts: each gj grid's per-cell RMSE within rtol 2e-3 of the
+             chol grid's, and the auto grid's cells equal to sequential
+             `als_train` runs (factors rel < 1e-4); (b) `console eval` of
+             RecommendationEvaluation on phase 4's events file in a
+             subprocess under each layout: the grid path (3 folds × 2 rank
+             groups), the layout's kernel launched, the same best cell and
+             per-cell MAP@10 within rel 2e-3 + abs 2e-5 of the auto run's;
+             (c)
+             `console batchpredict` of 1,024 queries on phase 4's model in
+             a subprocess equals the in-process batch_predict.
 
-Launch counts are zeroed just before the main path (phases 3 and 4) and
-read just after; every kernel must have launched there. `--report PATH`
-also writes a JSON report with every number (the ptxas output, the
-profile's kernel table). The last stdout line is
+Launch counts are zeroed just before each path (phases 3-4: train →
+serve; phase 5: eval → batchpredict) and read just after; every kernel of
+a path must have launched there. `--report PATH` also writes a JSON report
+with every number (the ptxas output, the profile's kernel table). The last
+stdout line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import queue
+import re
 import subprocess
 import sys
 import tempfile
@@ -50,6 +68,37 @@ PEAK_FP32_FLOPS = 67e12
 REL_BAR = 1e-4
 RMSE_RTOL = 2e-3
 ITERATIONS = 3
+# per-cell MAP@10 of a forced layout against the auto run's. The layouts'
+# factors differ by float rounding, which can swap two near-tied items
+# for a few of the ~943 test users of a fold. A swap that moves one
+# held-out item across the top-10 boundary changes that user's AP by
+# ~0.1/10 and the cell's 3-fold mean by ~3.5e-6: the absolute term allows
+# about six such swaps, the relative one the rounding of the mean itself
+MAP_RTOL = 2e-3
+MAP_ATOL = 2e-5
+EVAL_CLASS = ("predictionio_torch.templates.recommendation.evaluation."
+              "RecommendationEvaluation")
+# the TPU kernel each port kernel replaces, and the port's source
+KERNELS = {
+    "gj_aug": ("predictionio_tpu/ops/pallas_solve.py:249", "gj_solve.cu"),
+    "gj_aug_multi": ("predictionio_tpu/ops/pallas_solve.py:296",
+                     "gj_solve.cu"),
+    "gj_packed": ("predictionio_tpu/ops/pallas_solve.py:101",
+                  "gj_layouts.cu"),
+    "gj_blocked2": ("predictionio_tpu/ops/pallas_solve.py:177",
+                    "gj_layouts.cu"),
+}
+# the kernel each PIO_GJ_LAYOUT runs below rank 96
+LAYOUT_KERNEL = {"auto": "gj_aug", "packed": "gj_packed",
+                 "blocked2": "gj_blocked2"}
+# runs the console in a child process and prints its launch counts
+_CONSOLE_CHILD = (
+    "import json, sys\n"
+    "from predictionio_torch.ops import spd_solve\n"
+    "from predictionio_torch.tools import console\n"
+    "rc = console.main(sys.argv[1:])\n"
+    "print(json.dumps(spd_solve.launches), flush=True)\n"
+    "sys.exit(rc)\n")
 
 
 def emit(obj) -> None:
@@ -66,8 +115,34 @@ def gj_operations(k: int, m: int) -> int:
     """FP32 operations of Gauss-Jordan on one [K | M] augmented system.
     Step p touches only the K + M - 1 - p columns right of the pivot: one
     division each in the pivot row, one multiply-add each in the K - 1
-    other rows. Summed over the K steps: (2K - 1) · K(K + 2M - 1) / 2."""
+    other rows. Summed over the K steps: (2K - 1) · K(K + 2M - 1) / 2.
+    The packed kernel's column elimination of [[A], [bᵀ]] is the same
+    count with M = 1 (the row elimination of [Aᵀ | b])."""
     return (2 * k - 1) * k * (k + 2 * m - 1) // 2
+
+
+def blocked2_operations(k: int) -> int:
+    """FP32 operations of the two-pivot elimination of one [K | 1] system.
+    Pivot pair (j0, j0 + 1): the 2×2 determinant (3), then over the
+    K - j0 - 1 columns right of the pair the two normalised pivot rows (4
+    each: two products, a difference, a division) and two multiply-adds in
+    each of the K - 2 other rows."""
+    return sum(3 + (k - j0 - 1) * (8 + 4 * (k - 2))
+               for j0 in range(0, k, 2))
+
+
+@contextlib.contextmanager
+def gj_layout(layout: str):
+    """PIO_GJ_LAYOUT set to `layout` inside the block ("auto": unset)."""
+    old = os.environ.pop("PIO_GJ_LAYOUT", None)
+    if layout != "auto":
+        os.environ["PIO_GJ_LAYOUT"] = layout
+    try:
+        yield
+    finally:
+        os.environ.pop("PIO_GJ_LAYOUT", None)
+        if old is not None:
+            os.environ["PIO_GJ_LAYOUT"] = old
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -124,18 +199,34 @@ def _spd(gen, r, k, m, device):
     return a, b
 
 
+def _kernel_calls(name, a, b):
+    """(kernel call, plain call, FP32 operations per system) of `name` on
+    a [R, K, K], b [R, K, M]."""
+    from predictionio_torch.ops import spd_solve
+
+    k, m = b.shape[1], b.shape[2]
+    if name == "gj_aug_multi":
+        return (lambda: spd_solve.gj_solve_multi(a, b),
+                lambda: spd_solve.gj_solve_multi_plain(a, b),
+                gj_operations(k, m))
+    layout = name[len("gj_"):]
+    plain = {"aug": spd_solve.gj_solve_plain,
+             "packed": spd_solve.gj_solve_packed_plain,
+             "blocked2": spd_solve.gj_solve_blocked2_plain}[layout]
+    b1 = b[..., 0]
+    ops = blocked2_operations(k) if layout == "blocked2" else \
+        gj_operations(k, 1)
+    return (lambda: spd_solve.gj_solve(a, b1, layout=layout),
+            lambda: plain(a, b1), ops)
+
+
 def _check_kernel(name, r, k, m, gen, device, reps):
     import torch
 
     from predictionio_torch.ops import spd_solve
 
     a, b = _spd(gen, r, k, m, device)
-    if name == "gj_aug":
-        kernel = lambda: spd_solve._solve_aug(a, b[..., 0])  # noqa: E731
-        plain = lambda: spd_solve.gj_solve_plain(a, b[..., 0])  # noqa: E731
-    else:
-        kernel = lambda: spd_solve.gj_solve_multi(a, b)  # noqa: E731
-        plain = lambda: spd_solve.gj_solve_multi_plain(a, b)  # noqa: E731
+    kernel, plain, ops = _kernel_calls(name, a, b)
     x = kernel()
     want = plain()
     torch.cuda.synchronize()
@@ -150,14 +241,14 @@ def _check_kernel(name, r, k, m, gen, device, reps):
 
     row = {
         "name": name, "shape": [r, k, m],
-        "shared_memory": spd_solve.shared_fits(k, m, device),
+        "shared_memory": spd_solve.shared_fits(k, m, device, name),
         "max_abs_err": err, "max_rel_err": rel, "zero_system_exact": zeros,
         "kernel_ms": time_ms(kernel, reps),
         "plain_ms": time_ms(plain, max(1, reps // 10), warmup=1),
         "library_ms": time_ms(library, reps),
     }
     row["bound_ms"], row["bound_by"] = bound_ms(
-        4.0 * (r * k * k + 2 * r * k * m), float(gj_operations(k, m) * r))
+        4.0 * (r * k * k + 2 * r * k * m), float(ops * r))
     emit(dict(phase="kernels", **row))
     if not (rel < REL_BAR and zeros and finite):
         raise AssertionError(f"{name} at {[r, k, m]} disagrees with its "
@@ -175,14 +266,26 @@ def phase_kernels(report: dict, device) -> dict:
     ]
     rows += [_check_kernel("gj_aug_multi", 13_850, 32, m, gen, device, 20)
              for m in (1, 33, 65, 97)]
-    deep = _check_kernel("gj_aug", 1_024, 255, 1, gen, device, 3)
-    if deep["shared_memory"]:
+    deep = [_check_kernel("gj_aug", 1_024, 255, 1, gen, device, 3)]
+    # the forced layouts: the rank-64 user half-epoch, rank 128 (a forced
+    # layout bypasses Schur), config 1's quickstart rank, and the largest
+    # eval-grid solve at rank 16 (943 users × 2 cells)
+    for name in ("gj_packed", "gj_blocked2"):
+        rows += [_check_kernel(name, r, k, 1, gen, device, reps)
+                 for r, k, reps in ((13_850, 64, 20), (13_850, 128, 5),
+                                    (943, 10, 50), (1_886, 16, 50))]
+    deep.append(_check_kernel("gj_packed", 1_024, 255, 1, gen, device, 3))
+    if any(row["shared_memory"] for row in deep):
         raise AssertionError("K = 255 should take the device-memory variant")
-    rows.append(deep)
+    rows += deep
     report["kernels"] = rows
-    # the main path's shape of each kernel: rank-64 users, and the largest
-    # base call of the rank-128 Schur recursion
-    return {"gj_aug": rows[0], "gj_aug_multi": rows[5]}
+    # each kernel's main-path shape: the rank-64 user half-epoch, and for
+    # the multi-RHS kernel the largest base call of the rank-128 recursion
+    main = {"gj_aug_multi": rows[5]}
+    for name in ("gj_aug", "gj_packed", "gj_blocked2"):
+        main[name] = next(row for row in rows if row["name"] == name
+                          and row["shape"] == [13_850, 64, 1])
+    return main
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -259,34 +362,43 @@ def phase_train_reference(report: dict, data, device) -> dict:
 
 
 def phase_train(report: dict, data, device, chol: dict) -> dict:
+    """solver='gj' at rank 64 and 128 under the auto layout, and at rank 64
+    under each forced layout; every run's RMSE trajectory against the chol
+    run's, and its kernel launched."""
     from predictionio_torch.ops import spd_solve
 
-    per_rank = {}
-    for rank in (64, 128):
+    runs = {}
+    for rank, layout, kernel in ((64, "auto", "gj_aug"),
+                                 (128, "auto", "gj_aug_multi"),
+                                 (64, "packed", "gj_packed"),
+                                 (64, "blocked2", "gj_blocked2")):
         before = dict(spd_solve.launches)
-        res, wall = _train(data, rank, "gj", device)
+        with gj_layout(layout):
+            res, wall = _train(data, rank, "gj", device)
         launched = {k: spd_solve.launches[k] - before[k] for k in before}
         ref = chol[rank].rmse_history
         factor_diff = float(abs(res.item_factors
                                 - chol[rank].item_factors).max())
         ok = all(abs(x - y) <= RMSE_RTOL * abs(y)
                  for x, y in zip(res.rmse_history, ref))
-        row = {"rank": rank, "solver": "gj", "rmse": res.rmse_history,
-               "rmse_chol": ref, "item_factor_max_abs_diff": factor_diff,
+        row = {"rank": rank, "solver": "gj", "layout": layout,
+               "rmse": res.rmse_history, "rmse_chol": ref,
+               "item_factor_max_abs_diff": factor_diff,
                "epoch_s": res.epoch_times,
                "wall_s": wall, "launches": launched,
                "launches_per_epoch": {k: v / ITERATIONS
                                       for k, v in launched.items()}}
         emit(dict(phase="train", **row))
         if not ok or len(res.rmse_history) != len(ref):
-            raise AssertionError(f"rank {rank}: gj trajectory "
+            raise AssertionError(f"rank {rank} {layout}: gj trajectory "
                                  f"{res.rmse_history} vs chol {ref}")
-        per_rank[rank] = row
-    if per_rank[64]["launches"]["gj_aug"] <= 0 or \
-            per_rank[128]["launches"]["gj_aug_multi"] <= 0:
-        raise AssertionError(f"kernels not on the train path: {per_rank}")
-    report["train"] = per_rank
-    return per_rank
+        if launched[kernel] <= 0:
+            raise AssertionError(f"rank {rank} {layout}: {kernel} never "
+                                 f"launched ({launched})")
+        runs[(rank, layout)] = row
+    report["train"] = {f"{rank}-{layout}": row
+                       for (rank, layout), row in runs.items()}
+    return runs
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -341,7 +453,9 @@ def _post(url: str, query: dict) -> dict:
         return json.loads(resp.read())
 
 
-def phase_serve(report: dict, device, tmp: str) -> None:
+def phase_serve(report: dict, device, tmp: str) -> dict:
+    """The train → deploy → query path; returns the paths phase 5 reuses
+    (events file, engine.json, model file)."""
     import numpy as np
 
     from predictionio_torch.ops import ranking
@@ -445,6 +559,182 @@ def phase_serve(report: dict, device, tmp: str) -> None:
            "topk_positions_compared": compared}
     emit(dict(phase="serve", **row))
     report["serve"] = row
+    return {"events": events, "engine_json": engine_json,
+            "model": model_path, "n_users": data.n_users}
+
+
+# -- phase 5 -----------------------------------------------------------------
+
+def phase_grid(report: dict, data, device) -> dict:
+    """The grid at the north-star width: chol, then gj under each layout,
+    each against the chol grid; the auto grid against sequential trains."""
+    import numpy as np
+
+    from predictionio_torch.ops import spd_solve
+    from predictionio_torch.ops.als import ALSConfig, als_train
+    from predictionio_torch.ops.als_grid import als_train_grid
+
+    def cfgs(solver):
+        return [ALSConfig(rank=64, iterations=ITERATIONS, reg=lam, seed=0,
+                          solver=solver) for lam in (0.01, 0.1)]
+
+    grids = {}
+    rows = []
+    for name, solver, layout in (("chol", "chol", "auto"),
+                                 ("auto", "gj", "auto"),
+                                 ("packed", "gj", "packed"),
+                                 ("blocked2", "gj", "blocked2")):
+        before = dict(spd_solve.launches)
+        t0 = time.perf_counter()
+        with gj_layout(layout):
+            res = als_train_grid(data.train_u, data.train_i, data.train_r,
+                                 data.n_users, data.n_items, cfgs(solver),
+                                 device=device, compute_rmse=True)
+        wall = time.perf_counter() - t0
+        launched = {k: spd_solve.launches[k] - before[k] for k in before}
+        row = {"grid": name, "rank": 64, "reg": [0.01, 0.1],
+               "rmse": [r.rmse_history for r in res],
+               "step_s": res[0].epoch_times, "wall_s": wall,
+               "setup_s": wall - sum(res[0].epoch_times),
+               "launches": launched}
+        emit(dict(phase="eval_grid", **row))
+        rows.append(row)
+        if name == "chol":
+            if any(launched.values()):
+                raise AssertionError("the chol grid launched a GJ kernel")
+        else:
+            kernel = LAYOUT_KERNEL[layout]
+            if launched[kernel] <= 0:
+                raise AssertionError(f"{name} grid: {kernel} never launched")
+            for cell, ref in zip(res, grids["chol"]):
+                if len(cell.rmse_history) != ITERATIONS or not all(
+                        abs(x - y) <= RMSE_RTOL * abs(y) for x, y in
+                        zip(cell.rmse_history, ref.rmse_history)):
+                    raise AssertionError(
+                        f"{name} grid RMSE {cell.rmse_history} vs chol "
+                        f"{ref.rmse_history}")
+        grids[name] = res
+    seq_rel = []
+    for cfg, cell in zip(cfgs("gj"), grids["auto"]):
+        seq = als_train(data.train_u, data.train_i, data.train_r,
+                        data.n_users, data.n_items, cfg, device=device)
+        for got, want in ((cell.user_factors, seq.user_factors),
+                          (cell.item_factors, seq.item_factors)):
+            seq_rel.append(float(np.abs(got - want).max()
+                                 / np.abs(want).max()))
+    emit({"phase": "eval_grid", "grid_vs_sequential_factor_rel": seq_rel})
+    if max(seq_rel) >= REL_BAR:
+        raise AssertionError(f"grid cells differ from sequential trains: "
+                             f"{seq_rel}")
+    report["eval_grid"] = {"grids": rows, "vs_sequential_rel": seq_rel}
+    return {row["grid"]: row for row in rows}
+
+
+def _console_child(args: list, layout: str = "auto", timeout_s=900.0):
+    """Run the port's console in a child process with PIO_GJ_LAYOUT set to
+    `layout`; returns (stderr, launch counts, seconds)."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    env.pop("PIO_GJ_LAYOUT", None)
+    if layout != "auto":
+        env["PIO_GJ_LAYOUT"] = layout
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _CONSOLE_CHILD, *args],
+                          capture_output=True, text=True, cwd=HERE, env=env,
+                          timeout=timeout_s)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"console {args[0]} ({layout}) exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    launches = json.loads(proc.stdout.strip().splitlines()[-1])
+    return proc.stderr, launches, seconds
+
+
+def phase_eval(report: dict, device, tmp: str, served: dict) -> dict:
+    """`console eval` under each layout: the grid path, the layout's
+    kernel, and the same ranking of the grid's cells as the auto run."""
+    runs = {}
+    for layout in ("auto", "packed", "blocked2"):
+        out = os.path.join(tmp, f"eval-{layout}.json")
+        stderr, launches, seconds = _console_child(
+            ["eval", EVAL_CLASS, "--events", served["events"], "--out", out,
+             "--device", str(device)], layout)
+        with open(out) as f:
+            record = json.load(f)
+        result = json.loads(record["evaluator_results_json"])
+        maps = [r["scores"]["MAP@10"] for r in result["results"]]
+        best = [r["engineParams"] for r in result["results"]].index(
+            result["bestEngineParams"])
+        grids = [line for line in stderr.splitlines()
+                 if "als_train_grid: 2 grid points" in line]
+        timing = [re.search(r"set-up ([0-9.]+) s .* steps ([0-9.]+) s",
+                            line) for line in stderr.splitlines()
+                  if "als_train_grid: set-up" in line]
+        row = {"layout": layout, "wall_s": seconds,
+               "status": record["status"], "map_at_10": maps, "best": best,
+               "grid_trains": len(grids),
+               "grid_setup_s": sum(float(t.group(1)) for t in timing),
+               "grid_steps_s": sum(float(t.group(2)) for t in timing),
+               "launches": launches}
+        emit(dict(phase="eval", **row))
+        # the child's log (timestamped stages) goes to the report only
+        report.setdefault("eval_log", {})[layout] = stderr.splitlines()
+        if record["status"] != "EVALCOMPLETED" or len(grids) != 6:
+            raise AssertionError(f"console eval ({layout}) did not take "
+                                 f"the grid path (3 folds × 2 rank groups): "
+                                 f"{row}")
+        if launches[LAYOUT_KERNEL[layout]] <= 0:
+            raise AssertionError(f"console eval ({layout}): "
+                                 f"{LAYOUT_KERNEL[layout]} never launched")
+        runs[layout] = row
+    auto = runs["auto"]
+    for layout in ("packed", "blocked2"):
+        row = runs[layout]
+        if row["best"] != auto["best"] or not all(
+                abs(x - y) <= MAP_RTOL * abs(y) + MAP_ATOL
+                for x, y in zip(row["map_at_10"], auto["map_at_10"])):
+            raise AssertionError(f"console eval ({layout}) ranks the grid "
+                                 f"differently from auto: {row} vs {auto}")
+    report["eval"] = runs
+    return runs
+
+
+def phase_batchpredict(report: dict, device, tmp: str, served: dict) -> dict:
+    """`console batchpredict` of 1,024 queries on phase 4's model against
+    the in-process batch_predict of the same model."""
+    from predictionio_torch.templates.recommendation.engine import ALSAlgorithm
+    from predictionio_torch.workflow.core_workflow import read_model_file
+
+    queries = [{"user": f"u{u % served['n_users']}", "num": 10}
+               for u in range(1_024)]
+    q_path = os.path.join(tmp, "queries.jsonl")
+    o_path = os.path.join(tmp, "predictions.jsonl")
+    with open(q_path, "w") as f:
+        f.writelines(json.dumps(q) + "\n" for q in queries)
+    _, launches, seconds = _console_child(
+        ["batchpredict", "--engine-json", served["engine_json"], "--model",
+         served["model"], "--input", q_path, "--output", o_path,
+         "--device", str(device)])
+    with open(o_path) as f:
+        got = [json.loads(line) for line in f]
+    _instance, (model,) = read_model_file(served["model"])
+    model.device = str(device)
+    want = ALSAlgorithm(None).batch_predict(model, queries)
+    if [g["query"] for g in got] != queries:
+        raise AssertionError("batchpredict lost or reordered queries")
+    for g, w in zip(got, want):
+        if g["prediction"] != w:
+            raise AssertionError(f"batchpredict {g} != in-process {w}")
+    row = {"queries": len(queries), "wall_s": seconds, "launches": launches}
+    emit(dict(phase="batchpredict", **row))
+    report["batchpredict"] = row
+    return row
+
+
+def _require_launches(path: str, launches: dict, kernels) -> None:
+    missing = [k for k in kernels if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the {path} path: "
+                             f"{missing} ({launches})")
 
 
 def main(argv=None) -> int:
@@ -476,31 +766,41 @@ def main(argv=None) -> int:
     data = synth_explicit("2m")
     chol = phase_train_reference(report, data, device)
 
-    spd_solve.reset_launches()  # the main path starts here
-    per_rank = phase_train(report, data, device, chol)
+    spd_solve.reset_launches()  # the train → serve path starts here
+    train_runs = phase_train(report, data, device, chol)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_serve(report, device, tmp)
-    launches = dict(spd_solve.launches)  # ... and ends here
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+        served = phase_serve(report, device, tmp)
+        serve_launches = dict(spd_solve.launches)  # ... and ends here
+        _require_launches("train → serve", serve_launches, KERNELS)
+
+        spd_solve.reset_launches()  # the eval → batchpredict path starts here
+        phase_grid(report, data, device)
+        eval_runs = phase_eval(report, device, tmp, served)
+        phase_batchpredict(report, device, tmp, served)
+        eval_launches = dict(spd_solve.launches)  # ... and ends here
+        _require_launches("eval", eval_launches, LAYOUT_KERNEL.values())
+    report["launches"] = {"train_serve": serve_launches,
+                          "eval": eval_launches}
 
     kernels = []
-    for name, replaces in (
-            ("gj_aug", "predictionio_tpu/ops/pallas_solve.py:249"),
-            ("gj_aug_multi", "predictionio_tpu/ops/pallas_solve.py:296")):
+    for name, (replaces, source) in KERNELS.items():
         row = main_shapes[name]
+        per_epoch = {f"{rank}-{layout}": run["launches_per_epoch"][name]
+                     for (rank, layout), run in train_runs.items()}
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "predictionio_torch/csrc/gj_solve.cu",
-            "replaces": replaces, "launches": launches[name],
+            "source": f"predictionio_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": serve_launches[name] + eval_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"],
-            "launches_per_epoch_rank64": per_rank[64]["launches_per_epoch"][name],
-            "launches_per_epoch_rank128": per_rank[128]["launches_per_epoch"][name],
+            "launches_train_serve": serve_launches[name],
+            "launches_eval": eval_launches[name],
+            "launches_per_epoch_2m": per_epoch,
+            "launches_console_eval": {layout: run["launches"][name]
+                                      for layout, run in eval_runs.items()},
         })
     report["kernels_line"] = kernels
     report["wall_s"] = time.perf_counter() - t_all

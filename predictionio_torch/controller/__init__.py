@@ -1,5 +1,5 @@
-"""DASE controller: components, Engine, params and the workflow context —
-the port of ``predictionio_tpu/controller``."""
+"""DASE controller: components, Engine, params, the workflow context and
+offline evaluation — the port of ``predictionio_tpu/controller``."""
 
 from predictionio_torch.controller.base import (
     Algorithm,
@@ -13,11 +13,24 @@ from predictionio_torch.controller.base import (
 )
 from predictionio_torch.controller.context import WorkflowContext
 from predictionio_torch.controller.engine import Engine, EngineFactory, EngineParams
+from predictionio_torch.controller.evaluation import (
+    EngineParamsGenerator,
+    Evaluation,
+    EvaluationResult,
+    MetricEvaluator,
+)
+from predictionio_torch.controller.metrics import (
+    AverageMetric,
+    MAPatK,
+    Metric,
+    OptionAverageMetric,
+)
 from predictionio_torch.controller.params import EmptyParams, Params, ParamsError
 
 __all__ = [
-    "Algorithm", "DataSource", "Doer", "EmptyParams", "Engine",
-    "EngineFactory", "EngineParams", "FirstServing", "IdentityPreparator",
-    "Params", "ParamsError", "Preparator", "SanityCheck", "Serving",
-    "WorkflowContext",
+    "Algorithm", "AverageMetric", "DataSource", "Doer", "EmptyParams",
+    "Engine", "EngineFactory", "EngineParams", "EngineParamsGenerator",
+    "Evaluation", "EvaluationResult", "FirstServing", "IdentityPreparator",
+    "MAPatK", "Metric", "MetricEvaluator", "OptionAverageMetric", "Params",
+    "ParamsError", "Preparator", "SanityCheck", "Serving", "WorkflowContext",
 ]

@@ -1,6 +1,6 @@
 """DASE component base classes — the port of
-``predictionio_tpu/controller/base.py``, reduced to what the
-train/predict/serialize path needs.
+``predictionio_tpu/controller/base.py``, reduced to what the train,
+predict, evaluate and batch-predict paths need.
 """
 
 from __future__ import annotations
@@ -42,10 +42,16 @@ class Doer:
 
 
 class DataSource(abc.ABC, Generic[TD]):
-    """Reads training data from the event source."""
+    """Reads training data from the event source; `read_eval` returns the
+    k evaluation folds, each (training data, [(query, actual), ...])."""
 
     @abc.abstractmethod
     def read_training(self, ctx: WorkflowContext) -> TD: ...
+
+    def read_eval(self, ctx: WorkflowContext) -> list[tuple[TD, Sequence]]:
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement read_eval; "
+            "evaluation is unavailable for this engine.")
 
 
 class Preparator(abc.ABC, Generic[TD, PD]):
@@ -73,6 +79,14 @@ class Algorithm(abc.ABC, Generic[PD, M, Q, R]):
 
     def batch_predict(self, model: M, queries: Sequence[Q]) -> list[R]:
         return [self.predict(model, q) for q in queries]
+
+    @classmethod
+    def train_grid(cls, ctx: WorkflowContext, prepared_data: PD,
+                   algos: Sequence["Algorithm"]) -> Optional[list[M]]:
+        """Train the param variants `algos` (instances of `cls`) together:
+        one model per entry, or None when the grid is not batchable and
+        the evaluator should train them one by one (the default)."""
+        return None
 
 
 class Serving(abc.ABC, Generic[Q, R]):

@@ -1,6 +1,7 @@
 """Engine: binds DASE component classes + params into a trainable,
 deployable unit — the port of ``predictionio_tpu/controller/engine.py``,
-reduced to train, model (de)serialization and predict.
+reduced to train, eval, eval_grid, model (de)serialization, predict and
+predict_batch (the port keeps no checkpoints, so no checkpoint scopes).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from predictionio_torch.controller.base import (
     run_sanity_check,
 )
 from predictionio_torch.controller.context import WorkflowContext
-from predictionio_torch.controller.params import Params
+from predictionio_torch.controller.params import Params, params_to_dict
 
 log = logging.getLogger(__name__)
 
@@ -121,6 +122,76 @@ class Engine:
             models.append(model)
         return models
 
+    def eval(self, ctx: WorkflowContext, engine_params: EngineParams
+             ) -> list[tuple[Any, list[tuple[Any, Any, Any]]]]:
+        """Per fold: train on the fold's training split, batch-predict its
+        queries. Returns [(fold_td, [(query, predicted, actual), ...])]."""
+        ds, prep, algos, serving = self.components(engine_params)
+        folds = ds.read_eval(ctx)
+        results = []
+        for i, (td, qa_pairs) in enumerate(folds):
+            log.info("Engine.eval: fold %d/%d (%d queries)", i + 1,
+                     len(folds), len(qa_pairs))
+            pd = prep.prepare(ctx, td)
+            models = [algo.train(ctx, pd) for _, algo in algos]
+            results.append((td, _serve_fold(algos, models, serving,
+                                            qa_pairs)))
+        return results
+
+    def eval_grid(
+        self, ctx: WorkflowContext, engine_params_list: Sequence[EngineParams],
+    ) -> Optional[list[list[tuple[Any, list[tuple[Any, Any, Any]]]]]]:
+        """Evaluate every EngineParams in one pass: the folds are read and
+        prepared once, and each algorithm position trains all its cells
+        through `train_grid` (falling back to one `train` per cell when it
+        returns None). Returns per-ep fold results, the shape `eval`
+        returns, or None when the grid varies more than algorithm params
+        (data source, preparator, serving, or the algorithm names) and the
+        caller must evaluate each ep on its own."""
+        if len(engine_params_list) < 2:
+            return None
+        base = engine_params_list[0]
+
+        def shared_key(ep: EngineParams):
+            def d(p):
+                return params_to_dict(p) if p else {}
+
+            return (ep.data_source_name, d(ep.data_source_params),
+                    ep.preparator_name, d(ep.preparator_params),
+                    ep.serving_name, d(ep.serving_params),
+                    [name for name, _ in ep.algorithm_params_list])
+
+        if any(shared_key(ep) != shared_key(base)
+               for ep in engine_params_list[1:]):
+            log.info("Engine.eval_grid: grid varies beyond algorithm "
+                     "params — sequential evaluation")
+            return None
+        ds, prep, _, serving = self.components(base)
+        algos_by_ep = [self.components(ep)[2] for ep in engine_params_list]
+        folds = ds.read_eval(ctx)
+        n_ep = len(engine_params_list)
+        results: list[list] = [[] for _ in range(n_ep)]
+        for fi, (td, qa_pairs) in enumerate(folds):
+            log.info("Engine.eval_grid: fold %d/%d (%d queries, %d grid "
+                     "points)", fi + 1, len(folds), len(qa_pairs), n_ep)
+            pd = prep.prepare(ctx, td)
+            # models[e][j]: the model of ep e at algorithm position j
+            models: list[list[Any]] = [[] for _ in range(n_ep)]
+            for j in range(len(base.algorithm_params_list)):
+                instances = [algos_by_ep[e][j][1] for e in range(n_ep)]
+                cls = type(instances[0])
+                grid_models = None
+                if all(type(a) is cls for a in instances):
+                    grid_models = cls.train_grid(ctx, pd, instances)
+                if grid_models is None:
+                    grid_models = [a.train(ctx, pd) for a in instances]
+                for e in range(n_ep):
+                    models[e].append(grid_models[e])
+            for e in range(n_ep):
+                results[e].append((td, _serve_fold(
+                    algos_by_ep[e], models[e], serving, qa_pairs)))
+        return results
+
     @staticmethod
     def serialize_models(models: Sequence[Any]) -> bytes:
         return pickle.dumps(list(models))
@@ -140,6 +211,28 @@ class Engine:
         predictions = [algo.predict(model, query)
                        for (_, algo), model in zip(algos, models)]
         return serving.serve(query, predictions)
+
+    def predict_batch(self, engine_params: EngineParams,
+                      models: Sequence[Any], queries: Sequence[Any],
+                      components=None) -> list[Any]:
+        """Serve many queries in one pass: each algorithm scores the whole
+        batch through `batch_predict`, then Serving combines per query as
+        `predict` does, so results line up with per-query `predict`."""
+        if components is None:
+            components = self.components(engine_params)
+        _, _, algos, serving = components
+        return [p for _, p, _ in _serve_fold(
+            algos, models, serving, [(q, None) for q in queries])]
+
+
+def _serve_fold(algos, models, serving, qa_pairs) -> list[tuple]:
+    """[(query, served prediction, actual)]: every algorithm's
+    `batch_predict` over the queries, combined per query by `serving`."""
+    queries = [q for q, _ in qa_pairs]
+    per_algo = [algo.batch_predict(model, queries)
+                for (_, algo), model in zip(algos, models)]
+    return [(q, serving.serve(q, [preds[j] for preds in per_algo]), a)
+            for j, (q, a) in enumerate(qa_pairs)]
 
 
 class EngineFactory:

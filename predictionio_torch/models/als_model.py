@@ -3,7 +3,10 @@ the port of ``predictionio_tpu/models/als_model.py``.
 
 Factors are numpy arrays on the host, so models pickle as plain arrays and
 single queries score without touching the device; bulk scoring goes
-through `ops.ranking.recommend_topk`'s device branch on `device`.
+through `ops.ranking.recommend_topk`'s device branch on `device`. Models of
+the grid evaluation hold their factors as tensors on the device instead
+(`ops.als_grid.als_train_grid(host_factors=False)`): every read path
+scores them where they lie. Such models are not written to model files.
 """
 
 from __future__ import annotations
@@ -44,8 +47,8 @@ class SeenItems:
 
 @dataclasses.dataclass
 class ALSModel:
-    user_factors: np.ndarray  # [n_users, K]
-    item_factors: np.ndarray  # [n_items, K]
+    user_factors: ranking.Factors  # [n_users, K]
+    item_factors: ranking.Factors  # [n_items, K]
     user_ids: BiMap  # user id string → row
     item_ids: BiMap  # item id string → row
     seen: Optional[SeenItems] = None  # user row → seen item rows

@@ -2,16 +2,17 @@
 ``predictionio_tpu/ops/ranking.py``.
 
 score = U Vᵀ with seen-item exclusion, then top-k. Batches of up to
-`SERVE_HOST_MAX_BATCH` users score on the host, one numpy gemv per user,
-so a user's scores do not depend on the batch it arrived in (the serving
-contract: batched ≡ single, bitwise). Larger batches score on the port's
-device in chunks sized so the [chunk, n_items] score tile stays near
-1 GiB.
+`SERVE_HOST_MAX_BATCH` users with numpy factors score on the host, one
+numpy gemv per user, so a user's scores do not depend on the batch it
+arrived in (the serving contract: batched ≡ single, bitwise). Larger
+batches, and every batch of factors that are already tensors (the grid
+eval keeps its factors on the device), score on the device in chunks
+sized so the [chunk, n_items] score tile stays near 1 GiB.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -21,6 +22,9 @@ from predictionio_torch.device import DeviceLike, resolve_device
 # batches up to this size score on the host (serving path); larger ones on
 # the device (eval/bulk path)
 SERVE_HOST_MAX_BATCH = 64
+
+# numpy factors live on the host; tensor factors on their device
+Factors = Union[np.ndarray, torch.Tensor]
 
 
 def _exclusion_coo(ids, exclude):
@@ -60,24 +64,36 @@ def topk_host(user_factors: np.ndarray, item_factors: np.ndarray,
             np.take_along_axis(idx, order, axis=1).astype(np.int32))
 
 
-def topk_device(user_factors: np.ndarray, item_factors: np.ndarray,
+def topk_device(user_factors: Factors, item_factors: Factors,
                 user_ids: np.ndarray, k: int,
                 exclude: Optional[dict] = None,
                 chunk: Optional[int] = None,
                 device: DeviceLike = None) -> tuple[np.ndarray, np.ndarray]:
     """Device branch: per chunk of users, `mm` + `index_put_(-inf)` at
-    the seen items + `torch.topk`. `k` ≤ n_items."""
-    dev = resolve_device(device)
+    the seen items + `torch.topk`. `k` ≤ n_items. Tensor factors score
+    where they lie and are not copied; numpy factors go to `device`."""
+    if isinstance(item_factors, torch.Tensor):
+        dev = item_factors.device
+    elif isinstance(user_factors, torch.Tensor):
+        dev = user_factors.device
+    else:
+        dev = resolve_device(device)
     n_items = item_factors.shape[0]
     # ship the item table once, not per chunk
     item_dev = torch.as_tensor(item_factors, device=dev)
+    user_dev = (user_factors.to(dev) if isinstance(user_factors, torch.Tensor)
+                else None)
     if chunk is None:
         chunk = max(1, (1 << 28) // max(n_items, 1))
     chunk = min(chunk, len(user_ids))
     all_scores, all_idx = [], []
     for s in range(0, len(user_ids), chunk):
         ids = user_ids[s : s + chunk]
-        u = torch.as_tensor(user_factors[ids], device=dev)
+        if user_dev is None:
+            u = torch.as_tensor(user_factors[ids], device=dev)
+        else:
+            u = user_dev.index_select(0, torch.as_tensor(
+                ids, dtype=torch.int64, device=dev))
         scores = u @ item_dev.T
         if exclude:
             ex_rows, ex_cols = _exclusion_coo(ids, exclude)
@@ -93,8 +109,8 @@ def topk_device(user_factors: np.ndarray, item_factors: np.ndarray,
 
 
 def recommend_topk(
-    user_factors: np.ndarray,
-    item_factors: np.ndarray,
+    user_factors: Factors,
+    item_factors: Factors,
     user_ids: np.ndarray,
     k: int,
     exclude: Optional[dict[int, np.ndarray]] = None,
@@ -102,15 +118,18 @@ def recommend_topk(
     device: DeviceLike = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Top-k items for each user id. `exclude` maps user id → item-id
-    array to hide. Batches of ≤ SERVE_HOST_MAX_BATCH users score on the
-    host; larger ones on `device` (chunk: users per device chunk; None
-    sizes a ~1 GiB score tile)."""
+    array to hide. Batches of ≤ SERVE_HOST_MAX_BATCH users with numpy
+    factors score on the host; larger ones on `device`, and tensor
+    factors always where they lie, never uploaded again (chunk: users per
+    device chunk; None sizes a ~1 GiB score tile)."""
     n_items = item_factors.shape[0]
     k = min(k, n_items)
     if k <= 0 or len(user_ids) == 0:
         return (np.zeros((len(user_ids), 0), np.float32),
                 np.zeros((len(user_ids), 0), np.int32))
-    if len(user_ids) <= SERVE_HOST_MAX_BATCH:
+    on_device = (isinstance(user_factors, torch.Tensor)
+                 or isinstance(item_factors, torch.Tensor))
+    if len(user_ids) <= SERVE_HOST_MAX_BATCH and not on_device:
         return topk_host(user_factors, item_factors, user_ids, k, exclude)
     return topk_device(user_factors, item_factors, user_ids, k, exclude,
                        chunk, device)
@@ -131,8 +150,8 @@ def average_precision_at_k(predicted, actual: set, k: int) -> float:
 
 
 def map_at_k(
-    user_factors: np.ndarray,
-    item_factors: np.ndarray,
+    user_factors: Factors,
+    item_factors: Factors,
     test_user_items: dict[int, set],
     k: int = 10,
     exclude: Optional[dict[int, np.ndarray]] = None,

@@ -12,13 +12,17 @@ Layouts:
 - ``schur``: recursive Schur complements; the eliminations become f32
   `torch.bmm` products and the base systems (K ≤ 32, or odd K) go to the
   multi-RHS kernel; `auto` picks it at rank ≥ 96.
-- ``packed`` and ``blocked2`` are TPU A/B layouts that are not ported
-  yet: asking for them raises ValueError.
+- ``packed``: column Gauss-Jordan on [[A], [bᵀ]] (the b row ends as xᵀ),
+  `packed_groups(K)` systems per thread block; forced only.
+- ``blocked2``: row Gauss-Jordan two pivots per step through an explicit
+  2×2 pivot-block inverse; even K only; forced only.
 
 Dispatch: a tensor on the CPU runs the kernel's plain PyTorch version
-(`gj_solve_plain`, `gj_solve_multi_plain`); a CUDA tensor launches the
-hand-written kernel from ``csrc/gj_solve.cu`` or raises. `launches`
-counts kernel launches per wrapper.
+(`gj_solve_plain`, `gj_solve_multi_plain`, `gj_solve_packed_plain`,
+`gj_solve_blocked2_plain`); a CUDA tensor launches the hand-written
+kernel from ``csrc/gj_solve.cu`` (aug, aug_multi) or ``csrc/gj_layouts.cu``
+(packed, blocked2), or raises. `launches` counts kernel launches per
+wrapper.
 
 No pivoting: A = YᵀWY + λ(n)I is SPD. All-zero systems (bucket padding)
 solve to exactly 0 through the pivot guard |d| < 1e-30 → 1.
@@ -35,10 +39,11 @@ _MAX_RANK = 256
 _PIVOT_EPS = 1e-30
 # device-memory variant: resident blocks that share the scratch slots
 _SCRATCH_SLOTS = 1024
-_NOT_PORTED = ("packed", "blocked2")
+_LANES = 128  # the TPU kernel's lane width, which sets the packed grouping
+_MAX_GROUPS = 4
 
 # kernel launches per wrapper (plain ints; the plain versions never count)
-launches = {"gj_aug": 0, "gj_aug_multi": 0}
+launches = {"gj_aug": 0, "gj_aug_multi": 0, "gj_packed": 0, "gj_blocked2": 0}
 
 
 def reset_launches() -> None:
@@ -48,6 +53,12 @@ def reset_launches() -> None:
 
 def gj_applicable(rank: int) -> bool:
     return rank <= _MAX_RANK
+
+
+def packed_groups(k: int) -> int:
+    """Systems per thread block in the packed layout: the reference's
+    systems per 128-lane block, ⌊128/K⌋ clamped to [1, 4]."""
+    return max(1, min(_MAX_GROUPS, _LANES // k))
 
 
 # -- plain versions ---------------------------------------------------------
@@ -81,47 +92,113 @@ def gj_solve_multi_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _gj_plain(work, k)[:, :, k:]
 
 
-# -- the CUDA kernel --------------------------------------------------------
+def gj_solve_packed_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x [R, K] by column Gauss-Jordan on M = [[A], [bᵀ]] (plain PyTorch),
+    the packed kernel's arithmetic step for step. M's rows are A's rows as
+    they lie, so step j reads A's column j: for an A that is not bitwise
+    symmetric this solves Aᵀx = b, as the reference's packed kernel does."""
+    k = a.shape[1]
+    m = torch.cat([a.float(), b.float()[:, None, :]], dim=1)  # [R, K+1, K]
+    for j in range(k):
+        f = m[:, j, :]  # pivot row
+        d = f[:, j]
+        d = torch.where(d.abs() < _PIVOT_EPS, torch.ones_like(d), d)
+        pn = m[:, :, j] / d[:, None]  # pivot column, normalised
+        m = m - pn[:, :, None] * f[:, None, :]
+        m[:, :, j] = pn
+    return m[:, k, :]
 
+
+def gj_solve_blocked2_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x [R, K] by row Gauss-Jordan on [A | b] two pivots per step through
+    the explicit 2×2 pivot-block inverse (plain PyTorch), the blocked2
+    kernel's arithmetic step for step. K must be even."""
+    k = a.shape[1]
+    if k % 2:
+        raise ValueError(f"layout='blocked2' needs even rank, got {k}")
+    w = torch.cat([a.float(), b.float()[..., None]], dim=-1)  # [R, K, K+1]
+    for j0 in range(0, k, 2):
+        j1 = j0 + 1
+        row0, row1 = w[:, j0, :], w[:, j1, :]
+        p00, p01 = row0[:, j0:j0 + 1], row0[:, j1:j1 + 1]
+        p10, p11 = row1[:, j0:j0 + 1], row1[:, j1:j1 + 1]
+        det = p00 * p11 - p01 * p10
+        det = torch.where(det.abs() < _PIVOT_EPS, torch.ones_like(det), det)
+        n0 = (p11 * row0 - p01 * row1) / det
+        n1 = (p00 * row1 - p10 * row0) / det
+        col0 = w[:, :, j0].clone()
+        col1 = w[:, :, j1].clone()
+        col0[:, j0:j1 + 1] = 0.0
+        col1[:, j0:j1 + 1] = 0.0
+        w = (w - col0[:, :, None] * n0[:, None, :]
+             - col1[:, :, None] * n1[:, None, :])
+        w[:, j0, :] = n0
+        w[:, j1, :] = n1
+    return w[:, :, k]
+
+
+# -- the CUDA kernels -------------------------------------------------------
+
+# kernel → its source under csrc/
+_SOURCE = {"gj_aug": "gj_solve", "gj_aug_multi": "gj_solve",
+           "gj_packed": "gj_layouts", "gj_blocked2": "gj_layouts"}
 _max_shared: dict[int, int] = {}
 
 
-def _bind(lib) -> None:
+def _bind(lib, source: str) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.gj_max_shared_bytes.argtypes = [i32]
-    lib.gj_max_shared_bytes.restype = i32
-    lib.gj_aug.argtypes = [p, i64, i64, i64, p, i64, i64, p, p, i64, i32,
-                           i32, p]
-    lib.gj_aug.restype = i32
-    lib.gj_aug_multi.argtypes = [p, i64, i64, i64, p, i64, i64, i64, p, p,
-                                 i64, i32, i32, i32, p]
-    lib.gj_aug_multi.restype = i32
+    if source == "gj_solve":
+        lib.gj_max_shared_bytes.argtypes = [i32]
+        lib.gj_max_shared_bytes.restype = i32
+        lib.gj_aug.argtypes = [p, i64, i64, i64, p, i64, i64, p, p, i64,
+                               i32, i32, p]
+        lib.gj_aug_multi.argtypes = [p, i64, i64, i64, p, i64, i64, i64, p,
+                                     p, i64, i32, i32, i32, p]
+        fns = (lib.gj_aug, lib.gj_aug_multi)
+    else:
+        lib.gj_packed.argtypes = [p, i64, i64, i64, p, i64, i64, p, p, i64,
+                                  i32, i32, i32, p]
+        lib.gj_blocked2.argtypes = [p, i64, i64, i64, p, i64, i64, p, p,
+                                    i64, i32, i32, p]
+        fns = (lib.gj_packed, lib.gj_blocked2)
+    for fn in fns:
+        fn.restype = i32
 
 
-def _lib():
+def _lib(source: str = "gj_solve"):
     from predictionio_torch.ops import _build
 
-    lib = _build.load("gj_solve")
+    lib = _build.load(source)
     if not getattr(lib, "_pio_bound", False):
-        _bind(lib)
+        _bind(lib, source)
         lib._pio_bound = True
     return lib
 
 
-def shared_fits(k: int, m: int, device: torch.device) -> bool:
-    """Whether a [K, K+M] working copy fits one block's shared memory on
-    `device`; otherwise the device-memory variant runs."""
+def _block_floats(name: str, k: int, m: int) -> tuple[int, int]:
+    """(working-copy floats, pivot row + column floats) of one block."""
+    if name == "gj_packed":
+        g = packed_groups(k)
+        return g * (k + 1) * k, g * (2 * k + 1)
+    if name == "gj_blocked2":
+        return k * (k + 1), 2 * (k + 1) + 2 * k
+    return k * (k + m), 2 * k + m
+
+
+def shared_fits(k: int, m: int, device: torch.device,
+                name: str = "gj_aug") -> bool:
+    """Whether one block of kernel `name` keeps its working copy in shared
+    memory on `device`; otherwise its device-memory variant runs."""
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
     if idx not in _max_shared:
         _max_shared[idx] = _lib().gj_max_shared_bytes(idx)
-    w = k + m
-    return (k * w + k + w) * 4 <= _max_shared[idx]
+    return sum(_block_floats(name, k, m)) * 4 <= _max_shared[idx]
 
 
 def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch `name` on CUDA tensors a [R, K, K] and b [R, K, M] (any
-    strides); returns X [R, K, M]."""
+    strides; M = 1 for packed and blocked2); returns X [R, K, M]."""
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"{name}: a and b must be on one CUDA device, got "
                          f"{a.device} and {b.device}")
@@ -132,26 +209,31 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{name}: shapes {tuple(a.shape)} and "
                          f"{tuple(b.shape)} are not [R, K, K] and [R, K, M]")
     m = b.shape[2]
+    if name in ("gj_packed", "gj_blocked2") and m != 1:
+        raise ValueError(f"{name}: takes one right-hand side, got M={m}")
     x = torch.empty((r, k, m), dtype=torch.float32, device=a.device)
     if r == 0:
         return x
-    lib = _lib()
+    lib = _lib(_SOURCE[name])
+    g = packed_groups(k) if name == "gj_packed" else 1  # systems per block
     scratch = None
     grid = 0
-    if not shared_fits(k, m, a.device):
-        grid = min(r, _SCRATCH_SLOTS)
-        scratch = torch.empty(grid * k * (k + m), dtype=torch.float32,
-                              device=a.device)
+    if not shared_fits(k, m, a.device, name):
+        grid = min(-(-r // g), _SCRATCH_SLOTS)
+        scratch = torch.empty(grid * _block_floats(name, k, m)[0],
+                              dtype=torch.float32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     sp = None if scratch is None else scratch.data_ptr()
-    if name == "gj_aug":
-        err = lib.gj_aug(a.data_ptr(), *a.stride(), b.data_ptr(),
-                         b.stride(0), b.stride(1), x.data_ptr(), sp, r, k,
-                         grid, stream)
-    else:
-        err = lib.gj_aug_multi(a.data_ptr(), *a.stride(), b.data_ptr(),
-                               *b.stride(), x.data_ptr(), sp, r, k, m, grid,
-                               stream)
+    ab = (a.data_ptr(), *a.stride(), b.data_ptr())
+    if name == "gj_aug_multi":
+        err = lib.gj_aug_multi(*ab, *b.stride(), x.data_ptr(), sp, r, k, m,
+                               grid, stream)
+    elif name == "gj_packed":
+        err = lib.gj_packed(*ab, b.stride(0), b.stride(1), x.data_ptr(), sp,
+                            r, k, g, grid, stream)
+    else:  # gj_aug, gj_blocked2
+        err = getattr(lib, name)(*ab, b.stride(0), b.stride(1),
+                                 x.data_ptr(), sp, r, k, grid, stream)
     if err:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"(R={r}, K={k}, M={m})")
@@ -161,10 +243,12 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 # -- public surface ---------------------------------------------------------
 
-def _solve_aug(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _solve_one(name: str, plain, a: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """x [R, K]: `plain` on CPU tensors, kernel `name` on CUDA tensors."""
     if a.device.type == "cpu":
-        return gj_solve_plain(a, b)
-    return _launch("gj_aug", a.float(), b.float()[..., None])[..., 0]
+        return plain(a, b)
+    return _launch(name, a.float(), b.float()[..., None])[..., 0]
 
 
 def gj_solve_multi(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -214,18 +298,23 @@ def gj_solve(a: torch.Tensor, b: torch.Tensor, layout: str = "") -> torch.Tensor
 
     a: [R, K, K] (all-zero systems yield x = 0); b: [R, K].
     layout: "auto" (default) picks "schur" at rank ≥ 96 and "aug" below;
-    "aug" and "schur" force a layout; ``PIO_GJ_LAYOUT`` applies when
-    `layout` is empty. Returns x [R, K] f32."""
+    "aug", "packed", "blocked2" and "schur" force a layout;
+    ``PIO_GJ_LAYOUT`` applies when `layout` is empty. Returns x [R, K]
+    f32."""
     layout = layout or os.environ.get("PIO_GJ_LAYOUT", "auto")
     k = a.shape[1]
     if layout == "auto":
         layout = "schur" if k >= 96 else "aug"
     if layout == "schur":
         return schur_solve(a, b)
-    if layout in _NOT_PORTED:
-        raise ValueError(f"gj_solve layout {layout!r} is a TPU A/B layout "
-                         "that is not ported yet (want auto/aug/schur)")
+    if layout == "packed":
+        return _solve_one("gj_packed", gj_solve_packed_plain, a, b)
+    if layout == "blocked2":
+        # a forced layout never measures another kernel than it names
+        if k % 2:
+            raise ValueError(f"layout='blocked2' needs even rank, got {k}")
+        return _solve_one("gj_blocked2", gj_solve_blocked2_plain, a, b)
     if layout != "aug":
         raise ValueError(f"unknown gj_solve layout {layout!r} "
-                         "(want auto/aug/schur)")
-    return _solve_aug(a, b)
+                         "(want auto/aug/packed/blocked2/schur)")
+    return _solve_one("gj_aug", gj_solve_plain, a, b)

@@ -1,7 +1,8 @@
 """Recommendation engine template (DASE components) — the port of
 ``predictionio_tpu/templates/recommendation/engine.py``: ALS trained by
 `ops.als.als_train` on the context's device, blended with an
-item-popularity baseline.
+item-popularity baseline. `DataSource.read_eval` (k folds) and
+`ALSAlgorithm.train_grid` (`ops.als_grid`) serve `evaluation.py`.
 
 Wire shapes (kept from the reference):
     query:  {"user": "1", "num": 4}
@@ -44,7 +45,7 @@ class DataSourceParams(Params):
     appName: str = ""
     eventNames: list = dataclasses.field(default_factory=lambda: ["rate", "buy"])
     buyRating: float = 4.0  # implicit rating assigned to "buy"
-    evalK: int = 0  # read_eval is not ported yet; kept for engine.json
+    evalK: int = 0  # >1 enables read_eval with k folds
 
 
 @dataclasses.dataclass
@@ -70,7 +71,7 @@ class DataSource(BaseDataSource):
     def __init__(self, params: DataSourceParams):
         self.params = params
 
-    def read_training(self, ctx: WorkflowContext) -> TrainingData:
+    def _read_events(self, ctx: WorkflowContext) -> TrainingData:
         """Columnar read of rate/buy events. Rows come in event-time
         order: the Preparator's re-rating dedup keeps the LAST
         occurrence, which must mean the latest event."""
@@ -91,16 +92,49 @@ class DataSource(BaseDataSource):
         values = np.where(cols.event_codes == rate_code, cols.values,
                           np.float32(self.params.buyRating))
         valid = (cols.target_ids >= 0) & ~np.isnan(values)
-        td = TrainingData(
+        return TrainingData(
             user_idx=cols.entity_ids[valid],
             item_idx=cols.target_ids[valid],
             ratings=values[valid].astype(np.float32),
             user_ids=cols.entity_bimap,
             item_ids=cols.target_bimap,
         )
+
+    def read_training(self, ctx: WorkflowContext) -> TrainingData:
+        td = self._read_events(ctx)
         log.info("DataSource: %d rating events from app %r",
                  len(td.ratings), self.params.appName)
         return td
+
+    def read_eval(self, ctx: WorkflowContext):
+        """k folds by event index: fold i tests on every k-th event and
+        trains on the rest. Each test user asks for its top 10; actual =
+        that user's held-out items."""
+        k = self.params.evalK
+        if k <= 1:
+            raise ValueError("DataSourceParams.evalK must be >= 2 for "
+                             "evaluation")
+        td = self._read_events(ctx)
+        assign = np.arange(len(td.ratings)) % k
+        folds = []
+        for fold in range(k):
+            train_sel = assign != fold
+            fold_td = TrainingData(
+                user_idx=td.user_idx[train_sel],
+                item_idx=td.item_idx[train_sel],
+                ratings=td.ratings[train_sel],
+                user_ids=td.user_ids,
+                item_ids=td.item_ids,
+            )
+            test_users = td.user_ids.from_index(td.user_idx[~train_sel])
+            test_items = td.item_ids.from_index(td.item_idx[~train_sel])
+            actual_by_user: dict[str, set] = {}
+            for u, i in zip(test_users, test_items):
+                actual_by_user.setdefault(u, set()).add(i)
+            qa = [({"user": u, "num": 10}, {"items": sorted(items)})
+                  for u, items in sorted(actual_by_user.items())]
+            folds.append((fold_td, qa))
+        return folds
 
 
 @dataclasses.dataclass
@@ -190,6 +224,49 @@ class ALSAlgorithm(Algorithm):
             alpha=p.alpha,
             seed=ctx.seed if p.seed is None else p.seed,
             split_cap=p.splitCap,
+        )
+
+    @classmethod
+    def train_grid(cls, ctx: WorkflowContext, pd: PreparedData,
+                   algos) -> Optional[list[ALSModel]]:
+        """The eval grid's cells, trained together (`ops/als_grid.py`):
+        cells that differ only in (λ, α, seed, iterations) share one
+        batched train; the stock rank × λ grid becomes one per rank, and
+        singleton cells take the ordinary `train`. The models keep their
+        factors on `ctx.device` (host_factors=False): the evaluation
+        scores them there, and they are never written to a model file."""
+        from predictionio_torch.ops.als_grid import grid_dispatch
+
+        cfgs = [a._als_config(ctx) for a in algos]
+        # built on first use: no O(n_events) pass when every cell falls
+        # back to sequential trains
+        seen_box: list[SeenItems] = []
+
+        def build_model(i, r):
+            if not seen_box:
+                seen_box.append(
+                    SeenItems(pd.user_idx, pd.item_idx, len(pd.user_ids)))
+            return ALSModel(
+                user_factors=r.user_factors,
+                item_factors=r.item_factors,
+                user_ids=pd.user_ids,
+                item_ids=pd.item_ids,
+                seen=seen_box[0],
+                # a computeRMSE=False cell comes out empty, as its
+                # sequential train would
+                rmse_history=(r.rmse_history
+                              if algos[i].params.computeRMSE else []),
+                device=str(ctx.device),
+            )
+
+        return grid_dispatch(
+            ctx, cfgs, pd.user_idx, pd.item_idx, pd.ratings,
+            n_users=len(pd.user_ids), n_items=len(pd.item_ids),
+            train_one=lambda i: algos[i].train(ctx, pd),
+            build_model=build_model,
+            log_prefix="ALSAlgorithm.train_grid",
+            rmse_flags=[a.params.computeRMSE for a in algos],
+            host_factors=False,
         )
 
     def predict(self, model: ALSModel, query: Query) -> PredictedResult:

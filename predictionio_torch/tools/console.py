@@ -1,13 +1,20 @@
-"""The port's console — `train` and `deploy`, the port of
-``predictionio_tpu/tools/console.py::cmd_train`` / ``cmd_deploy``.
+"""The port's console — `train`, `deploy`, `eval` and `batchpredict`, the
+port of ``predictionio_tpu/tools/console.py``'s ``cmd_train``,
+``cmd_deploy``, ``cmd_eval`` and ``cmd_batchpredict``.
 
     python -m predictionio_torch.tools.console train \\
         --engine-json E --events F --model-out M [--device cuda|cpu]
     python -m predictionio_torch.tools.console deploy \\
         --engine-json E --model M [--port 0] [--device cuda|cpu]
+    python -m predictionio_torch.tools.console eval EVALUATION_CLASS \\
+        [GENERATOR_CLASS] --events F [--out R] [--device cuda|cpu]
+    python -m predictionio_torch.tools.console batchpredict \\
+        --engine-json E --model M --input Q --output O [--device cuda|cpu]
 
-`--events` is a JSON-lines events file (the `pio export` format).
-Without `--device` the commands run on CUDA (or ``$PIO_TORCH_DEVICE``).
+`--events` is a JSON-lines events file (the `pio export` format); `eval
+--out` writes the evaluation instance as JSON (the record the reference
+keeps in storage). Without `--device` the commands run on CUDA (or
+``$PIO_TORCH_DEVICE``).
 """
 
 from __future__ import annotations
@@ -45,6 +52,58 @@ def cmd_train(args) -> int:
         print(f"Training failed: {e}", file=sys.stderr)
         return 1
     print(f"Training completed. Engine instance ID: {instance.id}")
+    return 0
+
+
+def cmd_eval(args) -> int:
+    from predictionio_torch.controller.context import WorkflowContext
+    from predictionio_torch.workflow.core_workflow import CoreWorkflow
+    from predictionio_torch.workflow.workflow_utils import resolve_symbol
+
+    def instantiate(dotted: str):
+        obj = resolve_symbol(dotted)
+        return obj() if isinstance(obj, type) else obj
+
+    try:
+        evaluation = instantiate(args.evaluation_class)
+        if args.generator_class:
+            generator = instantiate(args.generator_class)
+        elif hasattr(evaluation, "engine_params_list"):
+            generator = evaluation  # an Evaluation doubling as generator
+        else:
+            raise ValueError("No engine params generator: pass "
+                             "generator_class or give the Evaluation an "
+                             "engine_params_list.")
+        ctx = WorkflowContext(device=args.device, seed=args.seed,
+                              events_path=args.events)
+        instance, result = CoreWorkflow.run_evaluation(
+            evaluation, generator, ctx,
+            evaluation_class=args.evaluation_class,
+            generator_class=args.generator_class or args.evaluation_class,
+            out_path=args.out)
+    except FileNotFoundError as e:
+        print(f"Cannot read input: {e}", file=sys.stderr)
+        return 1
+    except (RuntimeError, ImportError, AttributeError, ValueError, TypeError,
+            KeyError) as e:
+        print(f"Evaluation failed: {e}", file=sys.stderr)
+        return 1
+    print(result.summary())
+    print(f"Evaluation completed. Instance ID: {instance.id}")
+    return 0
+
+
+def cmd_batchpredict(args) -> int:
+    from predictionio_torch.workflow.batch_predict import run_batch_predict
+
+    try:
+        n = run_batch_predict(args.input, args.output, args.engine_json,
+                              args.model, device=args.device)
+    except (RuntimeError, FileNotFoundError, ValueError, TypeError, KeyError,
+            ImportError, AttributeError) as e:
+        print(f"Batch predict failed: {e}", file=sys.stderr)
+        return 1
+    print(f"Batch predict completed: {n} queries → {args.output}")
     return 0
 
 
@@ -96,7 +155,8 @@ def _serve_until_signal(server) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="predictionio_torch",
-        description="PyTorch/CUDA port of the pio train/deploy lifecycle")
+        description="PyTorch/CUDA port of the pio train/deploy/eval "
+                    "lifecycle")
     p.add_argument("--version", action="version",
                    version=predictionio_torch.__version__)
     sub = p.add_subparsers(dest="command", required=True)
@@ -120,6 +180,29 @@ def build_parser() -> argparse.ArgumentParser:
     d.add_argument("--device", default=None,
                    help="cuda (default), cuda:N or cpu")
     d.set_defaults(fn=cmd_deploy)
+
+    e = sub.add_parser("eval", help="evaluate a params grid on an events "
+                                    "file")
+    e.add_argument("evaluation_class")
+    e.add_argument("generator_class", nargs="?", default=None)
+    e.add_argument("--events", required=True,
+                   help="JSON-lines events file (pio export format)")
+    e.add_argument("--out", default=None,
+                   help="write the evaluation instance here as JSON")
+    e.add_argument("--device", default=None,
+                   help="cuda (default), cuda:N or cpu")
+    e.add_argument("--seed", type=int, default=0)
+    e.set_defaults(fn=cmd_eval)
+
+    b = sub.add_parser("batchpredict",
+                       help="score a JSON-lines queries file")
+    b.add_argument("--engine-json", default="engine.json")
+    b.add_argument("--model", required=True)
+    b.add_argument("--input", required=True)
+    b.add_argument("--output", required=True)
+    b.add_argument("--device", default=None,
+                   help="cuda (default), cuda:N or cpu")
+    b.set_defaults(fn=cmd_batchpredict)
     return p
 
 

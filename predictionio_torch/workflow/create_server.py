@@ -12,13 +12,20 @@ in later slices.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
 
+import torch
+
+from predictionio_torch.controller.engine import Engine, EngineParams
 from predictionio_torch.device import DeviceLike, resolve_device
-from predictionio_torch.workflow.core_workflow import read_model_file
+from predictionio_torch.workflow.core_workflow import (
+    EngineInstance,
+    read_model_file,
+)
 from predictionio_torch.workflow.workflow_utils import (
     extract_engine_params,
     get_engine,
@@ -28,27 +35,50 @@ from predictionio_torch.workflow.workflow_utils import (
 log = logging.getLogger(__name__)
 
 
+@dataclasses.dataclass
+class ServedState:
+    """What serving one model file needs, resolved once."""
+
+    instance: EngineInstance
+    engine: Engine
+    engine_params: EngineParams
+    models: list
+    components: tuple
+
+
+def load_served_state(engine_json: str, model_path: str,
+                      device: torch.device) -> ServedState:
+    """Load a model file for the engine that engine.json names (refusing a
+    model another engine trained), with every model's bulk scoring set to
+    `device`: the device of the run, not the one pickled with the model."""
+    variant = read_engine_json(engine_json)
+    instance, models = read_model_file(model_path)
+    if instance.engine_factory != variant.engine_factory:
+        raise ValueError(
+            f"model file {model_path} was trained by "
+            f"{instance.engine_factory}, engine.json names "
+            f"{variant.engine_factory}")
+    engine = get_engine(variant.engine_factory)
+    engine_params = extract_engine_params(engine, variant)
+    for model in models:
+        if hasattr(model, "device"):
+            model.device = str(device)
+    return ServedState(instance, engine, engine_params, models,
+                       engine.components(engine_params))
+
+
 class PredictionServer(ThreadingHTTPServer):
     daemon_threads = True
 
     def __init__(self, engine_json: str, model_path: str, ip: str = "0.0.0.0",
                  port: int = 8000, device: DeviceLike = None):
         self.device = resolve_device(device)
-        variant = read_engine_json(engine_json)
-        self.instance, models = read_model_file(model_path)
-        if self.instance.engine_factory != variant.engine_factory:
-            raise ValueError(
-                f"model file {model_path} was trained by "
-                f"{self.instance.engine_factory}, engine.json names "
-                f"{variant.engine_factory}")
-        self.engine = get_engine(variant.engine_factory)
-        self.engine_params = extract_engine_params(self.engine, variant)
-        for model in models:
-            # bulk scoring of a model runs on the server's device
-            if hasattr(model, "device"):
-                model.device = str(self.device)
-        self.models = models
-        self.components = self.engine.components(self.engine_params)
+        state = load_served_state(engine_json, model_path, self.device)
+        self.instance = state.instance
+        self.engine = state.engine
+        self.engine_params = state.engine_params
+        self.models = state.models
+        self.components = state.components
         super().__init__((ip, port), _Handler)
         log.info("Deployed engine instance %s on %s", self.instance.id,
                  self.device)

@@ -63,7 +63,7 @@ def _assert_parity(port, ref):
 def _cpu_never_launches():
     spd_solve.reset_launches()
     yield
-    assert spd_solve.launches == {"gj_aug": 0, "gj_aug_multi": 0}
+    assert not any(spd_solve.launches.values()), spd_solve.launches
 
 
 @pytest.mark.parametrize("implicit", [False, True])

@@ -47,10 +47,43 @@ def test_kernel_matches_plain(dev, r, k, m):
     want = spd_solve.gj_solve_multi_plain(a, b)
     assert _rel(x, want) < 1e-4
     assert bool((x[1] == 0).all())
-    assert spd_solve.launches == {"gj_aug": 0, "gj_aug_multi": 1}
+    assert spd_solve.launches["gj_aug_multi"] == 1
+    assert sum(spd_solve.launches.values()) == 1
     x1 = spd_solve.gj_solve(a, b[..., 0], layout="aug")
     assert _rel(x1, spd_solve.gj_solve_plain(a, b[..., 0])) < 1e-4
     assert spd_solve.launches["gj_aug"] == 1
+
+
+_LAYOUT_PLAIN = {"packed": spd_solve.gj_solve_packed_plain,
+                 "blocked2": spd_solve.gj_solve_blocked2_plain}
+
+
+@pytest.mark.parametrize("layout,r,k", [
+    ("packed", 300, 64), ("packed", 37, 10), ("packed", 21, 16),
+    ("packed", 9, 128), ("packed", 8, 255), ("blocked2", 300, 64),
+    ("blocked2", 37, 10), ("blocked2", 9, 128), ("blocked2", 6, 256)])
+def test_layout_kernels_match_plain(dev, layout, r, k):
+    """packed (K = 255: the device-memory variant) and blocked2 (K = 256:
+    the same) against their plain versions; 21 systems at K = 16 leave
+    the last packed block short."""
+    gen = torch.Generator(device=dev).manual_seed(r * k)
+    a, b = _spd(gen, r, k, 1, dev)
+    x = spd_solve.gj_solve(a, b[..., 0], layout=layout)
+    want = _LAYOUT_PLAIN[layout](a, b[..., 0])
+    assert _rel(x, want) < 1e-4
+    assert bool((x[1] == 0).all())
+    assert spd_solve.launches[f"gj_{layout}"] == 1
+    assert sum(spd_solve.launches.values()) == 1
+
+
+@pytest.mark.parametrize("layout", ["packed", "blocked2"])
+def test_layout_kernels_take_strided_inputs(dev, layout):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    a, b = _spd(gen, 40, 64, 3, dev)
+    sub_a, sub_b = a[:, :32, :32], b[:, :32, 1]
+    assert not sub_a.is_contiguous() and not sub_b.is_contiguous()
+    x = spd_solve.gj_solve(sub_a, sub_b, layout=layout)
+    assert _rel(x, _LAYOUT_PLAIN[layout](sub_a, sub_b)) < 1e-4
 
 
 def test_kernel_takes_strided_blocks(dev):
@@ -82,7 +115,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         spd_solve._launch("gj_aug_multi", a, torch.ones(2, 3, 1, device=dev))
     with pytest.raises(ValueError, match="CUDA"):
         spd_solve._launch("gj_aug_multi", a, torch.ones(2, 4, 1))
-    assert spd_solve.launches == {"gj_aug": 0, "gj_aug_multi": 0}
+    with pytest.raises(ValueError, match="one right-hand side"):
+        spd_solve._launch("gj_packed", a, torch.ones(2, 4, 2, device=dev))
+    assert not any(spd_solve.launches.values())
 
 
 @pytest.mark.parametrize("rank", [16, 100])

@@ -59,6 +59,23 @@ _BLOCKED_RUN = textwrap.dedent("""
     server.shutdown()
     server.server_close()
     assert len(answer["itemScores"]) == 3, answer
+    out = os.path.join(tmp, "eval.json")
+    assert console.main(["eval", "predictionio_torch.templates."
+                         "recommendation.evaluation.RecommendationEvaluation",
+                         "--events", events, "--out", out,
+                         "--device", "cpu"]) == 0
+    with open(out) as f:
+        assert json.load(f)["status"] == "EVALCOMPLETED"
+    queries = os.path.join(tmp, "queries.jsonl")
+    with open(queries, "w") as f:
+        for n in range(80):
+            f.write(json.dumps({{"user": "u%d" % (n % 9), "num": 2}}) + "\\n")
+    predictions = os.path.join(tmp, "predictions.jsonl")
+    assert console.main(["batchpredict", "--engine-json", engine_json,
+                         "--model", model, "--input", queries, "--output",
+                         predictions, "--device", "cpu"]) == 0
+    with open(predictions) as f:
+        assert len(f.readlines()) == 80
     after = {{m for m in sys.modules if m.split(".")[0] in BLOCKED}}
     assert after == before, sorted(after - before)
     print("ISOLATED-OK")
