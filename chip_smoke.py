@@ -10,7 +10,8 @@ Phases (any failure exits non-zero and prints no result line):
 1. build   — nvcc builds every kernel source under predictionio_torch/csrc,
              one nvcc per source, all started together;
 2. kernels — each of the four solve kernels against its plain PyTorch
-             version on the card at the main paths' shapes (max-rel <
+             version on the card at the main paths' shapes, the eval
+             path's rank-8 and rank-16 grid solves among them (max-rel <
              1e-4, all-zero systems exactly 0), with its time, the plain
              version's, one library call's (Cholesky + cholesky_solve) and
              the card's bound;
@@ -39,7 +40,9 @@ Phases (any failure exits non-zero and prints no result line):
 
 Launch counts are zeroed just before each path (phases 3-4: train →
 serve; phase 5: eval → batchpredict) and read just after; every kernel of
-a path must have launched there. `--report PATH` also writes a JSON report
+a path must have launched there. The eval path's counts add the console
+children's own to the grids'; the sequential trains phase 5a compares
+with run before its counts are zeroed. `--report PATH` also writes a JSON report
 with every number (the ptxas output, the profile's kernel table). The last
 stdout line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -52,7 +55,6 @@ import contextlib
 import json
 import os
 import queue
-import re
 import subprocess
 import sys
 import tempfile
@@ -91,13 +93,15 @@ KERNELS = {
 # the kernel each PIO_GJ_LAYOUT runs below rank 96
 LAYOUT_KERNEL = {"auto": "gj_aug", "packed": "gj_packed",
                  "blocked2": "gj_blocked2"}
-# runs the console in a child process and prints its launch counts
+# runs the console in a child process and prints, as its last line, its
+# launch counts and its grid trains (als_grid.grid_log)
 _CONSOLE_CHILD = (
     "import json, sys\n"
-    "from predictionio_torch.ops import spd_solve\n"
+    "from predictionio_torch.ops import als_grid, spd_solve\n"
     "from predictionio_torch.tools import console\n"
     "rc = console.main(sys.argv[1:])\n"
-    "print(json.dumps(spd_solve.launches), flush=True)\n"
+    "print(json.dumps({'launches': spd_solve.launches,\n"
+    "                  'grids': als_grid.grid_log}), flush=True)\n"
     "sys.exit(rc)\n")
 
 
@@ -260,20 +264,20 @@ def phase_kernels(report: dict, device) -> dict:
     import torch
 
     gen = torch.Generator(device=device).manual_seed(0)
-    rows = [
-        _check_kernel("gj_aug", 13_850, 64, 1, gen, device, 20),
-        _check_kernel("gj_aug", 943, 10, 1, gen, device, 50),
-    ]
+    # the rank-64 user half-epoch, config 1's quickstart rank, and the
+    # largest eval-grid solves of `console eval` at ranks 8 and 16 (943
+    # users × 2 cells); every layout at each
+    shapes = ((13_850, 64, 20), (943, 10, 50), (1_886, 8, 50),
+              (1_886, 16, 50))
+    rows = [_check_kernel("gj_aug", r, k, 1, gen, device, reps)
+            for r, k, reps in shapes]
     rows += [_check_kernel("gj_aug_multi", 13_850, 32, m, gen, device, 20)
              for m in (1, 33, 65, 97)]
     deep = [_check_kernel("gj_aug", 1_024, 255, 1, gen, device, 3)]
-    # the forced layouts: the rank-64 user half-epoch, rank 128 (a forced
-    # layout bypasses Schur), config 1's quickstart rank, and the largest
-    # eval-grid solve at rank 16 (943 users × 2 cells)
+    # the forced layouts also at rank 128 (a forced layout bypasses Schur)
     for name in ("gj_packed", "gj_blocked2"):
         rows += [_check_kernel(name, r, k, 1, gen, device, reps)
-                 for r, k, reps in ((13_850, 64, 20), (13_850, 128, 5),
-                                    (943, 10, 50), (1_886, 16, 50))]
+                 for r, k, reps in shapes + ((13_850, 128, 5),)]
     deep.append(_check_kernel("gj_packed", 1_024, 255, 1, gen, device, 3))
     if any(row["shared_memory"] for row in deep):
         raise AssertionError("K = 255 should take the device-memory variant")
@@ -281,11 +285,11 @@ def phase_kernels(report: dict, device) -> dict:
     report["kernels"] = rows
     # each kernel's main-path shape: the rank-64 user half-epoch, and for
     # the multi-RHS kernel the largest base call of the rank-128 recursion
-    main = {"gj_aug_multi": rows[5]}
-    for name in ("gj_aug", "gj_packed", "gj_blocked2"):
-        main[name] = next(row for row in rows if row["name"] == name
-                          and row["shape"] == [13_850, 64, 1])
-    return main
+    main_shape = {"gj_aug": [13_850, 64, 1], "gj_aug_multi": [13_850, 32, 97],
+                  "gj_packed": [13_850, 64, 1], "gj_blocked2": [13_850, 64, 1]}
+    return {name: next(row for row in rows if row["name"] == name
+                       and row["shape"] == shape)
+            for name, shape in main_shape.items()}
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -565,18 +569,31 @@ def phase_serve(report: dict, device, tmp: str) -> dict:
 
 # -- phase 5 -----------------------------------------------------------------
 
-def phase_grid(report: dict, data, device) -> dict:
+def _grid_cfgs(solver):
+    from predictionio_torch.ops.als import ALSConfig
+
+    return [ALSConfig(rank=64, iterations=ITERATIONS, reg=lam, seed=0,
+                      solver=solver) for lam in (0.01, 0.1)]
+
+
+def sequential_trains(data, device) -> list:
+    """One `als_train` per cell of the phase-5a grid: what its auto grid's
+    cells must equal. Run before the eval path's counts are zeroed, as they
+    are no part of that path."""
+    from predictionio_torch.ops.als import als_train
+
+    return [als_train(data.train_u, data.train_i, data.train_r,
+                      data.n_users, data.n_items, cfg, device=device)
+            for cfg in _grid_cfgs("gj")]
+
+
+def phase_grid(report: dict, data, device, sequential: list) -> dict:
     """The grid at the north-star width: chol, then gj under each layout,
-    each against the chol grid; the auto grid against sequential trains."""
+    each against the chol grid; the auto grid against `sequential`."""
     import numpy as np
 
     from predictionio_torch.ops import spd_solve
-    from predictionio_torch.ops.als import ALSConfig, als_train
     from predictionio_torch.ops.als_grid import als_train_grid
-
-    def cfgs(solver):
-        return [ALSConfig(rank=64, iterations=ITERATIONS, reg=lam, seed=0,
-                          solver=solver) for lam in (0.01, 0.1)]
 
     grids = {}
     rows = []
@@ -588,7 +605,8 @@ def phase_grid(report: dict, data, device) -> dict:
         t0 = time.perf_counter()
         with gj_layout(layout):
             res = als_train_grid(data.train_u, data.train_i, data.train_r,
-                                 data.n_users, data.n_items, cfgs(solver),
+                                 data.n_users, data.n_items,
+                                 _grid_cfgs(solver),
                                  device=device, compute_rmse=True)
         wall = time.perf_counter() - t0
         launched = {k: spd_solve.launches[k] - before[k] for k in before}
@@ -615,9 +633,7 @@ def phase_grid(report: dict, data, device) -> dict:
                         f"{ref.rmse_history}")
         grids[name] = res
     seq_rel = []
-    for cfg, cell in zip(cfgs("gj"), grids["auto"]):
-        seq = als_train(data.train_u, data.train_i, data.train_r,
-                        data.n_users, data.n_items, cfg, device=device)
+    for cell, seq in zip(grids["auto"], sequential):
         for got, want in ((cell.user_factors, seq.user_factors),
                           (cell.item_factors, seq.item_factors)):
             seq_rel.append(float(np.abs(got - want).max()
@@ -632,7 +648,7 @@ def phase_grid(report: dict, data, device) -> dict:
 
 def _console_child(args: list, layout: str = "auto", timeout_s=900.0):
     """Run the port's console in a child process with PIO_GJ_LAYOUT set to
-    `layout`; returns (stderr, launch counts, seconds)."""
+    `layout`; returns (stderr, {"launches", "grids"}, seconds)."""
     env = dict(os.environ, PYTHONPATH=HERE)
     env.pop("PIO_GJ_LAYOUT", None)
     if layout != "auto":
@@ -645,8 +661,8 @@ def _console_child(args: list, layout: str = "auto", timeout_s=900.0):
     if proc.returncode != 0:
         raise AssertionError(f"console {args[0]} ({layout}) exited "
                              f"{proc.returncode}:\n{proc.stderr[-4000:]}")
-    launches = json.loads(proc.stdout.strip().splitlines()[-1])
-    return proc.stderr, launches, seconds
+    record = json.loads(proc.stdout.strip().splitlines()[-1])
+    return proc.stderr, record, seconds
 
 
 def phase_eval(report: dict, device, tmp: str, served: dict) -> dict:
@@ -655,7 +671,7 @@ def phase_eval(report: dict, device, tmp: str, served: dict) -> dict:
     runs = {}
     for layout in ("auto", "packed", "blocked2"):
         out = os.path.join(tmp, f"eval-{layout}.json")
-        stderr, launches, seconds = _console_child(
+        stderr, child, seconds = _console_child(
             ["eval", EVAL_CLASS, "--events", served["events"], "--out", out,
              "--device", str(device)], layout)
         with open(out) as f:
@@ -664,21 +680,19 @@ def phase_eval(report: dict, device, tmp: str, served: dict) -> dict:
         maps = [r["scores"]["MAP@10"] for r in result["results"]]
         best = [r["engineParams"] for r in result["results"]].index(
             result["bestEngineParams"])
-        grids = [line for line in stderr.splitlines()
-                 if "als_train_grid: 2 grid points" in line]
-        timing = [re.search(r"set-up ([0-9.]+) s .* steps ([0-9.]+) s",
-                            line) for line in stderr.splitlines()
-                  if "als_train_grid: set-up" in line]
+        grids = child["grids"]
+        launches = child["launches"]
         row = {"layout": layout, "wall_s": seconds,
                "status": record["status"], "map_at_10": maps, "best": best,
                "grid_trains": len(grids),
-               "grid_setup_s": sum(float(t.group(1)) for t in timing),
-               "grid_steps_s": sum(float(t.group(2)) for t in timing),
+               "grid_setup_s": sum(g["setup_s"] for g in grids),
+               "grid_steps_s": sum(g["steps_s"] for g in grids),
                "launches": launches}
         emit(dict(phase="eval", **row))
         # the child's log (timestamped stages) goes to the report only
         report.setdefault("eval_log", {})[layout] = stderr.splitlines()
-        if record["status"] != "EVALCOMPLETED" or len(grids) != 6:
+        if (record["status"] != "EVALCOMPLETED" or len(grids) != 6
+                or any(g["cells"] != 2 for g in grids)):
             raise AssertionError(f"console eval ({layout}) did not take "
                                  f"the grid path (3 folds × 2 rank groups): "
                                  f"{row}")
@@ -710,7 +724,7 @@ def phase_batchpredict(report: dict, device, tmp: str, served: dict) -> dict:
     o_path = os.path.join(tmp, "predictions.jsonl")
     with open(q_path, "w") as f:
         f.writelines(json.dumps(q) + "\n" for q in queries)
-    _, launches, seconds = _console_child(
+    _, child, seconds = _console_child(
         ["batchpredict", "--engine-json", served["engine_json"], "--model",
          served["model"], "--input", q_path, "--output", o_path,
          "--device", str(device)])
@@ -724,7 +738,8 @@ def phase_batchpredict(report: dict, device, tmp: str, served: dict) -> dict:
     for g, w in zip(got, want):
         if g["prediction"] != w:
             raise AssertionError(f"batchpredict {g} != in-process {w}")
-    row = {"queries": len(queries), "wall_s": seconds, "launches": launches}
+    row = {"queries": len(queries), "wall_s": seconds,
+           "launches": child["launches"]}
     emit(dict(phase="batchpredict", **row))
     report["batchpredict"] = row
     return row
@@ -773,14 +788,21 @@ def main(argv=None) -> int:
         serve_launches = dict(spd_solve.launches)  # ... and ends here
         _require_launches("train → serve", serve_launches, KERNELS)
 
+        sequential = sequential_trains(data, device)
         spd_solve.reset_launches()  # the eval → batchpredict path starts here
-        phase_grid(report, data, device)
+        phase_grid(report, data, device, sequential)
         eval_runs = phase_eval(report, device, tmp, served)
-        phase_batchpredict(report, device, tmp, served)
-        eval_launches = dict(spd_solve.launches)  # ... and ends here
-        _require_launches("eval", eval_launches, LAYOUT_KERNEL.values())
+        batch = phase_batchpredict(report, device, tmp, served)
+        grid_launches = dict(spd_solve.launches)  # ... and ends here
+    # the path's launches: the grids in this process and the console
+    # children's (each child's counts start at 0 with the process)
+    children = [run["launches"] for run in eval_runs.values()]
+    children.append(batch["launches"])
+    eval_launches = {k: v + sum(c[k] for c in children)
+                     for k, v in grid_launches.items()}
+    _require_launches("eval", eval_launches, LAYOUT_KERNEL.values())
     report["launches"] = {"train_serve": serve_launches,
-                          "eval": eval_launches}
+                          "eval": eval_launches, "eval_grid": grid_launches}
 
     kernels = []
     for name, (replaces, source) in KERNELS.items():
@@ -798,6 +820,7 @@ def main(argv=None) -> int:
             "shape": row["shape"],
             "launches_train_serve": serve_launches[name],
             "launches_eval": eval_launches[name],
+            "launches_eval_grid": grid_launches[name],
             "launches_per_epoch_2m": per_epoch,
             "launches_console_eval": {layout: run["launches"][name]
                                       for layout, run in eval_runs.items()},

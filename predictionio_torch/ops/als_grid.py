@@ -50,6 +50,10 @@ log = logging.getLogger(__name__)
 # equal for the cells to share one bucketing and one batched train)
 VARIABLE_FIELDS = ("reg", "alpha", "seed", "iterations")
 
+# one record per `als_train_grid` call in this process: its grid points,
+# rank, set-up seconds (bucketing, upload, init), steps and their seconds
+grid_log: list[dict] = []
+
 
 def _static_fields() -> list[str]:
     return [f.name for f in dataclasses.fields(ALSConfig)
@@ -309,6 +313,9 @@ def als_train_grid(
     wall = time.perf_counter() - t_start
     log.info("als_train_grid: set-up %.6f s (bucketing, upload, init), "
              "%d steps %.6f s", t_start - t_call, n_steps, wall)
+    grid_log.append({"cells": n_grid, "rank": cfg.rank,
+                     "setup_s": t_start - t_call, "steps": n_steps,
+                     "steps_s": wall})
 
     rmse_g = torch.stack(rmses).cpu().numpy() if rmses else None
     if host_factors:

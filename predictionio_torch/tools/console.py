@@ -124,7 +124,7 @@ def cmd_deploy(args) -> int:
             KeyError) as e:
         print(f"Deploy failed: {e}", file=sys.stderr)
         return 1
-    print(f"Engine instance {server.instance.id} deployed on "
+    print(f"Engine instance {server.state.instance.id} deployed on "
           f"{args.ip}:{server.port}", flush=True)
     return _serve_until_signal(server)
 

@@ -73,14 +73,9 @@ class PredictionServer(ThreadingHTTPServer):
     def __init__(self, engine_json: str, model_path: str, ip: str = "0.0.0.0",
                  port: int = 8000, device: DeviceLike = None):
         self.device = resolve_device(device)
-        state = load_served_state(engine_json, model_path, self.device)
-        self.instance = state.instance
-        self.engine = state.engine
-        self.engine_params = state.engine_params
-        self.models = state.models
-        self.components = state.components
+        self.state = load_served_state(engine_json, model_path, self.device)
         super().__init__((ip, port), _Handler)
-        log.info("Deployed engine instance %s on %s", self.instance.id,
+        log.info("Deployed engine instance %s on %s", self.state.instance.id,
                  self.device)
 
     @property
@@ -88,17 +83,19 @@ class PredictionServer(ThreadingHTTPServer):
         return self.server_address[1]
 
     def predict(self, query: Any) -> Any:
-        return self.engine.predict(self.engine_params, self.models, query,
-                                   components=self.components)
+        st = self.state
+        return st.engine.predict(st.engine_params, st.models, query,
+                                 components=st.components)
 
     def status(self) -> dict:
+        instance = self.state.instance
         return {
             "status": "alive",
-            "engineId": self.instance.engine_id,
-            "engineVariant": self.instance.engine_variant,
-            "engineFactory": self.instance.engine_factory,
-            "engineInstanceId": self.instance.id,
-            "startTime": self.instance.start_time,
+            "engineId": instance.engine_id,
+            "engineVariant": instance.engine_variant,
+            "engineFactory": instance.engine_factory,
+            "engineInstanceId": instance.id,
+            "startTime": instance.start_time,
             "device": str(self.device),
         }
 

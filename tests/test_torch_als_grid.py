@@ -192,6 +192,19 @@ def test_device_factors_stay_tensors():
         np.testing.assert_array_equal(d.item_factors.numpy(), h.item_factors)
 
 
+def test_grid_log_records_each_call(monkeypatch):
+    """Each call leaves one record: grid points, rank, the longest cell's
+    steps, and its set-up and step seconds."""
+    monkeypatch.setattr(als_grid, "grid_log", [])
+    u, i, v, n_u, n_i = _coo(n=1500, seed=11)
+    cfgs = [als.ALSConfig(rank=4, iterations=n, reg=0.1) for n in (2, 3)]
+    als_grid.als_train_grid(u, i, v, n_u, n_i, cfgs, device="cpu")
+    (record,) = als_grid.grid_log
+    assert {k: record[k] for k in ("cells", "rank", "steps")} == {
+        "cells": 2, "rank": 4, "steps": 3}
+    assert record["setup_s"] > 0 and record["steps_s"] > 0
+
+
 def test_bad_grids_raise():
     u, i, v, n_u, n_i = _coo(n=500, n_u=30, n_i=20)
     with pytest.raises(ValueError, match="rank"):
