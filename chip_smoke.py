@@ -8,17 +8,31 @@ Run from the root of a checkout on a machine with a CUDA card:
 Phases (any failure exits non-zero and prints no result line):
 
 1. build   — nvcc builds every kernel source under predictionio_torch/csrc,
-             one nvcc per source, all started together;
-2. kernels — each of the four solve kernels against its plain PyTorch
+             one nvcc per source, all started together, and prints the
+             -Xptxas -v report; the register kernel's three
+             instantiations (KP = 16, 32, 64) must show a 0-byte stack
+             frame and no spills;
+2. kernels — each of the five solve kernels against its plain PyTorch
              version on the card at the main paths' shapes, the eval
              path's rank-8 and rank-16 grid solves among them (max-rel <
              1e-4, all-zero systems exactly 0), with its time, the plain
              version's, one library call's (Cholesky + cholesky_solve) and
-             the card's bound;
-3. train   — `als_train` on synth_explicit("2m") at rank 64 (aug kernel),
-             rank 128 (Schur recursion over the multi-RHS kernel) and rank
-             64 under PIO_GJ_LAYOUT=packed and =blocked2; each RMSE
-             trajectory within rtol 2e-3 of a solver="chol" run;
+             the card's bound. The kernels (csrc/): `gj_aug_reg`
+             (gj_reg.cu) runs the aug layout at K ≤ 64, a warp per system
+             with its rows in registers, also held against the
+             shared-memory kernel's plain version; `gj_aug` (gj_solve.cu)
+             runs it at K > 64, held at K = 80 and at K = 255 (its
+             device-memory variant), and timed at K = 64 beside the
+             register kernel; `gj_aug_multi` (gj_solve.cu) is the Schur
+             recursion's base at rank ≥ 96; `gj_packed` and `gj_blocked2`
+             (gj_layouts.cu) run under PIO_GJ_LAYOUT=packed / blocked2;
+3. train   — `als_train` on synth_explicit("2m") at rank 64 (the register
+             kernel, and not `gj_aug`), rank 128 (Schur recursion over the
+             multi-RHS kernel) and rank 64 under PIO_GJ_LAYOUT=packed and
+             =blocked2; each run launches its layout's kernel and no
+             other; each RMSE trajectory within rtol 2e-3 of a
+             solver="chol" run; a profile of the rank-64 train must show
+             the register kernel and not `gj_aug`'s;
 4. serve   — synth_explicit("100k") as a JSON-lines events file,
              `console train` on the card, `console deploy --port 0` in a
              subprocess, POST /queries.json answers equal the in-process
@@ -32,7 +46,8 @@ Phases (any failure exits non-zero and prints no result line):
              `als_train` runs (factors rel < 1e-4); (b) `console eval` of
              RecommendationEvaluation on phase 4's events file in a
              subprocess under each layout: the grid path (3 folds × 2 rank
-             groups), the layout's kernel launched, the same best cell and
+             groups), the layout's kernel launched (under auto: the
+             register kernel at K = 8 and at K = 16), the same best cell and
              per-cell MAP@10 within rel 2e-3 + abs 2e-5 of the auto run's;
              (c)
              `console batchpredict` of 1,024 queries on phase 4's model in
@@ -40,7 +55,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 Launch counts are zeroed just before each path (phases 3-4: train →
 serve; phase 5: eval → batchpredict) and read just after; every kernel of
-a path must have launched there. The eval path's counts add the console
+a path must have launched there, and `gj_aug` (K > 64 only) on neither.
+The eval path's counts add the console
 children's own to the grids'; the sequential trains phase 5a compares
 with run before its counts are zeroed. `--report PATH` also writes a JSON report
 with every number (the ptxas output, the profile's kernel table). The last
@@ -82,6 +98,7 @@ EVAL_CLASS = ("predictionio_torch.templates.recommendation.evaluation."
               "RecommendationEvaluation")
 # the TPU kernel each port kernel replaces, and the port's source
 KERNELS = {
+    "gj_aug_reg": ("predictionio_tpu/ops/pallas_solve.py:249", "gj_reg.cu"),
     "gj_aug": ("predictionio_tpu/ops/pallas_solve.py:249", "gj_solve.cu"),
     "gj_aug_multi": ("predictionio_tpu/ops/pallas_solve.py:296",
                      "gj_solve.cu"),
@@ -90,8 +107,14 @@ KERNELS = {
     "gj_blocked2": ("predictionio_tpu/ops/pallas_solve.py:177",
                     "gj_layouts.cu"),
 }
-# the kernel each PIO_GJ_LAYOUT runs below rank 96
-LAYOUT_KERNEL = {"auto": "gj_aug", "packed": "gj_packed",
+# the ranks each kernel takes on the paths below
+KERNEL_RANKS = {"gj_aug_reg": "aug, K ≤ 64", "gj_aug": "aug, K > 64",
+                "gj_aug_multi": "Schur base, rank ≥ 96",
+                "gj_packed": "forced packed", "gj_blocked2": "forced blocked2"}
+# the kernels the main paths run: gj_aug (K > 64) is on neither
+PATH_KERNELS = [name for name in KERNELS if name != "gj_aug"]
+# the kernel each PIO_GJ_LAYOUT runs at rank ≤ 64
+LAYOUT_KERNEL = {"auto": "gj_aug_reg", "packed": "gj_packed",
                  "blocked2": "gj_blocked2"}
 # runs the console in a child process and prints, as its last line, its
 # launch counts and its grid trains (als_grid.grid_log)
@@ -101,6 +124,7 @@ _CONSOLE_CHILD = (
     "from predictionio_torch.tools import console\n"
     "rc = console.main(sys.argv[1:])\n"
     "print(json.dumps({'launches': spd_solve.launches,\n"
+    "                  'by_rank': spd_solve.launches_by_rank,\n"
     "                  'grids': als_grid.grid_log}), flush=True)\n"
     "sys.exit(rc)\n")
 
@@ -187,7 +211,18 @@ def phase_build(report: dict, card: str) -> None:
         print(ptxas.strip())
         emit({"phase": "build", "source": f"csrc/{name}.cu",
               "nvcc_s": seconds, "card": card})
-    report["build"] = {"sources": names, "wall_s": wall}
+    # the register kernel keeps its working copy in registers: no stack
+    # frame (a register array indexed at run time) and no spills
+    reg = {fn: props for fn, props in
+           _build.ptxas_kernels(_build.build_log["gj_reg"][1]).items()
+           if "gj_reg_kernel" in fn}
+    emit({"phase": "build", "ptxas_gj_reg": reg})
+    if len(reg) != 3 or any(props.get(key, 1) for props in reg.values()
+                            for key in ("stack", "spill_stores",
+                                        "spill_loads")):
+        raise AssertionError(f"gj_reg.cu: want 3 kernels with no stack "
+                             f"frame or spills, ptxas says {reg}")
+    report["build"] = {"sources": names, "wall_s": wall, "ptxas_gj_reg": reg}
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -213,11 +248,19 @@ def _kernel_calls(name, a, b):
         return (lambda: spd_solve.gj_solve_multi(a, b),
                 lambda: spd_solve.gj_solve_multi_plain(a, b),
                 gj_operations(k, m))
-    layout = name[len("gj_"):]
-    plain = {"aug": spd_solve.gj_solve_plain,
-             "packed": spd_solve.gj_solve_packed_plain,
-             "blocked2": spd_solve.gj_solve_blocked2_plain}[layout]
     b1 = b[..., 0]
+    if name == "gj_aug_reg":
+        if spd_solve.aug_kernel(k) != name:
+            raise AssertionError(f"aug at K = {k} does not route to {name}")
+        return (lambda: spd_solve.gj_solve(a, b1, layout="aug"),
+                lambda: spd_solve.gj_solve_reg_plain(a, b1),
+                gj_operations(k, 1))
+    if name == "gj_aug":  # straight to the kernel: aug routes K ≤ 64 away
+        return (lambda: spd_solve._launch(name, a, b)[..., 0],
+                lambda: spd_solve.gj_solve_plain(a, b1), gj_operations(k, 1))
+    layout = name[len("gj_"):]
+    plain = {"packed": spd_solve.gj_solve_packed_plain,
+             "blocked2": spd_solve.gj_solve_blocked2_plain}[layout]
     ops = blocked2_operations(k) if layout == "blocked2" else \
         gj_operations(k, 1)
     return (lambda: spd_solve.gj_solve(a, b1, layout=layout),
@@ -231,11 +274,20 @@ def _check_kernel(name, r, k, m, gen, device, reps):
 
     a, b = _spd(gen, r, k, m, device)
     kernel, plain, ops = _kernel_calls(name, a, b)
+    before = spd_solve.launches[name]
     x = kernel()
     want = plain()
     torch.cuda.synchronize()
+    if spd_solve.launches[name] != before + 1:
+        raise AssertionError(f"{name} at {[r, k, m]}: the call launched "
+                             f"another kernel ({spd_solve.launches})")
     err = (x - want).abs().max().item()
     rel = err / want.abs().max().item()
+    rel_shared = rel  # against the shared-memory kernel's plain version
+    if name == "gj_aug_reg":
+        shared = spd_solve.gj_solve_plain(a, b[..., 0])
+        rel_shared = ((x - shared).abs().max()
+                      / shared.abs().max()).item()
     zeros = bool((x[1] == 0).all().item())
     finite = bool(torch.isfinite(x).all().item())
 
@@ -245,8 +297,11 @@ def _check_kernel(name, r, k, m, gen, device, reps):
 
     row = {
         "name": name, "shape": [r, k, m],
-        "shared_memory": spd_solve.shared_fits(k, m, device, name),
-        "max_abs_err": err, "max_rel_err": rel, "zero_system_exact": zeros,
+        "shared_memory": (None if name == "gj_aug_reg" else
+                          spd_solve.shared_fits(k, m, device, name)),
+        "max_abs_err": err, "max_rel_err": rel,
+        "max_rel_err_vs_gj_solve_plain": rel_shared,
+        "zero_system_exact": zeros,
         "kernel_ms": time_ms(kernel, reps),
         "plain_ms": time_ms(plain, max(1, reps // 10), warmup=1),
         "library_ms": time_ms(library, reps),
@@ -254,7 +309,7 @@ def _check_kernel(name, r, k, m, gen, device, reps):
     row["bound_ms"], row["bound_by"] = bound_ms(
         4.0 * (r * k * k + 2 * r * k * m), float(ops * r))
     emit(dict(phase="kernels", **row))
-    if not (rel < REL_BAR and zeros and finite):
+    if not (rel < REL_BAR and rel_shared < REL_BAR and zeros and finite):
         raise AssertionError(f"{name} at {[r, k, m]} disagrees with its "
                              f"plain version: {row}")
     return row
@@ -269,8 +324,14 @@ def phase_kernels(report: dict, device) -> dict:
     # users × 2 cells); every layout at each
     shapes = ((13_850, 64, 20), (943, 10, 50), (1_886, 8, 50),
               (1_886, 16, 50))
-    rows = [_check_kernel("gj_aug", r, k, 1, gen, device, reps)
+    rows = [_check_kernel("gj_aug_reg", r, k, 1, gen, device, reps)
             for r, k, reps in shapes]
+    # KP = 32 at the same R: per-system cost against the KP = 64 body
+    rows.append(_check_kernel("gj_aug_reg", 13_850, 32, 1, gen, device, 20))
+    # the shared-memory kernel: at the rank-64 shape beside the register
+    # kernel, and at a rank `auto` still sends to it
+    rows += [_check_kernel("gj_aug", 13_850, k, 1, gen, device, 20)
+             for k in (64, 80)]
     rows += [_check_kernel("gj_aug_multi", 13_850, 32, m, gen, device, 20)
              for m in (1, 33, 65, 97)]
     deep = [_check_kernel("gj_aug", 1_024, 255, 1, gen, device, 3)]
@@ -283,9 +344,11 @@ def phase_kernels(report: dict, device) -> dict:
         raise AssertionError("K = 255 should take the device-memory variant")
     rows += deep
     report["kernels"] = rows
-    # each kernel's main-path shape: the rank-64 user half-epoch, and for
-    # the multi-RHS kernel the largest base call of the rank-128 recursion
-    main_shape = {"gj_aug": [13_850, 64, 1], "gj_aug_multi": [13_850, 32, 97],
+    # each kernel's main-path shape: the rank-64 user half-epoch, for
+    # gj_aug a rank above 64, and for the multi-RHS kernel the largest
+    # base call of the rank-128 recursion
+    main_shape = {"gj_aug_reg": [13_850, 64, 1], "gj_aug": [13_850, 80, 1],
+                  "gj_aug_multi": [13_850, 32, 97],
                   "gj_packed": [13_850, 64, 1], "gj_blocked2": [13_850, 64, 1]}
     return {name: next(row for row in rows if row["name"] == name
                        and row["shape"] == shape)
@@ -339,7 +402,8 @@ def _profile_train(data, device) -> dict:
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
     return {"wall_ms": wall_ms, "device_ms": busy,
-            "busy_share": busy / wall_ms, "top": rows[:12]}
+            "busy_share": busy / wall_ms, "top": rows[:12],
+            "solve": [r for r in rows if "gj_" in r["name"]]}
 
 
 def phase_train_reference(report: dict, data, device) -> dict:
@@ -362,6 +426,11 @@ def phase_train_reference(report: dict, data, device) -> dict:
     emit({"phase": "profile", "rank": 64,
           **{k: v for k, v in prof.items() if k != "top"},
           "top": prof["top"][:6]})
+    # the rank-64 train's solves run on the register kernel alone
+    names = [r["name"] for r in prof["solve"]]
+    if (not any("gj_reg_kernel" in n for n in names)
+            or any("gj_kernel<" in n for n in names)):
+        raise AssertionError(f"rank-64 profile: solve kernels {names}")
     return out
 
 
@@ -372,7 +441,7 @@ def phase_train(report: dict, data, device, chol: dict) -> dict:
     from predictionio_torch.ops import spd_solve
 
     runs = {}
-    for rank, layout, kernel in ((64, "auto", "gj_aug"),
+    for rank, layout, kernel in ((64, "auto", "gj_aug_reg"),
                                  (128, "auto", "gj_aug_multi"),
                                  (64, "packed", "gj_packed"),
                                  (64, "blocked2", "gj_blocked2")):
@@ -396,9 +465,10 @@ def phase_train(report: dict, data, device, chol: dict) -> dict:
         if not ok or len(res.rmse_history) != len(ref):
             raise AssertionError(f"rank {rank} {layout}: gj trajectory "
                                  f"{res.rmse_history} vs chol {ref}")
-        if launched[kernel] <= 0:
-            raise AssertionError(f"rank {rank} {layout}: {kernel} never "
-                                 f"launched ({launched})")
+        others = {k: v for k, v in launched.items() if k != kernel and v}
+        if launched[kernel] <= 0 or others:
+            raise AssertionError(f"rank {rank} {layout}: want {kernel} "
+                                 f"alone, launched {launched}")
         runs[(rank, layout)] = row
     report["train"] = {f"{rank}-{layout}": row
                        for (rank, layout), row in runs.items()}
@@ -687,7 +757,7 @@ def phase_eval(report: dict, device, tmp: str, served: dict) -> dict:
                "grid_trains": len(grids),
                "grid_setup_s": sum(g["setup_s"] for g in grids),
                "grid_steps_s": sum(g["steps_s"] for g in grids),
-               "launches": launches}
+               "launches": launches, "launches_by_rank": child["by_rank"]}
         emit(dict(phase="eval", **row))
         # the child's log (timestamped stages) goes to the report only
         report.setdefault("eval_log", {})[layout] = stderr.splitlines()
@@ -696,9 +766,12 @@ def phase_eval(report: dict, device, tmp: str, served: dict) -> dict:
             raise AssertionError(f"console eval ({layout}) did not take "
                                  f"the grid path (3 folds × 2 rank groups): "
                                  f"{row}")
-        if launches[LAYOUT_KERNEL[layout]] <= 0:
-            raise AssertionError(f"console eval ({layout}): "
-                                 f"{LAYOUT_KERNEL[layout]} never launched")
+        kernel = LAYOUT_KERNEL[layout]
+        ranks = [f"{kernel}/K={k}" for k in (8, 16)]
+        if (any(child["by_rank"].get(key, 0) <= 0 for key in ranks)
+                or launches["gj_aug"]):
+            raise AssertionError(f"console eval ({layout}): want {ranks} "
+                                 f"and no gj_aug, got {child['by_rank']}")
         runs[layout] = row
     auto = runs["auto"]
     for layout in ("packed", "blocked2"):
@@ -746,10 +819,13 @@ def phase_batchpredict(report: dict, device, tmp: str, served: dict) -> dict:
 
 
 def _require_launches(path: str, launches: dict, kernels) -> None:
+    """Every kernel in `kernels` launched on the path, and gj_aug (K > 64)
+    not at all."""
     missing = [k for k in kernels if launches[k] <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the {path} path: "
-                             f"{missing} ({launches})")
+    if missing or launches["gj_aug"]:
+        raise AssertionError(f"on the {path} path: kernels never launched "
+                             f"{missing}, gj_aug {launches['gj_aug']} "
+                             f"({launches})")
 
 
 def main(argv=None) -> int:
@@ -786,7 +862,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         served = phase_serve(report, device, tmp)
         serve_launches = dict(spd_solve.launches)  # ... and ends here
-        _require_launches("train → serve", serve_launches, KERNELS)
+        _require_launches("train → serve", serve_launches, PATH_KERNELS)
 
         sequential = sequential_trains(data, device)
         spd_solve.reset_launches()  # the eval → batchpredict path starts here
@@ -812,7 +888,7 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"predictionio_torch/csrc/{source}",
-            "replaces": replaces,
+            "replaces": replaces, "ranks": KERNEL_RANKS[name],
             "launches": serve_launches[name] + eval_launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

@@ -8,6 +8,8 @@ the source and the flags, so an unchanged source is built once per
 checkout and concurrent processes never load a half-written file.
 
 Nothing is built at import: the first launch of a kernel builds it.
+nvcc's ``-Xptxas -v`` report (registers, stack frame, spills per kernel)
+is kept beside each library, so a library built earlier still has it.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ _libs: dict[str, ctypes.CDLL] = {}
 # per source: (nvcc seconds, 0.0 when the library was already built;
 # nvcc's -Xptxas -v report: registers, shared memory, spills)
 build_log: dict[str, tuple[float, str]] = {}
+_REPORT_SUFFIX = ".ptxas.txt"
 
 
 def nvcc_path() -> str:
@@ -73,7 +76,9 @@ def build(names: Sequence[str]) -> None:
     for name in names:
         out = _lib_path(name)
         if out.exists():
-            build_log.setdefault(name, (0.0, ""))
+            report = out.with_name(out.name + _REPORT_SUFFIX)
+            build_log.setdefault(name, (0.0, report.read_text()
+                                        if report.exists() else ""))
             continue
         running.append((name, out, *_start_build(name)))
     errors = []
@@ -84,6 +89,7 @@ def build(names: Sequence[str]) -> None:
             os.unlink(tmp)
             errors.append(f"nvcc failed for {name}.cu:\n{report}")
             continue
+        out.with_name(out.name + _REPORT_SUFFIX).write_text(report)
         os.replace(tmp, out)
         build_log[name] = (seconds, report)
     if errors:
@@ -99,6 +105,25 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_lib_path(name)))
             _libs[name] = lib
         return lib
+
+
+def ptxas_kernels(report: str) -> dict[str, dict[str, int]]:
+    """Per kernel (mangled name) of an ``-Xptxas -v`` report: registers,
+    stack frame bytes, spill store and spill load bytes."""
+    kernels: dict[str, dict[str, int]] = {}
+    current = None
+    for line in report.splitlines():
+        if "Function properties for " in line:
+            current = kernels.setdefault(line.split()[-1], {})
+        elif current is not None and "bytes stack frame" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            current.update(stack=nums[0], spill_stores=nums[1],
+                           spill_loads=nums[2])
+        elif current is not None and "Used " in line and "registers" in line:
+            words = line.split()
+            current["registers"] = int(words[words.index("Used") + 1])
+    return kernels
 
 
 def sources() -> list[str]:

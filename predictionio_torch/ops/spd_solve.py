@@ -9,6 +9,9 @@ K = rank) SPD systems. The public surface is the reference's:
 Layouts:
 
 - ``aug``: row Gauss-Jordan on [A | b]; `auto` picks it below rank 96.
+  At K ≤ 64 (`aug_kernel`) it runs the register kernel ``gj_aug_reg``
+  (one warp per system, rows in registers, one reciprocal per pivot),
+  above that ``gj_aug`` (working copy in shared or device memory).
 - ``schur``: recursive Schur complements; the eliminations become f32
   `torch.bmm` products and the base systems (K ≤ 32, or odd K) go to the
   multi-RHS kernel; `auto` picks it at rank ≥ 96.
@@ -18,9 +21,10 @@ Layouts:
   2×2 pivot-block inverse; even K only; forced only.
 
 Dispatch: a tensor on the CPU runs the kernel's plain PyTorch version
-(`gj_solve_plain`, `gj_solve_multi_plain`, `gj_solve_packed_plain`,
-`gj_solve_blocked2_plain`); a CUDA tensor launches the hand-written
-kernel from ``csrc/gj_solve.cu`` (aug, aug_multi) or ``csrc/gj_layouts.cu``
+(`gj_solve_reg_plain`, `gj_solve_plain`, `gj_solve_multi_plain`,
+`gj_solve_packed_plain`, `gj_solve_blocked2_plain`); a CUDA tensor
+launches the hand-written kernel from ``csrc/gj_reg.cu`` (aug at K ≤ 64),
+``csrc/gj_solve.cu`` (aug above, aug_multi) or ``csrc/gj_layouts.cu``
 (packed, blocked2), or raises. `launches` counts kernel launches per
 wrapper.
 
@@ -36,6 +40,7 @@ import os
 import torch
 
 _MAX_RANK = 256
+_REG_MAX_RANK = 64  # largest K the register kernel takes
 _PIVOT_EPS = 1e-30
 # device-memory variant: resident blocks that share the scratch slots
 _SCRATCH_SLOTS = 1024
@@ -43,12 +48,16 @@ _LANES = 128  # the TPU kernel's lane width, which sets the packed grouping
 _MAX_GROUPS = 4
 
 # kernel launches per wrapper (plain ints; the plain versions never count)
-launches = {"gj_aug": 0, "gj_aug_multi": 0, "gj_packed": 0, "gj_blocked2": 0}
+launches = {"gj_aug_reg": 0, "gj_aug": 0, "gj_aug_multi": 0, "gj_packed": 0,
+            "gj_blocked2": 0}
+# the same launches by kernel and rank, keyed "<kernel>/K=<k>"
+launches_by_rank: dict[str, int] = {}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    launches_by_rank.clear()
 
 
 def gj_applicable(rank: int) -> bool:
@@ -59,6 +68,20 @@ def packed_groups(k: int) -> int:
     """Systems per thread block in the packed layout: the reference's
     systems per 128-lane block, ⌊128/K⌋ clamped to [1, 4]."""
     return max(1, min(_MAX_GROUPS, _LANES // k))
+
+
+def aug_kernel(k: int) -> str:
+    """The kernel the ``aug`` layout runs at rank `k`: the register kernel
+    up to K = 64, the shared/device-memory one above."""
+    return "gj_aug_reg" if k <= _REG_MAX_RANK else "gj_aug"
+
+
+def reg_padded_rank(k: int) -> int:
+    """The register kernel's padded size KP ∈ {16, 32, 64} for K ≤ 64."""
+    if not 1 <= k <= _REG_MAX_RANK:
+        raise ValueError(f"the register kernel takes 1 ≤ K ≤ "
+                         f"{_REG_MAX_RANK}, got {k}")
+    return 16 if k <= 16 else 32 if k <= 32 else 64
 
 
 # -- plain versions ---------------------------------------------------------
@@ -83,6 +106,27 @@ def gj_solve_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     k = a.shape[1]
     work = torch.cat([a.float(), b.float()[..., None]], dim=-1)
     return _gj_plain(work, k)[:, :, k]
+
+
+def gj_solve_reg_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x [R, K] = A⁻¹ b for a [R, K, K], b [R, K], K ≤ 64 (plain PyTorch),
+    the register kernel's arithmetic step for step: [A | b] zero-padded to
+    [KP, KP + 1], K steps, the pivot row scaled by one reciprocal 1/d, and
+    only the columns right of the pivot updated."""
+    r, k = a.shape[0], a.shape[1]
+    kp = reg_padded_rank(k)
+    work = a.new_zeros((r, kp, kp + 1), dtype=torch.float32)
+    work[:, :k, :k] = a
+    work[:, :k, kp] = b
+    for p in range(k):
+        d = work[:, p, p]
+        d = torch.where(d.abs() < _PIVOT_EPS, torch.ones_like(d), d)
+        row = work[:, p, p + 1:] * torch.reciprocal(d)[:, None]
+        col = work[:, :, p].clone()
+        col[:, p] = 0.0
+        work[:, :, p + 1:] -= col[:, :, None] * row[:, None, :]
+        work[:, p, p + 1:] = row
+    return work[:, :k, kp]
 
 
 def gj_solve_multi_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -140,7 +184,8 @@ def gj_solve_blocked2_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # -- the CUDA kernels -------------------------------------------------------
 
 # kernel → its source under csrc/
-_SOURCE = {"gj_aug": "gj_solve", "gj_aug_multi": "gj_solve",
+_SOURCE = {"gj_aug_reg": "gj_reg", "gj_aug": "gj_solve",
+           "gj_aug_multi": "gj_solve",
            "gj_packed": "gj_layouts", "gj_blocked2": "gj_layouts"}
 _max_shared: dict[int, int] = {}
 
@@ -155,6 +200,10 @@ def _bind(lib, source: str) -> None:
         lib.gj_aug_multi.argtypes = [p, i64, i64, i64, p, i64, i64, i64, p,
                                      p, i64, i32, i32, i32, p]
         fns = (lib.gj_aug, lib.gj_aug_multi)
+    elif source == "gj_reg":
+        lib.gj_aug_reg.argtypes = [p, i64, i64, i64, p, i64, i64, p, i64,
+                                   i32, p]
+        fns = (lib.gj_aug_reg,)
     else:
         lib.gj_packed.argtypes = [p, i64, i64, i64, p, i64, i64, p, p, i64,
                                   i32, i32, i32, p]
@@ -209,8 +258,10 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{name}: shapes {tuple(a.shape)} and "
                          f"{tuple(b.shape)} are not [R, K, K] and [R, K, M]")
     m = b.shape[2]
-    if name in ("gj_packed", "gj_blocked2") and m != 1:
+    if name in ("gj_aug_reg", "gj_packed", "gj_blocked2") and m != 1:
         raise ValueError(f"{name}: takes one right-hand side, got M={m}")
+    if name == "gj_aug_reg" and k > _REG_MAX_RANK:
+        raise ValueError(f"{name}: takes K ≤ {_REG_MAX_RANK}, got {k}")
     x = torch.empty((r, k, m), dtype=torch.float32, device=a.device)
     if r == 0:
         return x
@@ -218,14 +269,17 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     g = packed_groups(k) if name == "gj_packed" else 1  # systems per block
     scratch = None
     grid = 0
-    if not shared_fits(k, m, a.device, name):
+    if name != "gj_aug_reg" and not shared_fits(k, m, a.device, name):
         grid = min(-(-r // g), _SCRATCH_SLOTS)
         scratch = torch.empty(grid * _block_floats(name, k, m)[0],
                               dtype=torch.float32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     sp = None if scratch is None else scratch.data_ptr()
     ab = (a.data_ptr(), *a.stride(), b.data_ptr())
-    if name == "gj_aug_multi":
+    if name == "gj_aug_reg":
+        err = lib.gj_aug_reg(*ab, b.stride(0), b.stride(1), x.data_ptr(), r,
+                             k, stream)
+    elif name == "gj_aug_multi":
         err = lib.gj_aug_multi(*ab, *b.stride(), x.data_ptr(), sp, r, k, m,
                                grid, stream)
     elif name == "gj_packed":
@@ -238,6 +292,8 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"(R={r}, K={k}, M={m})")
     launches[name] += 1
+    key = f"{name}/K={k}"
+    launches_by_rank[key] = launches_by_rank.get(key, 0) + 1
     return x
 
 
@@ -317,4 +373,6 @@ def gj_solve(a: torch.Tensor, b: torch.Tensor, layout: str = "") -> torch.Tensor
     if layout != "aug":
         raise ValueError(f"unknown gj_solve layout {layout!r} "
                          "(want auto/aug/packed/blocked2/schur)")
-    return _solve_one("gj_aug", gj_solve_plain, a, b)
+    name = aug_kernel(k)
+    plain = gj_solve_reg_plain if name == "gj_aug_reg" else gj_solve_plain
+    return _solve_one(name, plain, a, b)

@@ -51,7 +51,66 @@ def test_kernel_matches_plain(dev, r, k, m):
     assert sum(spd_solve.launches.values()) == 1
     x1 = spd_solve.gj_solve(a, b[..., 0], layout="aug")
     assert _rel(x1, spd_solve.gj_solve_plain(a, b[..., 0])) < 1e-4
-    assert spd_solve.launches["gj_aug"] == 1
+    assert spd_solve.launches[spd_solve.aug_kernel(k)] == 1
+
+
+_REG_RANKS = [1, 2, 8, 10, 16, 31, 32, 33, 63, 64]
+
+
+@pytest.mark.parametrize("k", _REG_RANKS)
+def test_reg_kernel_matches_plain(dev, k):
+    """The register kernel against its plain version; 301 systems leave
+    the last block short at every KP."""
+    gen = torch.Generator(device=dev).manual_seed(k)
+    a, b = _spd(gen, 301, k, 1, dev)
+    x = spd_solve.gj_solve(a, b[..., 0], layout="aug")
+    assert _rel(x, spd_solve.gj_solve_reg_plain(a, b[..., 0])) < 1e-4
+    assert _rel(x, spd_solve.gj_solve_plain(a, b[..., 0])) < 1e-4
+    assert bool((x[1] == 0).all())
+    assert spd_solve.launches["gj_aug_reg"] == 1
+    assert sum(spd_solve.launches.values()) == 1
+
+
+@pytest.mark.parametrize("r", [0, 1, 2])
+@pytest.mark.parametrize("k", [10, 32, 64])
+def test_reg_kernel_takes_few_systems(dev, r, k):
+    gen = torch.Generator(device=dev).manual_seed(r + k)
+    a, b = _spd(gen, 2, k, 1, dev)
+    a, b = a[2 - r:].contiguous(), b[2 - r:, :, 0].contiguous()
+    x = spd_solve.gj_solve(a, b, layout="aug")
+    assert x.shape == (r, k)
+    if r:
+        torch.testing.assert_close(x, spd_solve.gj_solve_reg_plain(a, b),
+                                   rtol=1e-4, atol=1e-6)
+    if r == 1:  # the all-zero system alone
+        assert bool((x == 0).all())
+
+
+@pytest.mark.parametrize("k", [16, 48, 64])
+def test_reg_kernel_takes_strided_inputs(dev, k):
+    """Views that are not contiguous take the strided load: a transposed
+    A, a sub-block of a larger one, b as a column of a wider array."""
+    gen = torch.Generator(device=dev).manual_seed(k)
+    a, b = _spd(gen, 45, k + 8, 3, dev)
+    for sub_a in (a[:, :k, :k], a[:, :k, :k].transpose(1, 2),
+                  a[:, 8:, 8:]):
+        sub_b = b[:, 8:, 1]
+        assert not sub_a.is_contiguous() and not sub_b.is_contiguous()
+        x = spd_solve.gj_solve(sub_a, sub_b, layout="aug")
+        assert _rel(x, spd_solve.gj_solve_reg_plain(sub_a, sub_b)) < 1e-4
+        assert bool((x[1] == 0).all())
+    assert spd_solve.launches["gj_aug_reg"] == 3
+
+
+@pytest.mark.parametrize("k,kernel", [(64, "gj_aug_reg"), (65, "gj_aug"),
+                                      (80, "gj_aug")])
+def test_aug_launches_the_routed_kernel(dev, k, kernel):
+    gen = torch.Generator(device=dev).manual_seed(k)
+    a, b = _spd(gen, 50, k, 1, dev)
+    x = spd_solve.gj_solve(a, b[..., 0], layout="aug")
+    assert _rel(x, spd_solve.gj_solve_plain(a, b[..., 0])) < 1e-4
+    assert spd_solve.launches[kernel] == 1
+    assert sum(spd_solve.launches.values()) == 1
 
 
 _LAYOUT_PLAIN = {"packed": spd_solve.gj_solve_packed_plain,
@@ -104,6 +163,7 @@ def test_gj_solve_auto_matches_library_solve(dev, k):
     x = spd_solve.gj_solve(a, b[..., 0])
     assert _rel(x, torch.linalg.solve(a, b)[..., 0]) < 1e-4
     assert sum(spd_solve.launches.values()) > 0
+    assert (spd_solve.launches["gj_aug_reg"] > 0) == (k <= 64)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
@@ -117,6 +177,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         spd_solve._launch("gj_aug_multi", a, torch.ones(2, 4, 1))
     with pytest.raises(ValueError, match="one right-hand side"):
         spd_solve._launch("gj_packed", a, torch.ones(2, 4, 2, device=dev))
+    with pytest.raises(ValueError, match="K ≤ 64"):
+        big = torch.eye(65, device=dev).expand(2, 65, 65)
+        spd_solve._launch("gj_aug_reg", big, torch.ones(2, 65, 1, device=dev))
     assert not any(spd_solve.launches.values())
 
 
