@@ -9,10 +9,11 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. build   — nvcc builds every kernel source under predictionio_torch/csrc,
              one nvcc per source, all started together, and prints the
-             -Xptxas -v report; the register kernel's three
-             instantiations (KP = 16, 32, 64) must show a 0-byte stack
-             frame and no spills;
-2. kernels — each of the five solve kernels against its plain PyTorch
+             -Xptxas -v report; the register kernels' instantiations
+             (gj_reg.cu: KP = 16, 32, 64; gj_multi_reg.cu: KP = 16, 32 ×
+             one or two column slots) must show a 0-byte stack frame and
+             no spills;
+2. kernels — each of the six solve kernels against its plain PyTorch
              version on the card at the main paths' shapes, the eval
              path's rank-8 and rank-16 grid solves among them (max-rel <
              1e-4, all-zero systems exactly 0), with its time, the plain
@@ -23,16 +24,25 @@ Phases (any failure exits non-zero and prints no result line):
              shared-memory kernel's plain version; `gj_aug` (gj_solve.cu)
              runs it at K > 64, held at K = 80 and at K = 255 (its
              device-memory variant), and timed at K = 64 beside the
-             register kernel; `gj_aug_multi` (gj_solve.cu) is the Schur
-             recursion's base at rank ≥ 96; `gj_packed` and `gj_blocked2`
-             (gj_layouts.cu) run under PIO_GJ_LAYOUT=packed / blocked2;
+             register kernel; `gj_aug_multi_reg` (gj_multi_reg.cu) is the
+             Schur recursion's base at K ≤ 32 (every rank from 96 to 256),
+             a warp per system and chunk of right-hand sides with its
+             columns in registers, held against both plain versions at the
+             rank-128 base calls (R = 13 850, the path's largest bucket
+             2 744, and a small one, 560), at rank 96's and rank 256's, and
+             timed under both chunk widths; `gj_aug_multi` (gj_solve.cu)
+             takes the base at odd K > 32, held at rank 98's (K = 49) and
+             timed at the rank-128 shapes beside the register kernel;
+             `gj_packed` and `gj_blocked2` (gj_layouts.cu) run under
+             PIO_GJ_LAYOUT=packed / blocked2;
 3. train   — `als_train` on synth_explicit("2m") at rank 64 (the register
              kernel, and not `gj_aug`), rank 128 (Schur recursion over the
-             multi-RHS kernel) and rank 64 under PIO_GJ_LAYOUT=packed and
-             =blocked2; each run launches its layout's kernel and no
-             other; each RMSE trajectory within rtol 2e-3 of a
-             solver="chol" run; a profile of the rank-64 train must show
-             the register kernel and not `gj_aug`'s;
+             multi-RHS register kernel, and not `gj_aug_multi`) and rank
+             64 under PIO_GJ_LAYOUT=packed and =blocked2; each run
+             launches its layout's kernel and no other; each RMSE
+             trajectory within rtol 2e-3 of a solver="chol" run; profiles
+             of the rank-64 and rank-128 trains must show their register
+             kernel and no `gj_kernel<` (gj_solve.cu's);
 4. serve   — synth_explicit("100k") as a JSON-lines events file,
              `console train` on the card, `console deploy --port 0` in a
              subprocess, POST /queries.json answers equal the in-process
@@ -55,7 +65,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 Launch counts are zeroed just before each path (phases 3-4: train →
 serve; phase 5: eval → batchpredict) and read just after; every kernel of
-a path must have launched there, and `gj_aug` (K > 64 only) on neither.
+a path must have launched there, and `gj_aug` (K > 64 only) and
+`gj_aug_multi` (K > 32 only) on neither.
 The eval path's counts add the console
 children's own to the grids'; the sequential trains phase 5a compares
 with run before its counts are zeroed. `--report PATH` also writes a JSON report
@@ -100,6 +111,8 @@ EVAL_CLASS = ("predictionio_torch.templates.recommendation.evaluation."
 KERNELS = {
     "gj_aug_reg": ("predictionio_tpu/ops/pallas_solve.py:249", "gj_reg.cu"),
     "gj_aug": ("predictionio_tpu/ops/pallas_solve.py:249", "gj_solve.cu"),
+    "gj_aug_multi_reg": ("predictionio_tpu/ops/pallas_solve.py:296",
+                         "gj_multi_reg.cu"),
     "gj_aug_multi": ("predictionio_tpu/ops/pallas_solve.py:296",
                      "gj_solve.cu"),
     "gj_packed": ("predictionio_tpu/ops/pallas_solve.py:101",
@@ -109,10 +122,15 @@ KERNELS = {
 }
 # the ranks each kernel takes on the paths below
 KERNEL_RANKS = {"gj_aug_reg": "aug, K ≤ 64", "gj_aug": "aug, K > 64",
-                "gj_aug_multi": "Schur base, rank ≥ 96",
+                "gj_aug_multi_reg": "Schur base, K ≤ 32 (rank 96-256)",
+                "gj_aug_multi": "Schur base, K > 32 (odd splits)",
                 "gj_packed": "forced packed", "gj_blocked2": "forced blocked2"}
-# the kernels the main paths run: gj_aug (K > 64) is on neither
-PATH_KERNELS = [name for name in KERNELS if name != "gj_aug"]
+# the kernels on no main path: gj_aug (K > 64), gj_aug_multi (K > 32)
+OFF_PATH = ("gj_aug", "gj_aug_multi")
+PATH_KERNELS = [name for name in KERNELS if name not in OFF_PATH]
+# the register kernels' sources: (kernel symbol, instantiations)
+REG_SOURCES = {"gj_reg": ("gj_reg_kernel", 3),
+               "gj_multi_reg": ("gj_multi_reg_kernel", 4)}
 # the kernel each PIO_GJ_LAYOUT runs at rank ≤ 64
 LAYOUT_KERNEL = {"auto": "gj_aug_reg", "packed": "gj_packed",
                  "blocked2": "gj_blocked2"}
@@ -211,18 +229,20 @@ def phase_build(report: dict, card: str) -> None:
         print(ptxas.strip())
         emit({"phase": "build", "source": f"csrc/{name}.cu",
               "nvcc_s": seconds, "card": card})
-    # the register kernel keeps its working copy in registers: no stack
+    # the register kernels keep their working copy in registers: no stack
     # frame (a register array indexed at run time) and no spills
-    reg = {fn: props for fn, props in
-           _build.ptxas_kernels(_build.build_log["gj_reg"][1]).items()
-           if "gj_reg_kernel" in fn}
-    emit({"phase": "build", "ptxas_gj_reg": reg})
-    if len(reg) != 3 or any(props.get(key, 1) for props in reg.values()
-                            for key in ("stack", "spill_stores",
-                                        "spill_loads")):
-        raise AssertionError(f"gj_reg.cu: want 3 kernels with no stack "
-                             f"frame or spills, ptxas says {reg}")
-    report["build"] = {"sources": names, "wall_s": wall, "ptxas_gj_reg": reg}
+    report["build"] = {"sources": names, "wall_s": wall}
+    for source, (symbol, count) in REG_SOURCES.items():
+        reg = {fn: props for fn, props in
+               _build.ptxas_kernels(_build.build_log[source][1]).items()
+               if symbol in fn}
+        emit({"phase": "build", f"ptxas_{source}": reg})
+        if len(reg) != count or any(
+                props.get(key, 1) for props in reg.values()
+                for key in ("stack", "spill_stores", "spill_loads")):
+            raise AssertionError(f"{source}.cu: want {count} kernels with no "
+                                 f"stack frame or spills, ptxas says {reg}")
+        report["build"][f"ptxas_{source}"] = reg
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -244,8 +264,15 @@ def _kernel_calls(name, a, b):
     from predictionio_torch.ops import spd_solve
 
     k, m = b.shape[1], b.shape[2]
-    if name == "gj_aug_multi":
+    if name == "gj_aug_multi_reg":
+        if spd_solve.multi_kernel(k) != name:
+            raise AssertionError(f"aug_multi at K = {k} does not route to "
+                                 f"{name}")
         return (lambda: spd_solve.gj_solve_multi(a, b),
+                lambda: spd_solve.gj_solve_multi_reg_plain(a, b),
+                gj_operations(k, m))
+    if name == "gj_aug_multi":  # straight to it: K ≤ 32 routes away
+        return (lambda: spd_solve._launch(name, a, b),
                 lambda: spd_solve.gj_solve_multi_plain(a, b),
                 gj_operations(k, m))
     b1 = b[..., 0]
@@ -284,8 +311,10 @@ def _check_kernel(name, r, k, m, gen, device, reps):
     err = (x - want).abs().max().item()
     rel = err / want.abs().max().item()
     rel_shared = rel  # against the shared-memory kernel's plain version
-    if name == "gj_aug_reg":
-        shared = spd_solve.gj_solve_plain(a, b[..., 0])
+    if name in ("gj_aug_reg", "gj_aug_multi_reg"):
+        shared = (spd_solve.gj_solve_plain(a, b[..., 0])
+                  if name == "gj_aug_reg"
+                  else spd_solve.gj_solve_multi_plain(a, b))
         rel_shared = ((x - shared).abs().max()
                       / shared.abs().max()).item()
     zeros = bool((x[1] == 0).all().item())
@@ -295,9 +324,10 @@ def _check_kernel(name, r, k, m, gen, device, reps):
         chol, _ = torch.linalg.cholesky_ex(a)
         return torch.cholesky_solve(b, chol)
 
+    registers = name in ("gj_aug_reg", "gj_aug_multi_reg")
     row = {
         "name": name, "shape": [r, k, m],
-        "shared_memory": (None if name == "gj_aug_reg" else
+        "shared_memory": (None if registers else
                           spd_solve.shared_fits(k, m, device, name)),
         "max_abs_err": err, "max_rel_err": rel,
         "max_rel_err_vs_gj_solve_plain": rel_shared,
@@ -308,8 +338,20 @@ def _check_kernel(name, r, k, m, gen, device, reps):
     }
     row["bound_ms"], row["bound_by"] = bound_ms(
         4.0 * (r * k * k + 2 * r * k * m), float(ops * r))
+    same = True
+    if name == "gj_aug_multi_reg":
+        # the widest chunk a warp takes: X is bitwise the same under each
+        row["chunk"] = spd_solve.MULTI_CHUNK
+        row["kernel_ms_by_chunk"] = {}
+        for chunk in (32, 64):
+            def call(chunk=chunk):
+                return spd_solve._launch(name, a, b, chunk=chunk)
+            same = same and torch.equal(call(), x)
+            row["kernel_ms_by_chunk"][chunk] = time_ms(call, reps)
+        row["chunks_bitwise_equal"] = same
     emit(dict(phase="kernels", **row))
-    if not (rel < REL_BAR and rel_shared < REL_BAR and zeros and finite):
+    if not (rel < REL_BAR and rel_shared < REL_BAR and zeros and finite
+            and same):
         raise AssertionError(f"{name} at {[r, k, m]} disagrees with its "
                              f"plain version: {row}")
     return row
@@ -332,8 +374,21 @@ def phase_kernels(report: dict, device) -> dict:
     # kernel, and at a rank `auto` still sends to it
     rows += [_check_kernel("gj_aug", 13_850, k, 1, gen, device, 20)
              for k in (64, 80)]
+    # the rank-128 base calls (K = 32, M = 97, 65, 33, 1) at the whole user
+    # side and at the path's largest bucket; rank 96's (K = 24) and rank
+    # 256's widest (four chunks); the shared-memory kernel beside them and
+    # at a K it still takes (rank 98: 49 + 49, M = 50 and 1)
+    for r, reps in ((13_850, 20), (2_744, 50)):
+        rows += [_check_kernel("gj_aug_multi_reg", r, 32, m, gen, device,
+                               reps) for m in (1, 33, 65, 97)]
+    # a small bucket (15 of the path's 24 have R ≤ 560): one wave
+    rows += [_check_kernel("gj_aug_multi_reg", r, k, m, gen, device, 50)
+             for r, k, m in ((560, 32, 97), (2_744, 24, 73),
+                             (2_744, 32, 225))]
     rows += [_check_kernel("gj_aug_multi", 13_850, 32, m, gen, device, 20)
              for m in (1, 33, 65, 97)]
+    rows += [_check_kernel("gj_aug_multi", 2_744, 49, m, gen, device, 20)
+             for m in (1, 50)]
     deep = [_check_kernel("gj_aug", 1_024, 255, 1, gen, device, 3)]
     # the forced layouts also at rank 128 (a forced layout bypasses Schur)
     for name in ("gj_packed", "gj_blocked2"):
@@ -345,10 +400,12 @@ def phase_kernels(report: dict, device) -> dict:
     rows += deep
     report["kernels"] = rows
     # each kernel's main-path shape: the rank-64 user half-epoch, for
-    # gj_aug a rank above 64, and for the multi-RHS kernel the largest
-    # base call of the rank-128 recursion
+    # gj_aug a rank above 64, for the multi-RHS register kernel the
+    # largest base call of the rank-128 recursion (its largest bucket,
+    # widest M), and for gj_aug_multi a K above 32
     main_shape = {"gj_aug_reg": [13_850, 64, 1], "gj_aug": [13_850, 80, 1],
-                  "gj_aug_multi": [13_850, 32, 97],
+                  "gj_aug_multi_reg": [2_744, 32, 97],
+                  "gj_aug_multi": [2_744, 49, 1],
                   "gj_packed": [13_850, 64, 1], "gj_blocked2": [13_850, 64, 1]}
     return {name: next(row for row in rows if row["name"] == name
                        and row["shape"] == shape)
@@ -373,43 +430,11 @@ def _train(data, rank, solver, device):
     return res, wall
 
 
-def _profile_train(data, device) -> dict:
-    """Device time by kernel over one rank-64 `als_train` call (bucket
-    upload + ITERATIONS epochs), and the device's busy share of it."""
-    import torch
-
-    from predictionio_torch.ops.als import ALSConfig, als_train
-
-    cfg = ALSConfig(rank=64, iterations=ITERATIONS, reg=0.01, seed=0)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        als_train(data.train_u, data.train_i, data.train_r, data.n_users,
-                  data.n_items, cfg, device=device)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host-side ops: their kernels are counted below
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        rows.append({"name": ev.key[:90], "device_ms": dev_us / 1e3,
-                     "calls": ev.count})
-    rows.sort(key=lambda r: -r["device_ms"])
-    busy = sum(r["device_ms"] for r in rows)
-    return {"wall_ms": wall_ms, "device_ms": busy,
-            "busy_share": busy / wall_ms, "top": rows[:12],
-            "solve": [r for r in rows if "gj_" in r["name"]]}
-
-
 def phase_train_reference(report: dict, data, device) -> dict:
     """The solver='chol' runs the kernels' trajectories are held to (no
-    kernel launches), and a profile of one epoch."""
+    kernel launches), and profiles of the rank-64 and rank-128 trains."""
     from predictionio_torch.ops import spd_solve
+    from predictionio_torch.tools.profile_train import profile_train
 
     out = {}
     for rank in (64, 128):
@@ -421,16 +446,18 @@ def phase_train_reference(report: dict, data, device) -> dict:
         emit({"phase": "train", "rank": rank, "solver": "chol",
               "rmse": res.rmse_history, "epoch_s": res.epoch_times,
               "wall_s": wall})
-    prof = _profile_train(data, device)
-    report["profile_rank64"] = prof
-    emit({"phase": "profile", "rank": 64,
-          **{k: v for k, v in prof.items() if k != "top"},
-          "top": prof["top"][:6]})
-    # the rank-64 train's solves run on the register kernel alone
-    names = [r["name"] for r in prof["solve"]]
-    if (not any("gj_reg_kernel" in n for n in names)
-            or any("gj_kernel<" in n for n in names)):
-        raise AssertionError(f"rank-64 profile: solve kernels {names}")
+    # each train's solves run on its register kernel alone
+    for rank, kernel in ((64, "gj_reg_kernel"), (128, "gj_multi_reg_kernel")):
+        prof = profile_train(data, device, rank, ITERATIONS)
+        report[f"profile_rank{rank}"] = prof
+        emit({"phase": "profile",
+              **{k: v for k, v in prof.items() if k != "top"},
+              "top": prof["top"][:8]})
+        names = [r["name"] for r in prof["solve"]]
+        if (not any(kernel in n for n in names)
+                or any("gj_kernel<" in n for n in names)):
+            raise AssertionError(f"rank-{rank} profile: solve kernels "
+                                 f"{names}")
     return out
 
 
@@ -442,7 +469,7 @@ def phase_train(report: dict, data, device, chol: dict) -> dict:
 
     runs = {}
     for rank, layout, kernel in ((64, "auto", "gj_aug_reg"),
-                                 (128, "auto", "gj_aug_multi"),
+                                 (128, "auto", "gj_aug_multi_reg"),
                                  (64, "packed", "gj_packed"),
                                  (64, "blocked2", "gj_blocked2")):
         before = dict(spd_solve.launches)
@@ -820,11 +847,12 @@ def phase_batchpredict(report: dict, device, tmp: str, served: dict) -> dict:
 
 def _require_launches(path: str, launches: dict, kernels) -> None:
     """Every kernel in `kernels` launched on the path, and gj_aug (K > 64)
-    not at all."""
+    and gj_aug_multi (K > 32) not at all."""
     missing = [k for k in kernels if launches[k] <= 0]
-    if missing or launches["gj_aug"]:
+    off = {k: launches[k] for k in OFF_PATH if launches[k]}
+    if missing or off:
         raise AssertionError(f"on the {path} path: kernels never launched "
-                             f"{missing}, gj_aug {launches['gj_aug']} "
+                             f"{missing}, off-path kernels launched {off} "
                              f"({launches})")
 
 

@@ -13,20 +13,24 @@ Layouts:
   (one warp per system, rows in registers, one reciprocal per pivot),
   above that ``gj_aug`` (working copy in shared or device memory).
 - ``schur``: recursive Schur complements; the eliminations become f32
-  `torch.bmm` products and the base systems (K ≤ 32, or odd K) go to the
-  multi-RHS kernel; `auto` picks it at rank ≥ 96.
+  `torch.bmm` products and the base systems (K ≤ 32, or odd K) go to
+  `gj_solve_multi`; `auto` picks it at rank ≥ 96. At K ≤ 32
+  (`multi_kernel`) the base runs the register kernel ``gj_aug_multi_reg``
+  (one warp per system and right-hand-side chunk, columns in registers),
+  above that ``gj_aug_multi`` (working copy in shared or device memory).
 - ``packed``: column Gauss-Jordan on [[A], [bᵀ]] (the b row ends as xᵀ),
   `packed_groups(K)` systems per thread block; forced only.
 - ``blocked2``: row Gauss-Jordan two pivots per step through an explicit
   2×2 pivot-block inverse; even K only; forced only.
 
 Dispatch: a tensor on the CPU runs the kernel's plain PyTorch version
-(`gj_solve_reg_plain`, `gj_solve_plain`, `gj_solve_multi_plain`,
-`gj_solve_packed_plain`, `gj_solve_blocked2_plain`); a CUDA tensor
-launches the hand-written kernel from ``csrc/gj_reg.cu`` (aug at K ≤ 64),
-``csrc/gj_solve.cu`` (aug above, aug_multi) or ``csrc/gj_layouts.cu``
-(packed, blocked2), or raises. `launches` counts kernel launches per
-wrapper.
+(`gj_solve_reg_plain`, `gj_solve_plain`, `gj_solve_multi_reg_plain`,
+`gj_solve_multi_plain`, `gj_solve_packed_plain`,
+`gj_solve_blocked2_plain`); a CUDA tensor launches the hand-written
+kernel from ``csrc/gj_reg.cu`` (aug at K ≤ 64), ``csrc/gj_multi_reg.cu``
+(aug_multi at K ≤ 32), ``csrc/gj_solve.cu`` (aug and aug_multi above) or
+``csrc/gj_layouts.cu`` (packed, blocked2), or raises. `launches` counts
+kernel launches per wrapper.
 
 No pivoting: A = YᵀWY + λ(n)I is SPD. All-zero systems (bucket padding)
 solve to exactly 0 through the pivot guard |d| < 1e-30 → 1.
@@ -41,6 +45,9 @@ import torch
 
 _MAX_RANK = 256
 _REG_MAX_RANK = 64  # largest K the register kernel takes
+_MULTI_REG_MAX_RANK = 32  # largest K the multi-RHS register kernel takes
+# the widest chunk of B's columns one warp of gj_aug_multi_reg takes
+MULTI_CHUNK = 64
 _PIVOT_EPS = 1e-30
 # device-memory variant: resident blocks that share the scratch slots
 _SCRATCH_SLOTS = 1024
@@ -48,8 +55,8 @@ _LANES = 128  # the TPU kernel's lane width, which sets the packed grouping
 _MAX_GROUPS = 4
 
 # kernel launches per wrapper (plain ints; the plain versions never count)
-launches = {"gj_aug_reg": 0, "gj_aug": 0, "gj_aug_multi": 0, "gj_packed": 0,
-            "gj_blocked2": 0}
+launches = {"gj_aug_reg": 0, "gj_aug": 0, "gj_aug_multi_reg": 0,
+            "gj_aug_multi": 0, "gj_packed": 0, "gj_blocked2": 0}
 # the same launches by kernel and rank, keyed "<kernel>/K=<k>"
 launches_by_rank: dict[str, int] = {}
 
@@ -76,8 +83,14 @@ def aug_kernel(k: int) -> str:
     return "gj_aug_reg" if k <= _REG_MAX_RANK else "gj_aug"
 
 
+def multi_kernel(k: int) -> str:
+    """The kernel `gj_solve_multi` runs at rank `k`: the register kernel
+    up to K = 32, the shared/device-memory one above."""
+    return "gj_aug_multi_reg" if k <= _MULTI_REG_MAX_RANK else "gj_aug_multi"
+
+
 def reg_padded_rank(k: int) -> int:
-    """The register kernel's padded size KP ∈ {16, 32, 64} for K ≤ 64."""
+    """The register kernels' padded size KP ∈ {16, 32, 64} for K ≤ 64."""
     if not 1 <= k <= _REG_MAX_RANK:
         raise ValueError(f"the register kernel takes 1 ≤ K ≤ "
                          f"{_REG_MAX_RANK}, got {k}")
@@ -108,16 +121,15 @@ def gj_solve_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _gj_plain(work, k)[:, :, k]
 
 
-def gj_solve_reg_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x [R, K] = A⁻¹ b for a [R, K, K], b [R, K], K ≤ 64 (plain PyTorch),
-    the register kernel's arithmetic step for step: [A | b] zero-padded to
-    [KP, KP + 1], K steps, the pivot row scaled by one reciprocal 1/d, and
-    only the columns right of the pivot updated."""
+def _gj_reg_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """X [R, K, M] = A⁻¹ B, the register kernels' arithmetic step for step:
+    [A | B] zero-padded to [KP, KP + M], K steps, the pivot row scaled by
+    one reciprocal 1/d, and only the columns right of the pivot updated."""
     r, k = a.shape[0], a.shape[1]
     kp = reg_padded_rank(k)
-    work = a.new_zeros((r, kp, kp + 1), dtype=torch.float32)
+    work = a.new_zeros((r, kp, kp + b.shape[2]), dtype=torch.float32)
     work[:, :k, :k] = a
-    work[:, :k, kp] = b
+    work[:, :k, kp:] = b
     for p in range(k):
         d = work[:, p, p]
         d = torch.where(d.abs() < _PIVOT_EPS, torch.ones_like(d), d)
@@ -126,7 +138,25 @@ def gj_solve_reg_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         col[:, p] = 0.0
         work[:, :, p + 1:] -= col[:, :, None] * row[:, None, :]
         work[:, p, p + 1:] = row
-    return work[:, :k, kp]
+    return work[:, :k, kp:]
+
+
+def gj_solve_reg_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x [R, K] = A⁻¹ b for a [R, K, K], b [R, K], K ≤ 64 (plain PyTorch),
+    the arithmetic of ``gj_aug_reg``."""
+    return _gj_reg_plain(a, b[..., None])[..., 0]
+
+
+def gj_solve_multi_reg_plain(a: torch.Tensor,
+                             b: torch.Tensor) -> torch.Tensor:
+    """X [R, K, M] = A⁻¹ B for a [R, K, K], b [R, K, M], K ≤ 32 (plain
+    PyTorch), the arithmetic of ``gj_aug_multi_reg``: its chunking of B's
+    columns changes no value, so one block [A | B] stands for every
+    chunk."""
+    if a.shape[1] > _MULTI_REG_MAX_RANK:
+        raise ValueError(f"the multi-RHS register kernel takes K ≤ "
+                         f"{_MULTI_REG_MAX_RANK}, got {a.shape[1]}")
+    return _gj_reg_plain(a, b)
 
 
 def gj_solve_multi_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -185,7 +215,7 @@ def gj_solve_blocked2_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 # kernel → its source under csrc/
 _SOURCE = {"gj_aug_reg": "gj_reg", "gj_aug": "gj_solve",
-           "gj_aug_multi": "gj_solve",
+           "gj_aug_multi_reg": "gj_multi_reg", "gj_aug_multi": "gj_solve",
            "gj_packed": "gj_layouts", "gj_blocked2": "gj_layouts"}
 _max_shared: dict[int, int] = {}
 
@@ -204,6 +234,10 @@ def _bind(lib, source: str) -> None:
         lib.gj_aug_reg.argtypes = [p, i64, i64, i64, p, i64, i64, p, i64,
                                    i32, p]
         fns = (lib.gj_aug_reg,)
+    elif source == "gj_multi_reg":
+        lib.gj_aug_multi_reg.argtypes = [p, i64, i64, i64, p, i64, i64, i64,
+                                         p, i64, i32, i32, i32, p]
+        fns = (lib.gj_aug_multi_reg,)
     else:
         lib.gj_packed.argtypes = [p, i64, i64, i64, p, i64, i64, p, p, i64,
                                   i32, i32, i32, p]
@@ -245,9 +279,12 @@ def shared_fits(k: int, m: int, device: torch.device,
     return sum(_block_floats(name, k, m)) * 4 <= _max_shared[idx]
 
 
-def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
+            chunk: int = MULTI_CHUNK) -> torch.Tensor:
     """Launch `name` on CUDA tensors a [R, K, K] and b [R, K, M] (any
-    strides; M = 1 for packed and blocked2); returns X [R, K, M]."""
+    strides; M = 1 for packed and blocked2); returns X [R, K, M].
+    `chunk` (32 or 64) is gj_aug_multi_reg's widest chunk of B's columns
+    a warp takes; X does not depend on it."""
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"{name}: a and b must be on one CUDA device, got "
                          f"{a.device} and {b.device}")
@@ -262,14 +299,17 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{name}: takes one right-hand side, got M={m}")
     if name == "gj_aug_reg" and k > _REG_MAX_RANK:
         raise ValueError(f"{name}: takes K ≤ {_REG_MAX_RANK}, got {k}")
+    if name == "gj_aug_multi_reg" and k > _MULTI_REG_MAX_RANK:
+        raise ValueError(f"{name}: takes K ≤ {_MULTI_REG_MAX_RANK}, got {k}")
     x = torch.empty((r, k, m), dtype=torch.float32, device=a.device)
-    if r == 0:
+    if r == 0 or m == 0:
         return x
     lib = _lib(_SOURCE[name])
     g = packed_groups(k) if name == "gj_packed" else 1  # systems per block
     scratch = None
     grid = 0
-    if name != "gj_aug_reg" and not shared_fits(k, m, a.device, name):
+    if name not in ("gj_aug_reg", "gj_aug_multi_reg") and \
+            not shared_fits(k, m, a.device, name):
         grid = min(-(-r // g), _SCRATCH_SLOTS)
         scratch = torch.empty(grid * _block_floats(name, k, m)[0],
                               dtype=torch.float32, device=a.device)
@@ -279,6 +319,9 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if name == "gj_aug_reg":
         err = lib.gj_aug_reg(*ab, b.stride(0), b.stride(1), x.data_ptr(), r,
                              k, stream)
+    elif name == "gj_aug_multi_reg":
+        err = lib.gj_aug_multi_reg(*ab, *b.stride(), x.data_ptr(), r, k, m,
+                                   chunk, stream)
     elif name == "gj_aug_multi":
         err = lib.gj_aug_multi(*ab, *b.stride(), x.data_ptr(), sp, r, k, m,
                                grid, stream)
@@ -311,10 +354,14 @@ def gj_solve_multi(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """X = A⁻¹ B for a batch of SPD systems with M right-hand sides.
 
     a: [R, K, K]; b: [R, K, M] → X: [R, K, M] f32. The base call of
-    `schur_solve`'s recursion."""
+    `schur_solve`'s recursion; `multi_kernel` names the kernel (on CPU
+    tensors, its plain version)."""
+    name = multi_kernel(a.shape[1])
     if a.device.type == "cpu":
-        return gj_solve_multi_plain(a, b)
-    return _launch("gj_aug_multi", a.float(), b.float())
+        plain = (gj_solve_multi_reg_plain if name == "gj_aug_multi_reg"
+                 else gj_solve_multi_plain)
+        return plain(a, b)
+    return _launch(name, a.float(), b.float())
 
 
 def schur_solve(a: torch.Tensor, b: torch.Tensor,

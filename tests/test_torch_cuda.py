@@ -47,7 +47,9 @@ def test_kernel_matches_plain(dev, r, k, m):
     want = spd_solve.gj_solve_multi_plain(a, b)
     assert _rel(x, want) < 1e-4
     assert bool((x[1] == 0).all())
-    assert spd_solve.launches["gj_aug_multi"] == 1
+    # K ≤ 32 (37, 10, 1), (64, 32, 97) run the register kernel; the rest
+    # the shared/device-memory one
+    assert spd_solve.launches[spd_solve.multi_kernel(k)] == 1
     assert sum(spd_solve.launches.values()) == 1
     x1 = spd_solve.gj_solve(a, b[..., 0], layout="aug")
     assert _rel(x1, spd_solve.gj_solve_plain(a, b[..., 0])) < 1e-4
@@ -145,6 +147,83 @@ def test_layout_kernels_take_strided_inputs(dev, layout):
     assert _rel(x, _LAYOUT_PLAIN[layout](sub_a, sub_b)) < 1e-4
 
 
+# chunk widths 32 and 64: one below, at and above each boundary, and the
+# four chunks of the rank-256 base (225)
+_MULTI_RHS = [1, 31, 32, 33, 63, 64, 65, 225]
+
+
+@pytest.mark.parametrize("m", _MULTI_RHS)
+@pytest.mark.parametrize("r", [0, 1, 2, 37])
+def test_multi_reg_kernel_matches_plain(dev, r, m):
+    """The multi-RHS register kernel at K = 32 against both plain versions
+    under either chunk width; X does not depend on the chunk width."""
+    gen = torch.Generator(device=dev).manual_seed(r * 1000 + m)
+    a, b = _spd(gen, max(r, 2), 32, m, dev)
+    a, b = a[:r], b[:r]
+    assert spd_solve.multi_kernel(32) == "gj_aug_multi_reg"
+    x = spd_solve.gj_solve_multi(a, b)
+    assert x.shape == (r, 32, m)
+    assert spd_solve.launches["gj_aug_multi_reg"] == (1 if r else 0)
+    assert sum(spd_solve.launches.values()) == (1 if r else 0)
+    for chunk in (32, 64):
+        xc = spd_solve._launch("gj_aug_multi_reg", a, b, chunk=chunk)
+        assert torch.equal(xc, x)
+    if r == 0:
+        return
+    assert _rel(x, spd_solve.gj_solve_multi_reg_plain(a, b)) < 1e-4
+    assert _rel(x, spd_solve.gj_solve_multi_plain(a, b)) < 1e-4
+    if r >= 2:  # _spd's all-zero system
+        assert bool((x[1] == 0).all())
+
+
+@pytest.mark.parametrize("m", [1, 73, 97])
+@pytest.mark.parametrize("k", [1, 2, 8, 16, 17, 24, 25, 31])
+def test_multi_reg_kernel_matches_plain_below_32(dev, k, m):
+    """Both padded sizes (KP = 16 at K ≤ 16, else 32), the rank-96 and
+    rank-200 base ranks (24, 25) among them."""
+    gen = torch.Generator(device=dev).manual_seed(k * 100 + m)
+    a, b = _spd(gen, 37, k, m, dev)
+    x = spd_solve.gj_solve_multi(a, b)
+    assert _rel(x, spd_solve.gj_solve_multi_reg_plain(a, b)) < 1e-4
+    assert _rel(x, spd_solve.gj_solve_multi_plain(a, b)) < 1e-4
+    assert bool((x[1] == 0).all())
+    assert spd_solve.launches["gj_aug_multi_reg"] == 1
+    assert sum(spd_solve.launches.values()) == 1
+
+
+def test_multi_reg_kernel_takes_schur_views(dev):
+    """The recursion's operands as it passes them: A11 = a[:, :h, :h] and
+    the Schur complement, B = torch.cat([A12, B1]); and a transposed A."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    a, b = _spd(gen, 40, 64, 1, dev)
+    h = 32
+    a11, a12 = a[:, :h, :h], a[:, :h, h:]
+    rhs = torch.cat([a12, b[:, :h]], dim=2)
+    assert not a11.is_contiguous()
+    for sub_a, sub_b in ((a11, rhs), (a11.transpose(1, 2), rhs),
+                         (a11, rhs[:, :, 5:40]),
+                         (a[:, h:, h:] - torch.bmm(a[:, h:, :h], a12),
+                          b[:, h:])):
+        x = spd_solve.gj_solve_multi(sub_a, sub_b)
+        assert _rel(x, spd_solve.gj_solve_multi_reg_plain(sub_a, sub_b)) \
+            < 1e-4
+        assert bool((x[1] == 0).all())
+    assert spd_solve.launches["gj_aug_multi_reg"] == 4
+    assert sum(spd_solve.launches.values()) == 4
+
+
+@pytest.mark.parametrize("m", [1, 97, 225])
+def test_multi_reg_kernel_system_alone_equals_in_batch(dev, m):
+    """A system's X is bitwise the same solved alone and inside a batch."""
+    gen = torch.Generator(device=dev).manual_seed(m)
+    a, b = _spd(gen, 301, 32, m, dev)
+    x = spd_solve.gj_solve_multi(a, b)
+    for row in (0, 150, 300):
+        alone = spd_solve.gj_solve_multi(a[row:row + 1].clone(),
+                                         b[row:row + 1].clone())
+        assert torch.equal(alone[0], x[row])
+
+
 def test_kernel_takes_strided_blocks(dev):
     """Schur sub-blocks reach the kernel as strided views, uncopied."""
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -180,6 +259,15 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="K ≤ 64"):
         big = torch.eye(65, device=dev).expand(2, 65, 65)
         spd_solve._launch("gj_aug_reg", big, torch.ones(2, 65, 1, device=dev))
+    with pytest.raises(ValueError, match="K ≤ 32"):
+        big = torch.eye(33, device=dev).expand(2, 33, 33)
+        spd_solve._launch("gj_aug_multi_reg", big,
+                          torch.ones(2, 33, 4, device=dev))
+    with pytest.raises(ValueError, match="float32"):
+        spd_solve._launch("gj_aug_multi_reg", a.double(),
+                          torch.ones(2, 4, 1, device=dev, dtype=torch.float64))
+    with pytest.raises(ValueError, match="CUDA"):
+        spd_solve._launch("gj_aug_multi_reg", a, torch.ones(2, 4, 1))
     assert not any(spd_solve.launches.values())
 
 
