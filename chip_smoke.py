@@ -10,39 +10,48 @@ Phases (any failure exits non-zero and prints no result line):
 1. build   — nvcc builds every kernel source under predictionio_torch/csrc,
              one nvcc per source, all started together, and prints the
              -Xptxas -v report; the register kernels' instantiations
-             (gj_reg.cu: KP = 16, 32, 64; gj_multi_reg.cu: KP = 16, 32 ×
+             (gj_reg.cu: KP = 16, 32, 64 × aug/packed load; gj_cta.cu:
+             KP = 96, 128 × aug/packed; gj_multi_reg.cu: KP = 16, 32 ×
              one or two column slots) must show a 0-byte stack frame and
-             no spills;
-2. kernels — each of the six solve kernels against its plain PyTorch
-             version on the card at the main paths' shapes, the eval
-             path's rank-8 and rank-16 grid solves among them (max-rel <
-             1e-4, all-zero systems exactly 0), with its time, the plain
-             version's, one library call's (Cholesky + cholesky_solve) and
-             the card's bound. The kernels (csrc/): `gj_aug_reg`
-             (gj_reg.cu) runs the aug layout at K ≤ 64, a warp per system
-             with its rows in registers, also held against the
-             shared-memory kernel's plain version; `gj_aug` (gj_solve.cu)
-             runs it at K > 64, held at K = 80 and at K = 255 (its
-             device-memory variant), and timed at K = 64 beside the
-             register kernel; `gj_aug_multi_reg` (gj_multi_reg.cu) is the
-             Schur recursion's base at K ≤ 32 (every rank from 96 to 256),
-             a warp per system and chunk of right-hand sides with its
+             no spills; their SASS size goes to the report;
+2. kernels — each of the nine solve kernels against its plain PyTorch
+             version and a float64 solve on the card at the main paths'
+             shapes, the eval path's rank-8 and rank-16 grid solves among
+             them (max-rel < 1e-4, all-zero systems exactly 0), with its
+             time, the plain version's, one library call's (Cholesky +
+             cholesky_solve) and the card's bound; each new kernel beside
+             the one it replaced, at the same shapes. The kernels (csrc/):
+             the aug layout runs `gj_aug_reg` (gj_reg.cu, a warp per
+             system, its rows in registers) at K ≤ 64, `gj_aug_cta`
+             (gj_cta.cu, a block per system, a row per thread in
+             registers) at 64 < K ≤ 128 (held at K = 80, 96, 128) and
+             `gj_aug` (gj_solve.cu, shared or device memory) above (held at
+             K = 255, its device-memory variant, and timed at K = 64-128
+             beside the kernels that took those ranks over); the packed
+             layout (PIO_GJ_LAYOUT=packed) runs the same two register
+             bodies with A loaded transposed, `gj_packed_reg` at K ≤ 64
+             and `gj_packed_cta` at 64 < K ≤ 128, and `gj_packed`
+             (gj_layouts.cu) above (K = 255; timed at the smaller shapes
+             too); `gj_aug_multi_reg` (gj_multi_reg.cu) is the Schur
+             recursion's base at K ≤ 32 (every rank from 96 to 256), a
+             warp per system and chunk of right-hand sides with its
              columns in registers, held against both plain versions at the
              rank-128 base calls (R = 13 850, the path's largest bucket
              2 744, and a small one, 560), at rank 96's and rank 256's, and
              timed under both chunk widths; `gj_aug_multi` (gj_solve.cu)
              takes the base at odd K > 32, held at rank 98's (K = 49) and
              timed at the rank-128 shapes beside the register kernel;
-             `gj_packed` and `gj_blocked2` (gj_layouts.cu) run under
-             PIO_GJ_LAYOUT=packed / blocked2;
-3. train   — `als_train` on synth_explicit("2m") at rank 64 (the register
-             kernel, and not `gj_aug`), rank 128 (Schur recursion over the
-             multi-RHS register kernel, and not `gj_aug_multi`) and rank
-             64 under PIO_GJ_LAYOUT=packed and =blocked2; each run
-             launches its layout's kernel and no other; each RMSE
-             trajectory within rtol 2e-3 of a solver="chol" run; profiles
-             of the rank-64 and rank-128 trains must show their register
-             kernel and no `gj_kernel<` (gj_solve.cu's);
+             `gj_blocked2` (gj_layouts.cu) runs under
+             PIO_GJ_LAYOUT=blocked2;
+3. train   — `als_train` on synth_explicit("2m") at rank 64 (`gj_aug_reg`
+             alone), rank 80 (`gj_aug_cta` alone), rank 128 (Schur
+             recursion over `gj_aug_multi_reg` alone), rank 64 under
+             PIO_GJ_LAYOUT=packed (`gj_packed_reg`) and =blocked2, and
+             rank 128 under =packed (`gj_packed_cta`); each run launches
+             its kernel and no other; each RMSE trajectory within rtol
+             2e-3 of a solver="chol" run of its rank; profiles of the
+             rank-64 and rank-128 trains must show their register kernel
+             and no `gj_kernel<` (gj_solve.cu's);
 4. serve   — synth_explicit("100k") as a JSON-lines events file,
              `console train` on the card, `console deploy --port 0` in a
              subprocess, POST /queries.json answers equal the in-process
@@ -65,8 +74,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 Launch counts are zeroed just before each path (phases 3-4: train →
 serve; phase 5: eval → batchpredict) and read just after; every kernel of
-a path must have launched there, and `gj_aug` (K > 64 only) and
-`gj_aug_multi` (K > 32 only) on neither.
+a path must have launched there, and `gj_aug` and `gj_packed` (K > 128
+only) and `gj_aug_multi` (K > 32 only) on neither.
 The eval path's counts add the console
 children's own to the grids'; the sequential trains phase 5a compares
 with run before its counts are zeroed. `--report PATH` also writes a JSON report
@@ -82,6 +91,7 @@ import contextlib
 import json
 import os
 import queue
+import re
 import subprocess
 import sys
 import tempfile
@@ -108,32 +118,48 @@ MAP_ATOL = 2e-5
 EVAL_CLASS = ("predictionio_torch.templates.recommendation.evaluation."
               "RecommendationEvaluation")
 # the TPU kernel each port kernel replaces, and the port's source
+_AUG = "predictionio_tpu/ops/pallas_solve.py:249"
+_PACKED = "predictionio_tpu/ops/pallas_solve.py:101"
+_MULTI = "predictionio_tpu/ops/pallas_solve.py:296"
 KERNELS = {
-    "gj_aug_reg": ("predictionio_tpu/ops/pallas_solve.py:249", "gj_reg.cu"),
-    "gj_aug": ("predictionio_tpu/ops/pallas_solve.py:249", "gj_solve.cu"),
-    "gj_aug_multi_reg": ("predictionio_tpu/ops/pallas_solve.py:296",
-                         "gj_multi_reg.cu"),
-    "gj_aug_multi": ("predictionio_tpu/ops/pallas_solve.py:296",
-                     "gj_solve.cu"),
-    "gj_packed": ("predictionio_tpu/ops/pallas_solve.py:101",
-                  "gj_layouts.cu"),
+    "gj_aug_reg": (_AUG, "gj_reg.cu"),
+    "gj_aug_cta": (_AUG, "gj_cta.cu"),
+    "gj_aug": (_AUG, "gj_solve.cu"),
+    "gj_aug_multi_reg": (_MULTI, "gj_multi_reg.cu"),
+    "gj_aug_multi": (_MULTI, "gj_solve.cu"),
+    "gj_packed_reg": (_PACKED, "gj_reg.cu"),
+    "gj_packed_cta": (_PACKED, "gj_cta.cu"),
+    "gj_packed": (_PACKED, "gj_layouts.cu"),
     "gj_blocked2": ("predictionio_tpu/ops/pallas_solve.py:177",
                     "gj_layouts.cu"),
 }
 # the ranks each kernel takes on the paths below
-KERNEL_RANKS = {"gj_aug_reg": "aug, K ≤ 64", "gj_aug": "aug, K > 64",
+KERNEL_RANKS = {"gj_aug_reg": "aug, K ≤ 64",
+                "gj_aug_cta": "aug, 64 < K ≤ 128 (auto: rank 65-95)",
+                "gj_aug": "aug, K > 128",
                 "gj_aug_multi_reg": "Schur base, K ≤ 32 (rank 96-256)",
                 "gj_aug_multi": "Schur base, K > 32 (odd splits)",
-                "gj_packed": "forced packed", "gj_blocked2": "forced blocked2"}
-# the kernels on no main path: gj_aug (K > 64), gj_aug_multi (K > 32)
-OFF_PATH = ("gj_aug", "gj_aug_multi")
+                "gj_packed_reg": "forced packed, K ≤ 64",
+                "gj_packed_cta": "forced packed, 64 < K ≤ 128",
+                "gj_packed": "forced packed, K > 128",
+                "gj_blocked2": "forced blocked2"}
+# the kernels on no main path: gj_aug and gj_packed (K > 128),
+# gj_aug_multi (K > 32)
+OFF_PATH = ("gj_aug", "gj_packed", "gj_aug_multi")
 PATH_KERNELS = [name for name in KERNELS if name not in OFF_PATH]
 # the register kernels' sources: (kernel symbol, instantiations)
-REG_SOURCES = {"gj_reg": ("gj_reg_kernel", 3),
+REG_SOURCES = {"gj_reg": ("gj_reg_kernel", 6),
+               "gj_cta": ("gj_cta_kernel", 4),
                "gj_multi_reg": ("gj_multi_reg_kernel", 4)}
 # the kernel each PIO_GJ_LAYOUT runs at rank ≤ 64
-LAYOUT_KERNEL = {"auto": "gj_aug_reg", "packed": "gj_packed",
+LAYOUT_KERNEL = {"auto": "gj_aug_reg", "packed": "gj_packed_reg",
                  "blocked2": "gj_blocked2"}
+# the kernels that keep their working copy in registers
+REGISTER_KERNELS = ("gj_aug_reg", "gj_aug_cta", "gj_aug_multi_reg",
+                    "gj_packed_reg", "gj_packed_cta")
+# each kernel that took ranks over from an older one, and that kernel
+REPLACED = {"gj_aug_cta": "gj_aug", "gj_packed_reg": "gj_packed",
+            "gj_packed_cta": "gj_packed"}
 # runs the console in a child process and prints, as its last line, its
 # launch counts and its grid trains (als_grid.grid_log)
 _CONSOLE_CHILD = (
@@ -217,6 +243,34 @@ def card_line() -> str:
 
 # -- phase 1 -----------------------------------------------------------------
 
+def sass_instructions(library) -> dict:
+    """Per kernel (mangled name) of a built library: its SASS
+    instructions, as `cuobjdump -sass` lists them ({} without
+    cuobjdump)."""
+    from predictionio_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    out = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts: dict = {}
+    current = None
+    for line in out.splitlines():
+        if "Function : " in line:
+            current = line.split("Function : ")[1].strip()
+            counts[current] = 0
+        elif current is not None and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            counts[current] += 1
+    return counts
+
+
+def blocks_per_sm(threads: int, registers: int) -> int:
+    """Resident blocks an H100 SM holds by registers alone: 65 536 a SM,
+    allocated 8 a thread at a time (shared memory does not bind here)."""
+    return min(32, 65_536 // (threads * -(-registers // 8) * 8))
+
+
 def phase_build(report: dict, card: str) -> None:
     from predictionio_torch.ops import _build
 
@@ -236,6 +290,15 @@ def phase_build(report: dict, card: str) -> None:
         reg = {fn: props for fn, props in
                _build.ptxas_kernels(_build.build_log[source][1]).items()
                if symbol in fn}
+        sass = sass_instructions(_build._lib_path(source))
+        for fn, props in reg.items():
+            # a block is 128 threads, but for gj_cta_kernel<KP>: KP
+            kp = re.search(r"ILi(\d+)E", fn)
+            threads = int(kp.group(1)) if symbol == "gj_cta_kernel" else 128
+            props["sass_instructions"] = sass.get(fn)
+            if "registers" in props:
+                props["blocks_per_sm"] = blocks_per_sm(threads,
+                                                       props["registers"])
         emit({"phase": "build", f"ptxas_{source}": reg})
         if len(reg) != count or any(
                 props.get(key, 1) for props in reg.values()
@@ -258,6 +321,10 @@ def _spd(gen, r, k, m, device):
     return a, b
 
 
+def _rel(x, want) -> float:
+    return ((x - want).abs().max() / want.abs().max()).item()
+
+
 def _kernel_calls(name, a, b):
     """(kernel call, plain call, FP32 operations per system) of `name` on
     a [R, K, K], b [R, K, M]."""
@@ -276,22 +343,30 @@ def _kernel_calls(name, a, b):
                 lambda: spd_solve.gj_solve_multi_plain(a, b),
                 gj_operations(k, m))
     b1 = b[..., 0]
-    if name == "gj_aug_reg":
-        if spd_solve.aug_kernel(k) != name:
-            raise AssertionError(f"aug at K = {k} does not route to {name}")
-        return (lambda: spd_solve.gj_solve(a, b1, layout="aug"),
-                lambda: spd_solve.gj_solve_reg_plain(a, b1),
-                gj_operations(k, 1))
-    if name == "gj_aug":  # straight to the kernel: aug routes K ≤ 64 away
-        return (lambda: spd_solve._launch(name, a, b)[..., 0],
-                lambda: spd_solve.gj_solve_plain(a, b1), gj_operations(k, 1))
-    layout = name[len("gj_"):]
-    plain = {"packed": spd_solve.gj_solve_packed_plain,
-             "blocked2": spd_solve.gj_solve_blocked2_plain}[layout]
-    ops = blocked2_operations(k) if layout == "blocked2" else \
+    plain = {"gj_aug_reg": spd_solve.gj_solve_reg_plain,
+             "gj_aug_cta": spd_solve.gj_solve_cta_plain,
+             "gj_aug": spd_solve.gj_solve_plain,
+             "gj_packed_reg": spd_solve.gj_solve_packed_reg_plain,
+             "gj_packed_cta": lambda a, b: spd_solve.gj_solve_cta_plain(
+                 a, b, transpose=True),
+             "gj_packed": spd_solve.gj_solve_packed_plain,
+             "gj_blocked2": spd_solve.gj_solve_blocked2_plain}[name]
+    ops = blocked2_operations(k) if name == "gj_blocked2" else \
         gj_operations(k, 1)
-    return (lambda: spd_solve.gj_solve(a, b1, layout=layout),
-            lambda: plain(a, b1), ops)
+    layout = ("blocked2" if name == "gj_blocked2" else
+              "packed" if name.startswith("gj_packed") else "aug")
+    routed = (spd_solve.packed_kernel(k) if layout == "packed" else
+              spd_solve.aug_kernel(k) if layout == "aug" else name)
+
+    def kernel():
+        if routed == name:  # through the layout, as a caller gets it
+            return spd_solve.gj_solve(a, b1, layout=layout)
+        return spd_solve._launch(name, a, b)[..., 0]
+
+    if routed != name and name not in REPLACED.values():
+        raise AssertionError(f"{layout} at K = {k} routes to {routed}, not "
+                             f"{name}")
+    return kernel, lambda: plain(a, b1), ops
 
 
 def _check_kernel(name, r, k, m, gen, device, reps):
@@ -311,12 +386,21 @@ def _check_kernel(name, r, k, m, gen, device, reps):
     err = (x - want).abs().max().item()
     rel = err / want.abs().max().item()
     rel_shared = rel  # against the shared-memory kernel's plain version
-    if name in ("gj_aug_reg", "gj_aug_multi_reg"):
-        shared = (spd_solve.gj_solve_plain(a, b[..., 0])
-                  if name == "gj_aug_reg"
-                  else spd_solve.gj_solve_multi_plain(a, b))
-        rel_shared = ((x - shared).abs().max()
-                      / shared.abs().max()).item()
+    if name == "gj_aug_multi_reg":
+        rel_shared = _rel(x, spd_solve.gj_solve_multi_plain(a, b))
+    elif name in REGISTER_KERNELS:
+        shared = (spd_solve.gj_solve_packed_plain
+                  if name.startswith("gj_packed")
+                  else spd_solve.gj_solve_plain)
+        rel_shared = _rel(x, shared(a, b[..., 0]))
+    # a float64 solve (the packed kernels solve Aᵀx = b; the all-zero
+    # system, whose b is 0, becomes I x = 0)
+    a64 = a.double()
+    a64[1] = torch.eye(k, dtype=torch.float64, device=device)
+    if name.startswith("gj_packed"):
+        a64 = a64.transpose(1, 2)
+    exact = torch.linalg.solve(a64, b.double())
+    rel_f64 = _rel(x.double(), exact.reshape(x.shape))
     zeros = bool((x[1] == 0).all().item())
     finite = bool(torch.isfinite(x).all().item())
 
@@ -324,13 +408,13 @@ def _check_kernel(name, r, k, m, gen, device, reps):
         chol, _ = torch.linalg.cholesky_ex(a)
         return torch.cholesky_solve(b, chol)
 
-    registers = name in ("gj_aug_reg", "gj_aug_multi_reg")
     row = {
         "name": name, "shape": [r, k, m],
-        "shared_memory": (None if registers else
+        "shared_memory": (None if name in REGISTER_KERNELS else
                           spd_solve.shared_fits(k, m, device, name)),
         "max_abs_err": err, "max_rel_err": rel,
         "max_rel_err_vs_gj_solve_plain": rel_shared,
+        "max_rel_err_vs_float64": rel_f64,
         "zero_system_exact": zeros,
         "kernel_ms": time_ms(kernel, reps),
         "plain_ms": time_ms(plain, max(1, reps // 10), warmup=1),
@@ -350,8 +434,8 @@ def _check_kernel(name, r, k, m, gen, device, reps):
             row["kernel_ms_by_chunk"][chunk] = time_ms(call, reps)
         row["chunks_bitwise_equal"] = same
     emit(dict(phase="kernels", **row))
-    if not (rel < REL_BAR and rel_shared < REL_BAR and zeros and finite
-            and same):
+    if not (rel < REL_BAR and rel_shared < REL_BAR and rel_f64 < REL_BAR
+            and zeros and finite and same):
         raise AssertionError(f"{name} at {[r, k, m]} disagrees with its "
                              f"plain version: {row}")
     return row
@@ -370,10 +454,13 @@ def phase_kernels(report: dict, device) -> dict:
             for r, k, reps in shapes]
     # KP = 32 at the same R: per-system cost against the KP = 64 body
     rows.append(_check_kernel("gj_aug_reg", 13_850, 32, 1, gen, device, 20))
-    # the shared-memory kernel: at the rank-64 shape beside the register
-    # kernel, and at a rank `auto` still sends to it
-    rows += [_check_kernel("gj_aug", 13_850, k, 1, gen, device, 20)
-             for k in (64, 80)]
+    # the block kernel at the ranks 64 < K ≤ 128 it took over (80: one
+    # `auto` sends it), and the shared-memory kernel beside it there and
+    # at the rank-64 shape beside the warp kernel
+    rows += [_check_kernel("gj_aug_cta", 13_850, k, 1, gen, device, 20)
+             for k in (80, 96, 128)]
+    rows += [_check_kernel("gj_aug", 13_850, k, 1, gen, device, reps)
+             for k, reps in ((64, 20), (80, 20), (96, 10), (128, 5))]
     # the rank-128 base calls (K = 32, M = 97, 65, 33, 1) at the whole user
     # side and at the path's largest bucket; rank 96's (K = 24) and rank
     # 256's widest (four chunks); the shared-memory kernel beside them and
@@ -390,7 +477,12 @@ def phase_kernels(report: dict, device) -> dict:
     rows += [_check_kernel("gj_aug_multi", 2_744, 49, m, gen, device, 20)
              for m in (1, 50)]
     deep = [_check_kernel("gj_aug", 1_024, 255, 1, gen, device, 3)]
-    # the forced layouts also at rank 128 (a forced layout bypasses Schur)
+    # the forced layouts also at rank 128 (a forced layout bypasses Schur):
+    # packed on its two register kernels, beside the kernel they replaced
+    rows += [_check_kernel("gj_packed_reg", r, k, 1, gen, device, reps)
+             for r, k, reps in shapes]
+    rows.append(_check_kernel("gj_packed_cta", 13_850, 128, 1, gen, device,
+                              20))
     for name in ("gj_packed", "gj_blocked2"):
         rows += [_check_kernel(name, r, k, 1, gen, device, reps)
                  for r, k, reps in shapes + ((13_850, 128, 5),)]
@@ -398,15 +490,33 @@ def phase_kernels(report: dict, device) -> dict:
     if any(row["shared_memory"] for row in deep):
         raise AssertionError("K = 255 should take the device-memory variant")
     rows += deep
+    # each new kernel's time over the one it replaced, at the same shape
+    for row in rows:
+        old = REPLACED.get(row["name"])
+        ref = next((o for o in rows if o["name"] == old
+                    and o["shape"] == row["shape"]), None)
+        if ref is not None:
+            row["replaced_ms"] = ref["kernel_ms"]
+            emit({"phase": "kernels", "name": row["name"],
+                  "shape": row["shape"], "replaced": old,
+                  "kernel_ms": row["kernel_ms"],
+                  "replaced_ms": ref["kernel_ms"],
+                  "library_ms": row["library_ms"]})
     report["kernels"] = rows
     # each kernel's main-path shape: the rank-64 user half-epoch, for
-    # gj_aug a rank above 64, for the multi-RHS register kernel the
-    # largest base call of the rank-128 recursion (its largest bucket,
-    # widest M), and for gj_aug_multi a K above 32
-    main_shape = {"gj_aug_reg": [13_850, 64, 1], "gj_aug": [13_850, 80, 1],
+    # gj_aug_cta a rank auto sends it (80), for gj_packed_cta rank 128,
+    # for gj_aug and gj_packed the K > 128 they now take, for the
+    # multi-RHS register kernel the largest base call of the rank-128
+    # recursion (its largest bucket, widest M), and for gj_aug_multi a K
+    # above 32
+    main_shape = {"gj_aug_reg": [13_850, 64, 1],
+                  "gj_aug_cta": [13_850, 80, 1], "gj_aug": [1_024, 255, 1],
                   "gj_aug_multi_reg": [2_744, 32, 97],
                   "gj_aug_multi": [2_744, 49, 1],
-                  "gj_packed": [13_850, 64, 1], "gj_blocked2": [13_850, 64, 1]}
+                  "gj_packed_reg": [13_850, 64, 1],
+                  "gj_packed_cta": [13_850, 128, 1],
+                  "gj_packed": [1_024, 255, 1],
+                  "gj_blocked2": [13_850, 64, 1]}
     return {name: next(row for row in rows if row["name"] == name
                        and row["shape"] == shape)
             for name, shape in main_shape.items()}
@@ -437,7 +547,7 @@ def phase_train_reference(report: dict, data, device) -> dict:
     from predictionio_torch.tools.profile_train import profile_train
 
     out = {}
-    for rank in (64, 128):
+    for rank in (64, 80, 128):
         before = dict(spd_solve.launches)
         res, wall = _train(data, rank, "chol", device)
         if spd_solve.launches != before:
@@ -462,15 +572,18 @@ def phase_train_reference(report: dict, data, device) -> dict:
 
 
 def phase_train(report: dict, data, device, chol: dict) -> dict:
-    """solver='gj' at rank 64 and 128 under the auto layout, and at rank 64
-    under each forced layout; every run's RMSE trajectory against the chol
-    run's, and its kernel launched."""
+    """solver='gj' at rank 64, 80 and 128 under the auto layout, at rank 64
+    under each forced layout and at rank 128 under the packed one; every
+    run's RMSE trajectory against the chol run's of its rank, and its
+    kernel launched alone."""
     from predictionio_torch.ops import spd_solve
 
     runs = {}
     for rank, layout, kernel in ((64, "auto", "gj_aug_reg"),
+                                 (80, "auto", "gj_aug_cta"),
                                  (128, "auto", "gj_aug_multi_reg"),
-                                 (64, "packed", "gj_packed"),
+                                 (64, "packed", "gj_packed_reg"),
+                                 (128, "packed", "gj_packed_cta"),
                                  (64, "blocked2", "gj_blocked2")):
         before = dict(spd_solve.launches)
         with gj_layout(layout):
@@ -796,9 +909,10 @@ def phase_eval(report: dict, device, tmp: str, served: dict) -> dict:
         kernel = LAYOUT_KERNEL[layout]
         ranks = [f"{kernel}/K={k}" for k in (8, 16)]
         if (any(child["by_rank"].get(key, 0) <= 0 for key in ranks)
-                or launches["gj_aug"]):
+                or any(launches[name] for name in OFF_PATH)):
             raise AssertionError(f"console eval ({layout}): want {ranks} "
-                                 f"and no gj_aug, got {child['by_rank']}")
+                                 f"and none of {OFF_PATH}, got "
+                                 f"{child['by_rank']}")
         runs[layout] = row
     auto = runs["auto"]
     for layout in ("packed", "blocked2"):
@@ -846,8 +960,8 @@ def phase_batchpredict(report: dict, device, tmp: str, served: dict) -> dict:
 
 
 def _require_launches(path: str, launches: dict, kernels) -> None:
-    """Every kernel in `kernels` launched on the path, and gj_aug (K > 64)
-    and gj_aug_multi (K > 32) not at all."""
+    """Every kernel in `kernels` launched on the path, and no kernel of
+    OFF_PATH."""
     missing = [k for k in kernels if launches[k] <= 0]
     off = {k: launches[k] for k in OFF_PATH if launches[k]}
     if missing or off:

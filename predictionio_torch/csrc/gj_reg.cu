@@ -1,10 +1,20 @@
 // Batched Gauss-Jordan solve of small SPD systems, x = A^-1 b, K <= 64,
 // with the working copy in registers, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel _build_solver_aug of
-// predictionio_tpu/ops/pallas_solve.py at the ranks the main paths use
-// (K <= 64: train at 64, quickstart at 10, the eval grid at 8 and 16). At
-// K > 64 gj_solve.cu's gj_aug still runs; ops/spd_solve.py routes.
+// Replaces two TPU kernels of predictionio_tpu/ops/pallas_solve.py at
+// K <= 64, the ranks the main paths use (train at 64, quickstart at 10,
+// the eval grid at 8 and 16):
+//   - _build_solver_aug :249 (entry point gj_aug_reg);
+//   - _build_solver_packed :101 (entry point gj_packed_reg).
+// Above K = 64 gj_cta.cu runs both up to K = 128; ops/spd_solve.py routes.
+//
+// One kernel serves both. The packed layout is column Gauss-Jordan on
+// M = [[A], [b^T]]; that is the row Gauss-Jordan below applied to
+// [A^T | b], transposed: step j reads the same pivot M[j][j], scales the
+// same K + 1 values by it and subtracts the same products from the same
+// elements. So gj_packed_reg is this kernel with A loaded transposed
+// (kPacked): lane i takes column i of A as its row. For an A that is not
+// bitwise symmetric it solves A^T x = b, as the TPU kernel does.
 //
 // Why a second kernel: gj_solve.cu keeps the [K][K+1] working copy in
 // shared memory, and in each of the K steps every element is read, the
@@ -36,11 +46,14 @@
 // copy stays in registers (ptxas: 0-byte stack frame, 0 spills). No shared
 // memory and no barrier in the elimination.
 //
-// A is read from device memory once, coalesced: each warp stages its
-// system, L rows at a time, through a per-warp shared tile of stride
-// KP + 1 (odd, so lane i reading row i finds 32 different banks), with
-// 16-byte loads where A is contiguous and aligned (K == KP) and strided
-// scalar loads otherwise (Schur sub-blocks, K < KP). Only x is written.
+// A is read from device memory once, coalesced. The aug load stages each
+// warp's system, L rows at a time, through a per-warp shared tile of
+// stride KP + 1 (odd, so lane i reading row i finds 32 different banks),
+// with 16-byte loads where A is contiguous and aligned (K == KP) and
+// strided scalar loads otherwise (Schur sub-blocks, K < KP). The packed
+// load needs no tile: lane i reads A[j][i] for each row j, so where A's
+// rows are contiguous the lanes of a system read row j in one coalesced
+// access. Only x is written.
 //
 // Built without --use_fast_math: the reciprocal is __frcp_rn (IEEE, round
 // to nearest), which keeps the 1e-4 bars and the exact zeros.
@@ -54,7 +67,7 @@ constexpr float kPivotEps = 1e-30f;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kWarps = 4;  // warps per block
 
-template <int KP>
+template <int KP, bool kPacked>
 __global__ void __launch_bounds__(kWarps * 32)
 gj_reg_kernel(const float* __restrict__ a, int64_t sa0, int64_t sa1,
               int64_t sa2, const float* __restrict__ b, int64_t sb0,
@@ -77,7 +90,17 @@ gj_reg_kernel(const float* __restrict__ a, int64_t sa0, int64_t sa1,
   const float* as = a + (valid ? sys : 0) * sa0;
   float w[ROWS][KP + 1];  // row ll + c*L of [A | b]; b at column KP
 
-  if (vec) {  // K == KP, rows contiguous, every system 16-byte aligned
+  if constexpr (kPacked) {  // row i of [A^T | b]: column i of A
+#pragma unroll
+    for (int c = 0; c < ROWS; ++c) {
+      const int i = c * L + ll;
+      const bool live = valid && i < k;
+      const float* col = as + (live ? i : 0) * sa2;
+#pragma unroll
+      for (int j = 0; j < KP; ++j)
+        w[c][j] = live && j < k ? __ldg(col + j * sa1) : 0.0f;
+    }
+  } else if (vec) {  // K == KP, rows contiguous, every system 16-byte aligned
     const float4* src = reinterpret_cast<const float4*>(as);
     float4 v[ROWS][QUADS];
 #pragma unroll
@@ -158,17 +181,32 @@ gj_reg_kernel(const float* __restrict__ a, int64_t sa0, int64_t sa1,
   }
 }
 
-template <int KP>
+template <int KP, bool kPacked>
 int launch(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
            const float* b, int64_t sb0, int64_t sb1, float* x, int64_t r,
            int k, cudaStream_t stream) {
   constexpr int per_block = kWarps * (32 / (KP < 32 ? KP : 32));
-  const bool vec = k == KP && sa2 == 1 && sa1 == KP && sa0 % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  const bool vec = !kPacked && k == KP && sa2 == 1 && sa1 == KP &&
+                   sa0 % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
   const int64_t blocks = (r + per_block - 1) / per_block;
-  gj_reg_kernel<KP><<<(unsigned)blocks, kWarps * 32, 0, stream>>>(
+  gj_reg_kernel<KP, kPacked><<<(unsigned)blocks, kWarps * 32, 0, stream>>>(
       a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, vec);
   return (int)cudaGetLastError();
+}
+
+template <bool kPacked>
+int dispatch(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
+             const float* b, int64_t sb0, int64_t sb1, float* x, int64_t r,
+             int k, void* stream) {
+  if (r <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k >= 1 && k <= 16)
+    return launch<16, kPacked>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, s);
+  if (k > 16 && k <= 32)
+    return launch<32, kPacked>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, s);
+  if (k > 32 && k <= 64)
+    return launch<64, kPacked>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -181,15 +219,15 @@ extern "C" {
 int gj_aug_reg(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
                const float* b, int64_t sb0, int64_t sb1, float* x,
                int64_t r, int k, void* stream) {
-  if (r <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k >= 1 && k <= 16)
-    return launch<16>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, s);
-  if (k > 16 && k <= 32)
-    return launch<32>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, s);
-  if (k > 32 && k <= 64)
-    return launch<64>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<false>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, stream);
+}
+
+// x [r, k] = A^-T b (the packed layout's elimination; A^-1 b for a
+// symmetric A), arguments as for gj_aug_reg.
+int gj_packed_reg(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
+                  const float* b, int64_t sb0, int64_t sb1, float* x,
+                  int64_t r, int k, void* stream) {
+  return dispatch<true>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, stream);
 }
 
 }  // extern "C"

@@ -9,28 +9,35 @@ K = rank) SPD systems. The public surface is the reference's:
 Layouts:
 
 - ``aug``: row Gauss-Jordan on [A | b]; `auto` picks it below rank 96.
-  At K ≤ 64 (`aug_kernel`) it runs the register kernel ``gj_aug_reg``
-  (one warp per system, rows in registers, one reciprocal per pivot),
-  above that ``gj_aug`` (working copy in shared or device memory).
+  `aug_kernel` routes by K: ``gj_aug_reg`` at K ≤ 64 (one warp per
+  system, rows in registers, one reciprocal per pivot), ``gj_aug_cta`` at
+  64 < K ≤ 128 (one thread block per system, a row per thread in
+  registers, one barrier a step), ``gj_aug`` above (working copy in shared
+  or device memory).
 - ``schur``: recursive Schur complements; the eliminations become f32
   `torch.bmm` products and the base systems (K ≤ 32, or odd K) go to
   `gj_solve_multi`; `auto` picks it at rank ≥ 96. At K ≤ 32
   (`multi_kernel`) the base runs the register kernel ``gj_aug_multi_reg``
   (one warp per system and right-hand-side chunk, columns in registers),
   above that ``gj_aug_multi`` (working copy in shared or device memory).
-- ``packed``: column Gauss-Jordan on [[A], [bᵀ]] (the b row ends as xᵀ),
-  `packed_groups(K)` systems per thread block; forced only.
+- ``packed``: column Gauss-Jordan on [[A], [bᵀ]] (the b row ends as xᵀ);
+  forced only. It is the row elimination of [Aᵀ | b], transposed, so
+  `packed_kernel` routes it to the ``aug`` kernels' bodies with A read
+  transposed: ``gj_packed_reg`` at K ≤ 64, ``gj_packed_cta`` at
+  64 < K ≤ 128, and above that ``gj_packed`` (`packed_groups(K)` systems
+  per thread block, working copy in shared or device memory).
 - ``blocked2``: row Gauss-Jordan two pivots per step through an explicit
   2×2 pivot-block inverse; even K only; forced only.
 
 Dispatch: a tensor on the CPU runs the kernel's plain PyTorch version
-(`gj_solve_reg_plain`, `gj_solve_plain`, `gj_solve_multi_reg_plain`,
-`gj_solve_multi_plain`, `gj_solve_packed_plain`,
-`gj_solve_blocked2_plain`); a CUDA tensor launches the hand-written
-kernel from ``csrc/gj_reg.cu`` (aug at K ≤ 64), ``csrc/gj_multi_reg.cu``
-(aug_multi at K ≤ 32), ``csrc/gj_solve.cu`` (aug and aug_multi above) or
-``csrc/gj_layouts.cu`` (packed, blocked2), or raises. `launches` counts
-kernel launches per wrapper.
+(`gj_solve_reg_plain`, `gj_solve_packed_reg_plain`, `gj_solve_cta_plain`,
+`gj_solve_plain`, `gj_solve_multi_reg_plain`, `gj_solve_multi_plain`,
+`gj_solve_packed_plain`, `gj_solve_blocked2_plain`); a CUDA tensor
+launches the hand-written kernel from ``csrc/gj_reg.cu`` (aug and packed
+at K ≤ 64), ``csrc/gj_cta.cu`` (aug and packed at 64 < K ≤ 128),
+``csrc/gj_multi_reg.cu`` (aug_multi at K ≤ 32), ``csrc/gj_solve.cu`` (aug
+and aug_multi above) or ``csrc/gj_layouts.cu`` (packed above K = 128,
+blocked2), or raises. `launches` counts kernel launches per wrapper.
 
 No pivoting: A = YᵀWY + λ(n)I is SPD. All-zero systems (bucket padding)
 solve to exactly 0 through the pivot guard |d| < 1e-30 → 1.
@@ -39,12 +46,14 @@ solve to exactly 0 through the pivot guard |d| < 1e-30 → 1.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
 
 _MAX_RANK = 256
-_REG_MAX_RANK = 64  # largest K the register kernel takes
+_REG_MAX_RANK = 64  # largest K the register (warp) kernels take
+_CTA_MAX_RANK = 128  # largest K the one-block-per-system kernels take
 _MULTI_REG_MAX_RANK = 32  # largest K the multi-RHS register kernel takes
 # the widest chunk of B's columns one warp of gj_aug_multi_reg takes
 MULTI_CHUNK = 64
@@ -55,8 +64,9 @@ _LANES = 128  # the TPU kernel's lane width, which sets the packed grouping
 _MAX_GROUPS = 4
 
 # kernel launches per wrapper (plain ints; the plain versions never count)
-launches = {"gj_aug_reg": 0, "gj_aug": 0, "gj_aug_multi_reg": 0,
-            "gj_aug_multi": 0, "gj_packed": 0, "gj_blocked2": 0}
+launches = {"gj_aug_reg": 0, "gj_aug_cta": 0, "gj_aug": 0,
+            "gj_aug_multi_reg": 0, "gj_aug_multi": 0, "gj_packed_reg": 0,
+            "gj_packed_cta": 0, "gj_packed": 0, "gj_blocked2": 0}
 # the same launches by kernel and rank, keyed "<kernel>/K=<k>"
 launches_by_rank: dict[str, int] = {}
 
@@ -77,10 +87,23 @@ def packed_groups(k: int) -> int:
     return max(1, min(_MAX_GROUPS, _LANES // k))
 
 
+def _by_rank(k: int, kernel: str) -> str:
+    if k <= _REG_MAX_RANK:
+        return f"{kernel}_reg"
+    return f"{kernel}_cta" if k <= _CTA_MAX_RANK else kernel
+
+
 def aug_kernel(k: int) -> str:
-    """The kernel the ``aug`` layout runs at rank `k`: the register kernel
-    up to K = 64, the shared/device-memory one above."""
-    return "gj_aug_reg" if k <= _REG_MAX_RANK else "gj_aug"
+    """The kernel the ``aug`` layout runs at rank `k`: the warp kernel up
+    to K = 64, the block kernel up to K = 128, the shared/device-memory
+    one above."""
+    return _by_rank(k, "gj_aug")
+
+
+def packed_kernel(k: int) -> str:
+    """The kernel the ``packed`` layout runs at rank `k`, split by K as
+    `aug_kernel`'s."""
+    return _by_rank(k, "gj_packed")
 
 
 def multi_kernel(k: int) -> str:
@@ -121,12 +144,11 @@ def gj_solve_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _gj_plain(work, k)[:, :, k]
 
 
-def _gj_reg_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _gj_reg_plain(a: torch.Tensor, b: torch.Tensor, kp: int) -> torch.Tensor:
     """X [R, K, M] = A⁻¹ B, the register kernels' arithmetic step for step:
     [A | B] zero-padded to [KP, KP + M], K steps, the pivot row scaled by
     one reciprocal 1/d, and only the columns right of the pivot updated."""
     r, k = a.shape[0], a.shape[1]
-    kp = reg_padded_rank(k)
     work = a.new_zeros((r, kp, kp + b.shape[2]), dtype=torch.float32)
     work[:, :k, :k] = a
     work[:, :k, kp:] = b
@@ -144,7 +166,44 @@ def _gj_reg_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def gj_solve_reg_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """x [R, K] = A⁻¹ b for a [R, K, K], b [R, K], K ≤ 64 (plain PyTorch),
     the arithmetic of ``gj_aug_reg``."""
-    return _gj_reg_plain(a, b[..., None])[..., 0]
+    kp = reg_padded_rank(a.shape[1])
+    return _gj_reg_plain(a, b[..., None], kp)[..., 0]
+
+
+def gj_solve_packed_reg_plain(a: torch.Tensor,
+                              b: torch.Tensor) -> torch.Tensor:
+    """x [R, K] for a [R, K, K], b [R, K], K ≤ 64 (plain PyTorch), the
+    arithmetic of ``gj_packed_reg``: ``gj_aug_reg``'s on [Aᵀ | b]. Like
+    the reference's packed kernel it solves Aᵀx = b (the same x for a
+    symmetric A)."""
+    k = a.shape[1]
+    return _gj_reg_plain(a.transpose(1, 2), b[..., None],
+                         reg_padded_rank(k))[..., 0]
+
+
+def gj_solve_cta_plain(a: torch.Tensor, b: torch.Tensor,
+                       transpose: bool = False) -> torch.Tensor:
+    """x [R, K] for a [R, K, K], b [R, K], K ≤ 128 (plain PyTorch), the
+    arithmetic of ``gj_aug_cta`` (``gj_packed_cta`` with `transpose`, which
+    eliminates [Aᵀ | b] and so solves Aᵀx = b), step for step: the pivot
+    row is not scaled; every other row subtracts m·(pivot row) right of
+    the pivot with m = c · (1/d), and x_i = b_i · (1/d_i) at the end."""
+    k = a.shape[1]
+    if k > _CTA_MAX_RANK:
+        raise ValueError(f"the block kernel takes K ≤ {_CTA_MAX_RANK}, "
+                         f"got {k}")
+    if transpose:
+        a = a.transpose(1, 2)
+    work = torch.cat([a.float(), b.float()[..., None]], dim=-1)
+    inv = torch.empty_like(work[:, :, 0])
+    for p in range(k):
+        d = work[:, p, p]
+        d = torch.where(d.abs() < _PIVOT_EPS, torch.ones_like(d), d)
+        inv[:, p] = torch.reciprocal(d)
+        m = work[:, :, p] * inv[:, p, None]
+        m[:, p] = 0.0
+        work[:, :, p + 1:] -= m[:, :, None] * work[:, p, None, p + 1:]
+    return work[:, :, k] * inv
 
 
 def gj_solve_multi_reg_plain(a: torch.Tensor,
@@ -156,7 +215,7 @@ def gj_solve_multi_reg_plain(a: torch.Tensor,
     if a.shape[1] > _MULTI_REG_MAX_RANK:
         raise ValueError(f"the multi-RHS register kernel takes K ≤ "
                          f"{_MULTI_REG_MAX_RANK}, got {a.shape[1]}")
-    return _gj_reg_plain(a, b)
+    return _gj_reg_plain(a, b, reg_padded_rank(a.shape[1]))
 
 
 def gj_solve_multi_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -214,9 +273,19 @@ def gj_solve_blocked2_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # -- the CUDA kernels -------------------------------------------------------
 
 # kernel → its source under csrc/
-_SOURCE = {"gj_aug_reg": "gj_reg", "gj_aug": "gj_solve",
-           "gj_aug_multi_reg": "gj_multi_reg", "gj_aug_multi": "gj_solve",
-           "gj_packed": "gj_layouts", "gj_blocked2": "gj_layouts"}
+_SOURCE = {"gj_aug_reg": "gj_reg", "gj_packed_reg": "gj_reg",
+           "gj_aug_cta": "gj_cta", "gj_packed_cta": "gj_cta",
+           "gj_aug": "gj_solve", "gj_aug_multi_reg": "gj_multi_reg",
+           "gj_aug_multi": "gj_solve", "gj_packed": "gj_layouts",
+           "gj_blocked2": "gj_layouts"}
+# the largest K each register kernel takes
+_KERNEL_MAX_RANK = {"gj_aug_reg": _REG_MAX_RANK,
+                    "gj_packed_reg": _REG_MAX_RANK,
+                    "gj_aug_cta": _CTA_MAX_RANK,
+                    "gj_packed_cta": _CTA_MAX_RANK,
+                    "gj_aug_multi_reg": _MULTI_REG_MAX_RANK}
+# the kernels with one right-hand side and the signature of gj_aug_reg
+_ONE_RHS = ("gj_aug_reg", "gj_packed_reg", "gj_aug_cta", "gj_packed_cta")
 _max_shared: dict[int, int] = {}
 
 
@@ -230,10 +299,11 @@ def _bind(lib, source: str) -> None:
         lib.gj_aug_multi.argtypes = [p, i64, i64, i64, p, i64, i64, i64, p,
                                      p, i64, i32, i32, i32, p]
         fns = (lib.gj_aug, lib.gj_aug_multi)
-    elif source == "gj_reg":
-        lib.gj_aug_reg.argtypes = [p, i64, i64, i64, p, i64, i64, p, i64,
-                                   i32, p]
-        fns = (lib.gj_aug_reg,)
+    elif source in ("gj_reg", "gj_cta"):
+        fns = ((lib.gj_aug_reg, lib.gj_packed_reg) if source == "gj_reg"
+               else (lib.gj_aug_cta, lib.gj_packed_cta))
+        for fn in fns:
+            fn.argtypes = [p, i64, i64, i64, p, i64, i64, p, i64, i32, p]
     elif source == "gj_multi_reg":
         lib.gj_aug_multi_reg.argtypes = [p, i64, i64, i64, p, i64, i64, i64,
                                          p, i64, i32, i32, i32, p]
@@ -282,7 +352,7 @@ def shared_fits(k: int, m: int, device: torch.device,
 def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
             chunk: int = MULTI_CHUNK) -> torch.Tensor:
     """Launch `name` on CUDA tensors a [R, K, K] and b [R, K, M] (any
-    strides; M = 1 for packed and blocked2); returns X [R, K, M].
+    strides; M = 1 but for the aug_multi kernels); returns X [R, K, M].
     `chunk` (32 or 64) is gj_aug_multi_reg's widest chunk of B's columns
     a warp takes; X does not depend on it."""
     if a.device.type != "cuda" or b.device != a.device:
@@ -295,12 +365,11 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"{name}: shapes {tuple(a.shape)} and "
                          f"{tuple(b.shape)} are not [R, K, K] and [R, K, M]")
     m = b.shape[2]
-    if name in ("gj_aug_reg", "gj_packed", "gj_blocked2") and m != 1:
+    if name in (*_ONE_RHS, "gj_packed", "gj_blocked2") and m != 1:
         raise ValueError(f"{name}: takes one right-hand side, got M={m}")
-    if name == "gj_aug_reg" and k > _REG_MAX_RANK:
-        raise ValueError(f"{name}: takes K ≤ {_REG_MAX_RANK}, got {k}")
-    if name == "gj_aug_multi_reg" and k > _MULTI_REG_MAX_RANK:
-        raise ValueError(f"{name}: takes K ≤ {_MULTI_REG_MAX_RANK}, got {k}")
+    if k > _KERNEL_MAX_RANK.get(name, k):
+        raise ValueError(f"{name}: takes K ≤ {_KERNEL_MAX_RANK[name]}, "
+                         f"got {k}")
     x = torch.empty((r, k, m), dtype=torch.float32, device=a.device)
     if r == 0 or m == 0:
         return x
@@ -308,7 +377,7 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
     g = packed_groups(k) if name == "gj_packed" else 1  # systems per block
     scratch = None
     grid = 0
-    if name not in ("gj_aug_reg", "gj_aug_multi_reg") and \
+    if name not in _KERNEL_MAX_RANK and \
             not shared_fits(k, m, a.device, name):
         grid = min(-(-r // g), _SCRATCH_SLOTS)
         scratch = torch.empty(grid * _block_floats(name, k, m)[0],
@@ -316,9 +385,9 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
     stream = torch.cuda.current_stream(a.device).cuda_stream
     sp = None if scratch is None else scratch.data_ptr()
     ab = (a.data_ptr(), *a.stride(), b.data_ptr())
-    if name == "gj_aug_reg":
-        err = lib.gj_aug_reg(*ab, b.stride(0), b.stride(1), x.data_ptr(), r,
-                             k, stream)
+    if name in _ONE_RHS:
+        err = getattr(lib, name)(*ab, b.stride(0), b.stride(1), x.data_ptr(),
+                                 r, k, stream)
     elif name == "gj_aug_multi_reg":
         err = lib.gj_aug_multi_reg(*ab, *b.stride(), x.data_ptr(), r, k, m,
                                    chunk, stream)
@@ -411,7 +480,12 @@ def gj_solve(a: torch.Tensor, b: torch.Tensor, layout: str = "") -> torch.Tensor
     if layout == "schur":
         return schur_solve(a, b)
     if layout == "packed":
-        return _solve_one("gj_packed", gj_solve_packed_plain, a, b)
+        name = packed_kernel(k)
+        plain = {"gj_packed_reg": gj_solve_packed_reg_plain,
+                 "gj_packed_cta": functools.partial(gj_solve_cta_plain,
+                                                    transpose=True),
+                 "gj_packed": gj_solve_packed_plain}[name]
+        return _solve_one(name, plain, a, b)
     if layout == "blocked2":
         # a forced layout never measures another kernel than it names
         if k % 2:
@@ -421,5 +495,7 @@ def gj_solve(a: torch.Tensor, b: torch.Tensor, layout: str = "") -> torch.Tensor
         raise ValueError(f"unknown gj_solve layout {layout!r} "
                          "(want auto/aug/packed/blocked2/schur)")
     name = aug_kernel(k)
-    plain = gj_solve_reg_plain if name == "gj_aug_reg" else gj_solve_plain
+    plain = {"gj_aug_reg": gj_solve_reg_plain,
+             "gj_aug_cta": gj_solve_cta_plain,
+             "gj_aug": gj_solve_plain}[name]
     return _solve_one(name, plain, a, b)

@@ -104,8 +104,9 @@ def test_reg_kernel_takes_strided_inputs(dev, k):
     assert spd_solve.launches["gj_aug_reg"] == 3
 
 
-@pytest.mark.parametrize("k,kernel", [(64, "gj_aug_reg"), (65, "gj_aug"),
-                                      (80, "gj_aug")])
+@pytest.mark.parametrize("k,kernel", [(64, "gj_aug_reg"),
+                                      (65, "gj_aug_cta"),
+                                      (80, "gj_aug_cta")])
 def test_aug_launches_the_routed_kernel(dev, k, kernel):
     gen = torch.Generator(device=dev).manual_seed(k)
     a, b = _spd(gen, 50, k, 1, dev)
@@ -124,16 +125,18 @@ _LAYOUT_PLAIN = {"packed": spd_solve.gj_solve_packed_plain,
     ("packed", 9, 128), ("packed", 8, 255), ("blocked2", 300, 64),
     ("blocked2", 37, 10), ("blocked2", 9, 128), ("blocked2", 6, 256)])
 def test_layout_kernels_match_plain(dev, layout, r, k):
-    """packed (K = 255: the device-memory variant) and blocked2 (K = 256:
-    the same) against their plain versions; 21 systems at K = 16 leave
-    the last packed block short."""
+    """packed (K ≤ 64 and K ≤ 128 on the register kernels, K = 255 on
+    the device-memory variant) and blocked2 (K = 256: the device-memory
+    variant) against the plain versions of the layouts' elimination."""
     gen = torch.Generator(device=dev).manual_seed(r * k)
     a, b = _spd(gen, r, k, 1, dev)
     x = spd_solve.gj_solve(a, b[..., 0], layout=layout)
     want = _LAYOUT_PLAIN[layout](a, b[..., 0])
     assert _rel(x, want) < 1e-4
     assert bool((x[1] == 0).all())
-    assert spd_solve.launches[f"gj_{layout}"] == 1
+    kernel = (spd_solve.packed_kernel(k) if layout == "packed"
+              else "gj_blocked2")
+    assert spd_solve.launches[kernel] == 1
     assert sum(spd_solve.launches.values()) == 1
 
 
@@ -145,6 +148,139 @@ def test_layout_kernels_take_strided_inputs(dev, layout):
     assert not sub_a.is_contiguous() and not sub_b.is_contiguous()
     x = spd_solve.gj_solve(sub_a, sub_b, layout=layout)
     assert _rel(x, _LAYOUT_PLAIN[layout](sub_a, sub_b)) < 1e-4
+
+
+# the kernels that took the packed layout at K ≤ 128 and the aug layout at
+# 64 < K ≤ 128, each with its layout and its plain version
+_NEW_PLAIN = {
+    "gj_packed_reg": ("packed", spd_solve.gj_solve_packed_reg_plain),
+    "gj_aug_cta": ("aug", spd_solve.gj_solve_cta_plain),
+    "gj_packed_cta": ("packed", lambda a, b: spd_solve.gj_solve_cta_plain(
+        a, b, transpose=True)),
+}
+# the K boundaries: each padded size's ends and the KP = 96 / 128 switch
+_NEW_CASES = ([("gj_packed_reg", k) for k in (1, 16, 17, 32, 33, 64)]
+              + [(name, k) for name in ("gj_aug_cta", "gj_packed_cta")
+                 for k in (65, 95, 96, 97, 127, 128)])
+
+
+def _solve64(a, b, layout):
+    """A float64 solve of the layout's system (packed: Aᵀx = b); an
+    all-zero system becomes I x = 0."""
+    a64 = a.double()
+    zero = (a64 == 0).flatten(1).all(1)
+    a64[zero] = torch.eye(a.shape[1], dtype=torch.float64, device=a.device)
+    if layout == "packed":
+        a64 = a64.transpose(1, 2)
+    return torch.linalg.solve(a64, b.double()[..., None])[..., 0]
+
+
+@pytest.mark.parametrize("r", [1, 3])
+@pytest.mark.parametrize("name,k", _NEW_CASES)
+def test_new_kernels_match_plain_at_the_k_boundaries(dev, name, k, r):
+    """One routed call, one launch of the kernel the layout names at K;
+    R = 3 holds _spd's all-zero system."""
+    layout, plain = _NEW_PLAIN[name]
+    gen = torch.Generator(device=dev).manual_seed(k * 10 + r)
+    a, b = _spd(gen, 3, k, 1, dev)
+    a, b = a[:r], b[:r, :, 0]
+    x = spd_solve.gj_solve(a, b, layout=layout)
+    assert spd_solve.launches[name] == 1
+    assert sum(spd_solve.launches.values()) == 1
+    assert x.shape == (r, k)
+    assert _rel(x, plain(a, b)) < 1e-4
+    assert _rel(x.double(), _solve64(a, b, layout)) < 1e-4
+    if r == 3:
+        assert bool((x[1] == 0).all())
+
+
+@pytest.mark.parametrize("name,k", [("gj_packed_reg", 48),
+                                    ("gj_packed_reg", 64),
+                                    ("gj_aug_cta", 80), ("gj_aug_cta", 128),
+                                    ("gj_packed_cta", 100)])
+def test_new_kernels_take_strided_inputs(dev, name, k):
+    """A sub-block of a larger A, its transpose and b as a column of a
+    wider array: views that are not contiguous, read uncopied."""
+    layout, plain = _NEW_PLAIN[name]
+    gen = torch.Generator(device=dev).manual_seed(k)
+    a, b = _spd(gen, 45, k + 8, 3, dev)
+    for sub_a in (a[:, :k, :k], a[:, :k, :k].transpose(1, 2),
+                  a[:, 8:, 8:]):
+        sub_b = b[:, 8:, 1]
+        assert not sub_a.is_contiguous() and not sub_b.is_contiguous()
+        x = spd_solve.gj_solve(sub_a, sub_b, layout=layout)
+        assert _rel(x, plain(sub_a, sub_b)) < 1e-4
+        assert bool((x[1] == 0).all())
+    assert spd_solve.launches[name] == 3
+    assert sum(spd_solve.launches.values()) == 3
+
+
+@pytest.mark.parametrize("name,k", [("gj_packed_reg", 10),
+                                    ("gj_packed_reg", 64),
+                                    ("gj_aug_cta", 80), ("gj_aug_cta", 128),
+                                    ("gj_packed_cta", 97)])
+def test_new_kernels_system_alone_equals_in_batch(dev, name, k):
+    """A system's x is bitwise the same solved alone and inside a
+    batch."""
+    layout, _ = _NEW_PLAIN[name]
+    gen = torch.Generator(device=dev).manual_seed(k + 1)
+    a, b = _spd(gen, 301, k, 1, dev)
+    b = b[..., 0]
+    x = spd_solve.gj_solve(a, b, layout=layout)
+    for row in (0, 1, 150, 300):
+        alone = spd_solve.gj_solve(a[row:row + 1].clone(),
+                                   b[row:row + 1].clone(), layout=layout)
+        assert torch.equal(alone[0], x[row])
+
+
+@pytest.mark.parametrize("name,k", [("gj_packed_reg", 16),
+                                    ("gj_packed_reg", 64),
+                                    ("gj_aug_cta", 65), ("gj_aug_cta", 128),
+                                    ("gj_packed_cta", 96),
+                                    ("gj_packed_cta", 128)])
+def test_new_kernels_all_zero_systems_are_exactly_zero(dev, name, k):
+    layout, _ = _NEW_PLAIN[name]
+    a = torch.zeros(7, k, k, device=dev)
+    b = torch.zeros(7, k, device=dev)
+    x = spd_solve.gj_solve(a, b, layout=layout)
+    assert bool((x == 0).all())
+    assert spd_solve.launches[name] == 1
+
+
+@pytest.mark.parametrize("name,k", [("gj_aug_cta", 96), ("gj_aug_cta", 128),
+                                    ("gj_packed_cta", 97)])
+def test_block_kernels_repeat_bitwise_at_full_size(dev, name, k):
+    """The pivot row is double-buffered under one barrier a step. With
+    several blocks an SM racing through 13 850 systems, a buffer
+    overwritten before every thread had read it would show as a
+    difference from run to run, or from the plain version."""
+    layout, plain = _NEW_PLAIN[name]
+    gen = torch.Generator(device=dev).manual_seed(k + 2)
+    a, b = _spd(gen, 13_850, k, 1, dev)
+    b = b[..., 0]
+    x = spd_solve.gj_solve(a, b, layout=layout)
+    for _ in range(3):
+        assert torch.equal(spd_solve.gj_solve(a, b, layout=layout), x)
+    assert _rel(x, plain(a, b)) < 1e-4
+    assert spd_solve.launches[name] == 4
+
+
+def test_new_wrappers_refuse_what_the_kernel_does_not_take(dev):
+    a = torch.eye(4, device=dev).expand(2, 4, 4)
+    for name in _NEW_PLAIN:
+        with pytest.raises(ValueError, match="one right-hand side"):
+            spd_solve._launch(name, a, torch.ones(2, 4, 2, device=dev))
+        with pytest.raises(ValueError, match="CUDA"):
+            spd_solve._launch(name, a, torch.ones(2, 4, 1))
+    with pytest.raises(ValueError, match="K ≤ 64"):
+        big = torch.eye(65, device=dev).expand(2, 65, 65)
+        spd_solve._launch("gj_packed_reg", big,
+                          torch.ones(2, 65, 1, device=dev))
+    for name in ("gj_aug_cta", "gj_packed_cta"):
+        with pytest.raises(ValueError, match="K ≤ 128"):
+            big = torch.eye(129, device=dev).expand(2, 129, 129)
+            spd_solve._launch(name, big, torch.ones(2, 129, 1, device=dev))
+    assert not any(spd_solve.launches.values())
 
 
 # chunk widths 32 and 64: one below, at and above each boundary, and the

@@ -211,7 +211,8 @@ def test_blocked2_refuses_odd_rank(monkeypatch):
 @pytest.mark.parametrize("layout", ["packed", "blocked2"])
 def test_env_selects_forced_layouts(layout, monkeypatch):
     called = []
-    plain = {"packed": "gj_solve_packed_plain",
+    # packed at K ≤ 64 runs gj_packed_reg's plain version
+    plain = {"packed": "gj_solve_packed_reg_plain",
              "blocked2": "gj_solve_blocked2_plain"}[layout]
     real = getattr(spd_solve, plain)
     monkeypatch.setattr(spd_solve, plain,
