@@ -26,24 +26,25 @@
 // rate; at K = 80 ~20 per byte, 0.108 ms, set by bytes.
 //
 // Design: one thread block owns one system, KP threads, KP in {96, 128} a
-// template parameter and K <= KP at run time. Thread i holds row i of
-// [A | b] (of [A^T | b] when kPacked) in KP + 1 registers, b at column
-// KP. Rows and columns K..KP-1 are zero and steps p >= K are skipped by a
-// branch uniform across the block, so the padding changes no result. Step
-// p:
+// template parameter and K <= KP at run time. Thread i holds row i of A
+// (of A^T when kPacked) in KP registers and b_i in one more. Rows and
+// columns K..KP-1 are zero, steps p >= K are skipped by a branch uniform
+// across the block, and the padding rows' threads skip their updates, so
+// the padding changes no result. Step p:
 //   - thread p, the owner of the pivot row, guards its pivot d
 //     (|d| < 1e-30 -> 1, so an all-zero padding system solves to exactly
-//     0), takes one IEEE reciprocal __frcp_rn(d), scales its row right of
-//     the pivot by it (each element within an ulp of row / d) and writes
-//     it to the pivot-row buffer p mod 2 in shared memory with 16-byte
-//     stores;
+//     0), takes one IEEE reciprocal __frcp_rn(d), keeps it, and writes its
+//     row right of the pivot, b_p and 1/d to the pivot-row buffer p mod 2
+//     in shared memory with 16-byte stores. The row is not scaled: that
+//     would be K - p multiplies in one thread while the block waits;
 //   - one __syncthreads;
-//   - every thread reads the row back as 16-byte broadcast loads and
-//     updates its own columns right of p with one fused multiply-add
-//     each, w[j] -= c * row[j], c its own column-p value read before the
-//     step. The owner takes c = 0, which leaves its scaled row as it is.
-// Columns <= p are never read again, so the updates skipped there change
-// nothing that a later step or x reads.
+//   - every other thread forms its multiplier m = c / d as c * (1/d), c
+//     its own column-p value read before the step, reads the row back as
+//     16-byte broadcast loads and updates its columns right of p and its
+//     b entry with one fused multiply-add each. The pivot row stays as it
+//     is; columns <= p are never read again.
+// After K steps row i holds d_i x_i in its b entry, and x_i = b_i * (1/d_i)
+// with the reciprocal thread i took at its own pivot.
 //
 // Why one barrier a step is enough: the pivot row is double-buffered.
 // Buffer p mod 2 is written at step p before barrier p and read after it;
@@ -52,19 +53,36 @@
 // its reads of step p. The write of step p + 1 goes to the other buffer,
 // so it cannot race with a slow reader of step p either. A thread's own
 // update of step p - 1 precedes, in program order, its pivot work at
-// step p, so the owner scales a row that is up to date.
+// step p, so the owner writes a row that is up to date.
 //
-// Every register array is indexed by unrolled loop counters only, so the
-// copy stays in registers (ptxas: 0-byte stack frame, 0 spills; checked
-// by chip_smoke.py's build phase). The step loop is unrolled in full:
-// ~K^2/2 FMAs and ~K^2/8 16-byte loads a thread at KP = 128.
+// Registers and code: a register array can only be indexed by
+// compile-time constants, yet the step loop, whose body names column p,
+// must not be unrolled in full: at KP = 128 that is ~30 k instructions
+// (~480 KB), far more than an SM's instruction cache, and it ran ~1.7x
+// slower than the rolled form below (PERF.md). So the row is rotated:
+// the steps run in groups of kGroup (4), each group's pivot columns in
+// r[0..3], and after each group every register moves down four places;
+// one rolled loop body serves every group. The rotation costs a move per
+// column per group, and the body updates a fixed width W instead of the
+// K - p columns right of the pivot, so the steps run in kPhases (4)
+// phases of KP/4 steps whose widths KP, 3KP/4, KP/2, KP/4 still cover
+// every live column: ~5/4 of the triangle's multiply-adds.
+//
+// What bounds the design: every step delivers the pivot row to every
+// thread from shared memory, (W + 4) * 4 bytes a thread, and an SM's
+// shared memory delivers at most 128 bytes a clock, however many threads
+// read one address. At K = 128 that is ~5.5 MB, ~43 k clocks, a system:
+// ~2.3 ms for 13 850 systems on 132 SMs at 1.98 GHz, above the card's
+// 0.43 ms bound. That is the price of a row per thread; a thread holding
+// a block of several rows would use each delivered value more than once.
 //
 // A is read from device memory once. The packed load needs no staging:
 // thread i reads A[j][i] for each row j, so where A's rows are contiguous
-// the block reads row j in one coalesced access. The aug load stages
-// each warp's 32 rows, 32 columns at a time, through a per-warp shared
+// the block reads row j in one coalesced access. The aug load reads each
+// warp's 32 rows in chunks of 32 columns, coalesced, all issued before
+// the first is used, and transposes every chunk through a per-warp shared
 // tile of stride 33 (odd, so lane i reading row i finds 32 different
-// banks); the tile fills with coalesced row reads. Only x is written.
+// banks). Only x is written.
 //
 // Built without --use_fast_math: the reciprocal is __frcp_rn (IEEE, round
 // to nearest), which keeps the 1e-4 bars and the exact zeros.
@@ -77,52 +95,72 @@
 namespace {
 
 constexpr float kPivotEps = 1e-30f;
+constexpr int kGroup = 4;   // steps between two rotations of the row
+constexpr int kPhases = 4;  // phases of K/4 steps, each of its own width
 
-// Step P of the elimination on thread i's row w; false, and nothing done,
-// once P >= k. A template per step, so that every index into w is a
-// compile-time constant (a plain loop over 96 or 128 steps exceeds the
-// compiler's full-unroll limit, and the row would then go to the stack).
-template <int KP, int P>
-__device__ __forceinline__ bool step(float (&w)[KP + 4],
-                                     float4 (*prow)[KP / 4 + 1], int i,
-                                     int k) {
-  if (P >= k) return false;  // uniform: k is the same for every thread
-  constexpr int Q = KP / 4 + 1;
-  constexpr int q0 = (P + 1) / 4;  // the first quad holding a column > P
-  float4* buf = prow[P & 1];
-  float c = w[P];
-  if (i == P) {
-    float d = w[P];
-    if (fabsf(d) < kPivotEps) d = 1.0f;
-    const float inv = __frcp_rn(d);
+// Steps p0 .. p0 + kGroup - 1 (stopping at k) on thread i's row r, which
+// holds A's columns p0, p0 + 1, ... in r[0], r[1], ...; every live column
+// lies in r[0..W-1]. rb is b_i; inv_own receives 1/d when i pivots.
+template <int KP, int W>
+__device__ __forceinline__ void steps(float (&r)[KP], float& rb,
+                                      float& inv_own,
+                                      float4 (*prow)[KP / 4 + 1], int i,
+                                      int k, int p0) {
+  constexpr int QB = KP / 4;  // the quad that carries (b_p, 1/d_p)
 #pragma unroll
-    for (int j = P + 1; j <= KP; ++j) w[j] *= inv;
+  for (int u = 0; u < kGroup; ++u) {
+    const int p = p0 + u;
+    if (p >= k) return;  // uniform: k is the same for every thread
+    float4* buf = prow[u & 1];  // p mod 2: p0 is a multiple of kGroup
+    float c = r[u];
+    if (i == p) {
+      float d = r[u];
+      if (fabsf(d) < kPivotEps) d = 1.0f;
+      inv_own = __frcp_rn(d);
 #pragma unroll
-    for (int q = q0; q < Q; ++q)
-      buf[q] = make_float4(w[4 * q], w[4 * q + 1], w[4 * q + 2],
-                           w[4 * q + 3]);
-    c = 0.0f;
+      for (int q = (u + 1) / 4; q < W / 4; ++q)
+        buf[q] = make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2],
+                             r[4 * q + 3]);
+      buf[QB] = make_float4(rb, inv_own, 0.0f, 0.0f);
+      c = 0.0f;
+    }
+    __syncthreads();
+    if (i >= k) continue;  // a padding row: zero, and never read
+    const float4 t = buf[QB];
+    const float m = c * t.y;
+#pragma unroll
+    for (int q = (u + 1) / 4; q < W / 4; ++q) {
+      const float4 v = buf[q];
+      const int j = 4 * q;
+      if (j > u) r[j] = fmaf(-m, v.x, r[j]);
+      if (j + 1 > u) r[j + 1] = fmaf(-m, v.y, r[j + 1]);
+      if (j + 2 > u) r[j + 2] = fmaf(-m, v.z, r[j + 2]);
+      if (j + 3 > u) r[j + 3] = fmaf(-m, v.w, r[j + 3]);
+    }
+    rb = fmaf(-m, t.x, rb);
   }
-  __syncthreads();
-#pragma unroll
-  for (int q = q0; q < Q; ++q) {
-    const float4 v = buf[q];
-    const int j = 4 * q;
-    if (j > P && j <= KP) w[j] = fmaf(-c, v.x, w[j]);
-    if (j + 1 > P && j + 1 <= KP) w[j + 1] = fmaf(-c, v.y, w[j + 1]);
-    if (j + 2 > P && j + 2 <= KP) w[j + 2] = fmaf(-c, v.z, w[j + 2]);
-    if (j + 3 > P && j + 3 <= KP) w[j + 3] = fmaf(-c, v.w, w[j + 3]);
-  }
-  return true;
 }
 
-// Steps 0, 1, ... in order, stopping at the first that returns false.
-template <int KP, int... P>
-__device__ __forceinline__ void eliminate(float (&w)[KP + 4],
-                                          float4 (*prow)[KP / 4 + 1],
-                                          int i, int k,
-                                          std::integer_sequence<int, P...>) {
-  (step<KP, P>(w, prow, i, k) && ...);
+// Phase PH: the groups from g up to the phase's last (or to step k), at
+// width W, each followed by the rotation that brings the next group's
+// pivot columns to r[0..kGroup-1]; then the next phase.
+template <int KP, int PH>
+__device__ __forceinline__ void phase(float (&r)[KP], float& rb,
+                                      float& inv_own,
+                                      float4 (*prow)[KP / 4 + 1], int i,
+                                      int k, int g) {
+  constexpr int W = KP - PH * (KP / kPhases);
+  constexpr int g_end = (PH + 1) * (KP / kGroup / kPhases);
+#pragma unroll 1
+  for (; g < g_end && g * kGroup < k; ++g) {
+    steps<KP, W>(r, rb, inv_own, prow, i, k, g * kGroup);
+#pragma unroll
+    for (int j = 0; j < W - kGroup; ++j) r[j] = r[j + kGroup];
+#pragma unroll
+    for (int j = W - kGroup; j < W; ++j) r[j] = 0.0f;
+  }
+  if constexpr (PH + 1 < kPhases)
+    phase<KP, PH + 1>(r, rb, inv_own, prow, i, k, g);
 }
 
 template <int KP, bool kPacked>
@@ -130,49 +168,54 @@ __global__ void __launch_bounds__(KP)
 gj_cta_kernel(const float* __restrict__ a, int64_t sa0, int64_t sa1,
               int64_t sa2, const float* __restrict__ b, int64_t sb0,
               int64_t sb1, float* __restrict__ x, int k) {
-  constexpr int Q = KP / 4 + 1;  // 16-byte quads of columns 0..KP
-  constexpr int T = 33;          // tile row stride
-  __shared__ float4 prow[2][Q];  // the scaled pivot row, double-buffered
+  constexpr int T = 33;  // tile row stride
+  __shared__ float4 prow[2][KP / 4 + 1];  // the pivot row, double-buffered
   __shared__ float tile[kPacked ? 1 : KP / 32][32 * T];
 
   const int i = threadIdx.x;
   const int64_t sys = blockIdx.x;
   const float* as = a + sys * sa0;
-  // row i of [A | b]; w[KP + 1 ..] pad the last quad and stay 0
-  float w[KP + 4];
+  float r[KP];  // row i of A, zero past K
 
-  if constexpr (kPacked) {  // row i of [A^T | b]: column i of A
+  if constexpr (kPacked) {  // row i of A^T: column i of A
     const bool live = i < k;
     const float* col = as + (live ? i : 0) * sa2;
 #pragma unroll
     for (int j = 0; j < KP; ++j)
-      w[j] = live && j < k ? __ldg(col + j * sa1) : 0.0f;
+      r[j] = live && j < k ? __ldg(col + j * sa1) : 0.0f;
   } else {
+    // lane reads column 32q + lane of the warp's rows row0 .. row0 + 31
+    // into r[32q + rr], then each chunk goes through the tile so that
+    // thread i gets row i
     const int lane = i % 32;
-    const int row0 = i - lane;  // the warp's first row
-    float* t = tile[i / 32];
+    const int row0 = i - lane;
 #pragma unroll
     for (int q = 0; q < KP / 32; ++q) {
       const int c = q * 32 + lane;
 #pragma unroll
-      for (int r = 0; r < 32; ++r) {
-        const int row = row0 + r;
-        t[r * T + lane] =
+      for (int rr = 0; rr < 32; ++rr) {
+        const int row = row0 + rr;
+        r[q * 32 + rr] =
             row < k && c < k ? __ldg(as + row * sa1 + c * sa2) : 0.0f;
       }
+    }
+    float* t = tile[i / 32];
+#pragma unroll
+    for (int q = 0; q < KP / 32; ++q) {
+#pragma unroll
+      for (int rr = 0; rr < 32; ++rr) t[rr * T + lane] = r[q * 32 + rr];
       __syncwarp();
 #pragma unroll
-      for (int j = 0; j < 32; ++j) w[q * 32 + j] = t[lane * T + j];
+      for (int j = 0; j < 32; ++j) r[q * 32 + j] = t[lane * T + j];
       __syncwarp();  // the next chunk overwrites the tile
     }
   }
-  w[KP] = i < k ? b[sys * sb0 + i * sb1] : 0.0f;
-#pragma unroll
-  for (int j = KP + 1; j < KP + 4; ++j) w[j] = 0.0f;
+  float rb = i < k ? b[sys * sb0 + i * sb1] : 0.0f;
+  float inv_own = 1.0f;
 
-  eliminate<KP>(w, prow, i, k, std::make_integer_sequence<int, KP>{});
+  phase<KP, 0>(r, rb, inv_own, prow, i, k, 0);
 
-  if (i < k) x[sys * k + i] = w[KP];
+  if (i < k) x[sys * k + i] = rb * inv_own;
 }
 
 template <int KP, bool kPacked>
