@@ -50,7 +50,7 @@ Phases (any failure exits non-zero and prints no result line):
              rank 128 under =packed (`gj_packed_cta`); each run launches
              its kernel and no other; each RMSE trajectory within rtol
              2e-3 of a solver="chol" run of its rank; profiles of the
-             rank-64 and rank-128 trains must show their register kernel
+             rank-64, 80 and 128 trains must show their register kernel
              and no `gj_kernel<` (gj_solve.cu's);
 4. serve   — synth_explicit("100k") as a JSON-lines events file,
              `console train` on the card, `console deploy --port 0` in a
@@ -542,7 +542,7 @@ def _train(data, rank, solver, device):
 
 def phase_train_reference(report: dict, data, device) -> dict:
     """The solver='chol' runs the kernels' trajectories are held to (no
-    kernel launches), and profiles of the rank-64 and rank-128 trains."""
+    kernel launches), and profiles of the rank-64, 80 and 128 trains."""
     from predictionio_torch.ops import spd_solve
     from predictionio_torch.tools.profile_train import profile_train
 
@@ -557,7 +557,8 @@ def phase_train_reference(report: dict, data, device) -> dict:
               "rmse": res.rmse_history, "epoch_s": res.epoch_times,
               "wall_s": wall})
     # each train's solves run on its register kernel alone
-    for rank, kernel in ((64, "gj_reg_kernel"), (128, "gj_multi_reg_kernel")):
+    for rank, kernel in ((64, "gj_reg_kernel"), (80, "gj_cta_kernel"),
+                         (128, "gj_multi_reg_kernel")):
         prof = profile_train(data, device, rank, ITERATIONS)
         report[f"profile_rank{rank}"] = prof
         emit({"phase": "profile",
