@@ -58,8 +58,9 @@
 // Registers and code: a register array can only be indexed by
 // compile-time constants, yet the step loop, whose body names column p,
 // must not be unrolled in full: at KP = 128 that is ~30 k instructions
-// (~480 KB), far more than an SM's instruction cache, and it ran 1.4-1.7x
-// slower than the rolled form below (PERF.md). So the row is rotated:
+// (~480 KB), far more than an SM's instruction cache; that version, which
+// also scaled the pivot row in its owner, ran 1.4-1.7x slower than the
+// form below (PERF.md). So the row is rotated:
 // the steps run in groups of kGroup (4), each group's pivot columns in
 // r[0..3], and after each group every register moves down four places;
 // one rolled loop body serves every group. The rotation costs a move per
