@@ -31,8 +31,8 @@ Phases (any failure exits non-zero and prints no result line):
              layout (PIO_GJ_LAYOUT=packed) runs the same two register
              bodies with A loaded transposed, `gj_packed_reg` at K ≤ 64
              and `gj_packed_cta` at 64 < K ≤ 128, and `gj_packed`
-             (gj_layouts.cu) above (K = 255; timed at the smaller shapes
-             too); `gj_aug_multi_reg` (gj_multi_reg.cu) is the Schur
+             (gj_layouts.cu, a block per system) above (K = 255; timed
+             at K = 128 too); `gj_aug_multi_reg` (gj_multi_reg.cu) is the Schur
              recursion's base at K ≤ 32 (every rank from 96 to 256), a
              warp per system and chunk of right-hand sides with its
              columns in registers, held against both plain versions at the
@@ -158,8 +158,9 @@ LAYOUT_KERNEL = {"auto": "gj_aug_reg", "packed": "gj_packed_reg",
 REGISTER_KERNELS = ("gj_aug_reg", "gj_aug_cta", "gj_aug_multi_reg",
                     "gj_packed_reg", "gj_packed_cta")
 # each kernel that took ranks over from an older one, and that kernel
-REPLACED = {"gj_aug_cta": "gj_aug", "gj_packed_reg": "gj_packed",
-            "gj_packed_cta": "gj_packed"}
+# (gj_packed_reg's, gj_packed with ⌊128/K⌋ systems a block, is gone: its
+# times stand in PERF.md)
+REPLACED = {"gj_aug_cta": "gj_aug", "gj_packed_cta": "gj_packed"}
 # runs the console in a child process and prints, as its last line, its
 # launch counts and its grid trains (als_grid.grid_log)
 _CONSOLE_CHILD = (
@@ -183,24 +184,13 @@ def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def gj_operations(k: int, m: int) -> int:
-    """FP32 operations of Gauss-Jordan on one [K | M] augmented system.
-    Step p touches only the K + M - 1 - p columns right of the pivot: one
-    division each in the pivot row, one multiply-add each in the K - 1
-    other rows. Summed over the K steps: (2K - 1) · K(K + 2M - 1) / 2.
-    The packed kernel's column elimination of [[A], [bᵀ]] is the same
-    count with M = 1 (the row elimination of [Aᵀ | b])."""
-    return (2 * k - 1) * k * (k + 2 * m - 1) // 2
-
-
-def blocked2_operations(k: int) -> int:
-    """FP32 operations of the two-pivot elimination of one [K | 1] system.
-    Pivot pair (j0, j0 + 1): the 2×2 determinant (3), then over the
-    K - j0 - 1 columns right of the pair the two normalised pivot rows (4
-    each: two products, a difference, a division) and two multiply-adds in
-    each of the K - 2 other rows."""
-    return sum(3 + (k - j0 - 1) * (8 + 4 * (k - 2))
-               for j0 in range(0, k, 2))
+def solve_operations(k: int, m: int) -> float:
+    """FP32 operations of the least work that solves one SPD system
+    [K | M], whatever the kernel's own elimination: a Cholesky
+    factorisation (K³/3) and a forward and a back substitution for each
+    right-hand side (2K² each together), as the library call does. Every
+    system of phase 2 is SPD (the packed kernels' Aᵀ is A there)."""
+    return k ** 3 / 3 + 2 * k * k * m
 
 
 @contextlib.contextmanager
@@ -326,22 +316,19 @@ def _rel(x, want) -> float:
 
 
 def _kernel_calls(name, a, b):
-    """(kernel call, plain call, FP32 operations per system) of `name` on
-    a [R, K, K], b [R, K, M]."""
+    """(kernel call, plain call) of `name` on a [R, K, K], b [R, K, M]."""
     from predictionio_torch.ops import spd_solve
 
-    k, m = b.shape[1], b.shape[2]
+    k = b.shape[1]
     if name == "gj_aug_multi_reg":
         if spd_solve.multi_kernel(k) != name:
             raise AssertionError(f"aug_multi at K = {k} does not route to "
                                  f"{name}")
         return (lambda: spd_solve.gj_solve_multi(a, b),
-                lambda: spd_solve.gj_solve_multi_reg_plain(a, b),
-                gj_operations(k, m))
+                lambda: spd_solve.gj_solve_multi_reg_plain(a, b))
     if name == "gj_aug_multi":  # straight to it: K ≤ 32 routes away
         return (lambda: spd_solve._launch(name, a, b),
-                lambda: spd_solve.gj_solve_multi_plain(a, b),
-                gj_operations(k, m))
+                lambda: spd_solve.gj_solve_multi_plain(a, b))
     b1 = b[..., 0]
     plain = {"gj_aug_reg": spd_solve.gj_solve_reg_plain,
              "gj_aug_cta": spd_solve.gj_solve_cta_plain,
@@ -351,8 +338,6 @@ def _kernel_calls(name, a, b):
                  a, b, transpose=True),
              "gj_packed": spd_solve.gj_solve_packed_plain,
              "gj_blocked2": spd_solve.gj_solve_blocked2_plain}[name]
-    ops = blocked2_operations(k) if name == "gj_blocked2" else \
-        gj_operations(k, 1)
     layout = ("blocked2" if name == "gj_blocked2" else
               "packed" if name.startswith("gj_packed") else "aug")
     routed = (spd_solve.packed_kernel(k) if layout == "packed" else
@@ -366,7 +351,7 @@ def _kernel_calls(name, a, b):
     if routed != name and name not in REPLACED.values():
         raise AssertionError(f"{layout} at K = {k} routes to {routed}, not "
                              f"{name}")
-    return kernel, lambda: plain(a, b1), ops
+    return kernel, lambda: plain(a, b1)
 
 
 def _check_kernel(name, r, k, m, gen, device, reps):
@@ -375,7 +360,7 @@ def _check_kernel(name, r, k, m, gen, device, reps):
     from predictionio_torch.ops import spd_solve
 
     a, b = _spd(gen, r, k, m, device)
-    kernel, plain, ops = _kernel_calls(name, a, b)
+    kernel, plain = _kernel_calls(name, a, b)
     before = spd_solve.launches[name]
     x = kernel()
     want = plain()
@@ -421,7 +406,7 @@ def _check_kernel(name, r, k, m, gen, device, reps):
         "library_ms": time_ms(library, reps),
     }
     row["bound_ms"], row["bound_by"] = bound_ms(
-        4.0 * (r * k * k + 2 * r * k * m), float(ops * r))
+        4.0 * (r * k * k + 2 * r * k * m), solve_operations(k, m) * r)
     same = True
     if name == "gj_aug_multi_reg":
         # the widest chunk a warp takes: X is bitwise the same under each
@@ -478,14 +463,15 @@ def phase_kernels(report: dict, device) -> dict:
              for m in (1, 50)]
     deep = [_check_kernel("gj_aug", 1_024, 255, 1, gen, device, 3)]
     # the forced layouts also at rank 128 (a forced layout bypasses Schur):
-    # packed on its two register kernels, beside the kernel they replaced
+    # packed on its two register kernels, the block one beside the kernel
+    # it replaced
     rows += [_check_kernel("gj_packed_reg", r, k, 1, gen, device, reps)
              for r, k, reps in shapes]
     rows.append(_check_kernel("gj_packed_cta", 13_850, 128, 1, gen, device,
                               20))
-    for name in ("gj_packed", "gj_blocked2"):
-        rows += [_check_kernel(name, r, k, 1, gen, device, reps)
-                 for r, k, reps in shapes + ((13_850, 128, 5),)]
+    rows.append(_check_kernel("gj_packed", 13_850, 128, 1, gen, device, 5))
+    rows += [_check_kernel("gj_blocked2", r, k, 1, gen, device, reps)
+             for r, k, reps in shapes + ((13_850, 128, 5),)]
     deep.append(_check_kernel("gj_packed", 1_024, 255, 1, gen, device, 3))
     if any(row["shared_memory"] for row in deep):
         raise AssertionError("K = 255 should take the device-memory variant")

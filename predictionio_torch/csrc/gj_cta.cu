@@ -20,10 +20,11 @@
 // entry, pivot-row entry, write back), two block barriers a step, one IEEE
 // division per pivot-column element, and the pivot column read with
 // stride K (32-way bank conflicts at K = 64 and 128). What the card bounds
-// this solve by: (2K-1)*K*(K+1)/2 FP32 operations on (K^2 + 2K)*4 bytes,
-// ~32 per byte at K = 128, above the H100's FP32 ridge of 20 (67 TFLOP/s
-// over 3.35 TB/s): 0.43 ms for 13 850 systems at K = 128, set by the FP32
-// rate; at K = 80 ~20 per byte, 0.108 ms, set by bytes.
+// this solve by: (K^2 + 2K)*4 bytes against the K^3/3 + 2K^2 FP32
+// operations of the least work that solves an SPD system (a Cholesky
+// factorisation and two substitutions), ~11 per byte at K = 128, under the
+// H100's FP32 ridge of 20 (67 TFLOP/s over 3.35 TB/s): 0.28 ms for 13 850
+// systems at K = 128 and 0.108 ms at K = 80, both set by bytes.
 //
 // Design: one thread block owns one system, KP threads, KP in {96, 128} a
 // template parameter and K <= KP at run time. Thread i holds row i of A
@@ -74,7 +75,7 @@
 // shared memory delivers at most 128 bytes a clock, however many threads
 // read one address. At K = 128 that is ~5.5 MB, ~43 k clocks, a system:
 // ~2.3 ms for 13 850 systems on 132 SMs at 1.98 GHz, above the card's
-// 0.43 ms bound. That is the price of a row per thread; a thread holding
+// 0.28 ms bound. That is the price of a row per thread; a thread holding
 // a block of several rows would use each delivered value more than once.
 //
 // A is read from device memory once. The packed load needs no staging:

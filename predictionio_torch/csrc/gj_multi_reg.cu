@@ -18,8 +18,9 @@
 // K = 32, M = 97, ~29 GB for 13 850 systems, ~1 ms of shared-memory
 // bandwidth alone. What the card bounds this solve by is bytes: one
 // system reads (K^2 + K*M)*4 bytes and writes K*M*4, (K^2 + 2KM)*4 in all,
-// against (2K-1)*K*(K+2M-1)/2 FP32 operations, ~8 per byte at K = 32,
-// under the H100's ridge of 20 (67 TFLOP/s over 3.35 TB/s).
+// against the K^3/3 + 2K^2*M FP32 operations of a Cholesky solve, ~7 per
+// byte at K = 32, M = 97, under the H100's ridge of 20 (67 TFLOP/s over
+// 3.35 TB/s).
 //
 // Design: one warp per (system, right-hand-side chunk). B's M columns are
 // split into nq = ceil(M / MC) near-equal chunks (MC, the widest chunk, is

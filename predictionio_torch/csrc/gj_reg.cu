@@ -23,9 +23,11 @@
 // at K = 64, 59 GB for the 13 850 systems of a rank-64 half-epoch. Shared
 // memory moves 128 B/clk on each of the 132 SMs, ~30-33 TB/s, so that
 // loop alone cannot take less than ~1.8 ms; it measured 3.17 ms. What the
-// card itself bounds this solve by is bytes: (2K-1)*K*K/2 FP32 operations
-// on (K^2 + 2K)*4 bytes is ~16 operations per byte at K = 64, under the
-// H100's ridge of 20 (67 TFLOP/s over 3.35 TB/s), a 0.07 ms bound.
+// card itself bounds this solve by is bytes: the K^3/3 + 2K^2 FP32
+// operations of the least work for an SPD system (a Cholesky factorisation
+// and two substitutions) on (K^2 + 2K)*4 bytes is ~6 operations per byte
+// at K = 64, under the H100's ridge of 20 (67 TFLOP/s over 3.35 TB/s), a
+// 0.07 ms bound.
 //
 // Design: one warp owns one system (K <= 16: one half-warp, two systems
 // a warp). Lane i holds row i of [A | b] in registers, and for

@@ -14,13 +14,14 @@
 // pivot column read BEFORE the step changes any row, zeroed at row p.
 // After K steps the B columns hold X.
 //
-// What bounds it on this card: step p only updates the K+M-1-p columns
-// right of the pivot, so one system costs (2K-1)*K*(K+2M-1)/2 FP32
-// operations and moves (K^2 + 2*K*M)*4 bytes. At K = 64, M = 1 that is
-// ~16 operations per byte, below the H100's FP32 ridge (67 TFLOP/s over
-// 3.35 TB/s = 20 FLOP/B), and at K = 32 it is ~8: at the main path's
-// shapes the bound is HBM, reading A once. The ratio grows as ~K/4, so
-// only K above ~80 (K = 255 among them) is bound by the FP32 rate. So
+// What bounds it on this card: one system moves (K^2 + 2*K*M)*4 bytes,
+// and the least work that solves it (a Cholesky factorisation and two
+// substitutions a right-hand side) is K^3/3 + 2K^2*M FP32 operations;
+// this kernel's elimination does (2K-1)*K*(K+2M-1)/2, up to 3x that. At
+// K = 64, M = 1 that is ~6 operations per byte, below the H100's FP32
+// ridge (67 TFLOP/s over 3.35 TB/s = 20 FLOP/B): at the main path's
+// shapes the bound is HBM, reading A once. The ratio grows as ~K/12, so
+// only K above ~240 (K = 255) is bound by the FP32 rate. So
 // the kernel reads A from device memory exactly once and keeps the K
 // steps on chip: one thread block owns one system, loads A and B straight (strided, so Schur sub-blocks
 // need no copy) into a [K][K+M] working copy in shared memory and runs
