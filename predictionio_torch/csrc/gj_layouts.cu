@@ -14,11 +14,10 @@
 // the pivot d = M[j][j] (|d| < 1e-30 -> 1), saves the pivot column
 // divided by d and the pivot row, then sets column j to the saved column
 // and subtracts pcol[i] * prow[c] from every other column. After K steps
-// A has become I and the b row holds x^T. The TPU kernel packs
-// G = floor(128/K) <= 4 systems into one 128-lane block; the counterpart
-// here is G systems per thread block, each on its own 256/G threads
-// (whole warps), sharing the block's two barriers per step. With the
-// reference's G that is 4 systems per block at K <= 32 and 2 at K = 64.
+// A has become I and the b row holds x^T. One thread block owns one
+// system. ops/spd_solve.py routes the packed layout here above K = 128
+// only (gj_reg.cu and gj_cta.cu run it below), where the TPU kernel's
+// floor(128/K) systems a 128-lane block is one.
 //
 // gj_blocked2: row Gauss-Jordan on [A | b] ([K][K+1], the gj_aug working
 // copy), two pivots per step: the 2x2 pivot block P of rows and columns
@@ -28,14 +27,13 @@
 // each, against gj_aug's K steps. K must be even.
 //
 // What bounds them on this card: the same bytes as gj_aug, (K^2 + 2K)*4
-// per system (A and b read once, x written once); packed does
-// (2K - 1)(K + 1) operations per step on the K - 1 non-pivot columns plus
-// K + 1 divisions, blocked2 about 4 operations per element per step over
-// K/2 steps. At the main path's K <= 64 that is below the FP32 ridge, so
-// the bound is HBM: each kernel reads A once and keeps every step on chip
-// in shared memory, only x goes back out. What keeps them from that bound
-// is the step chain (two barriers per step); packed spreads each barrier
-// over G systems, blocked2 halves the number of steps.
+// per system (A and b read once, x written once), against the K^3/3 +
+// 2K^2 FP32 operations of the least work that solves an SPD system (a
+// Cholesky factorisation and two substitutions), under the FP32 ridge up
+// to K ~ 240: the bound is HBM but at K = 255. Each kernel reads A once
+// and keeps every step on chip, only x goes back out. What keeps them from
+// that bound is the step chain (two barriers per step); blocked2 halves
+// the number of steps.
 //
 // Working copies past the 227 KB a block may hold (packed at K = 255 is
 // 261 KB, blocked2 at K = 256 263 KB) run the same kernels with
@@ -54,13 +52,10 @@ namespace {
 constexpr float kPivotEps = 1e-30f;
 constexpr int kMaxThreads = 256;
 
-// Threads for one system of n elements when `g` systems share a block:
-// whole warps, at most kMaxThreads / g.
-int slot_threads(int n, int g) {
+// Threads for one system of n elements: whole warps, at most kMaxThreads.
+int block_threads(int n) {
   int t = (n + 31) / 32 * 32;
-  int cap = kMaxThreads / g / 32 * 32;
-  if (cap < 32) cap = 32;
-  return t < cap ? t : cap;
+  return t < kMaxThreads ? t : kMaxThreads;
 }
 
 template <bool kShared>
@@ -69,62 +64,49 @@ __global__ void packed_kernel(const float* __restrict__ a, int64_t sa0,
                               const float* __restrict__ b, int64_t sb0,
                               int64_t sb1, float* __restrict__ x,
                               float* __restrict__ scratch, int64_t r_total,
-                              int k, int g) {
+                              int k) {
   extern __shared__ float smem[];
   const int h = k + 1;      // rows of M: A's K rows, then b^T
   const int n = h * k;      // elements of one working copy
-  const int side = h + k;   // pivot column [h] + pivot row [k]
-  const int tsys = blockDim.x / g;
-  const int s = threadIdx.x / tsys;  // this thread's system in the block
-  const int tid = threadIdx.x - s * tsys;
-  float* work = kShared ? smem + s * (n + side)
-                        : scratch + ((int64_t)blockIdx.x * g + s) * n;
-  float* pcol = kShared ? work + n : smem + s * side;
-  float* prow = pcol + h;
-  // element e = i * k + c walked with stride tsys: carry (i, c)
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  float* work = kShared ? smem : scratch + (int64_t)blockIdx.x * n;
+  float* pcol = kShared ? work + n : smem;  // pivot column [h]
+  float* prow = pcol + h;                   // pivot row [k]
+  // element e = i * k + c walked with stride nt: carry (i, c)
   const int i0 = tid / k, c0 = tid % k;
-  const int di = tsys / k, dc = tsys % k;
+  const int di = nt / k, dc = nt % k;
 
-  for (int64_t base = (int64_t)blockIdx.x * g; base < r_total;
-       base += (int64_t)gridDim.x * g) {
-    const int64_t r = base + s;
-    const bool live = r < r_total;  // the last block may be short
-    if (live) {
-      const float* ar = a + r * sa0;
-      const float* br = b + r * sb0;
-      int i = i0, c = c0;
-      for (int e = tid; e < n; e += tsys) {
-        work[e] = i < k ? ar[i * sa1 + c * sa2] : br[c * sb1];
+  for (int64_t r = blockIdx.x; r < r_total; r += gridDim.x) {
+    const float* ar = a + r * sa0;
+    const float* br = b + r * sb0;
+    int i = i0, c = c0;
+    for (int e = tid; e < n; e += nt) {
+      work[e] = i < k ? ar[i * sa1 + c * sa2] : br[c * sb1];
+      i += di;
+      c += dc;
+      if (c >= k) { c -= k; ++i; }
+    }
+    __syncthreads();
+    for (int j = 0; j < k; ++j) {
+      float d = work[j * k + j];
+      if (fabsf(d) < kPivotEps) d = 1.0f;
+      for (int t = tid; t < h; t += nt) pcol[t] = work[t * k + j] / d;
+      for (int t = tid; t < k; t += nt) prow[t] = work[j * k + t];
+      __syncthreads();
+      i = i0;
+      c = c0;
+      for (int e = tid; e < n; e += nt) {
+        work[e] = c == j ? pcol[i] : work[e] - pcol[i] * prow[c];
         i += di;
         c += dc;
         if (c >= k) { c -= k; ++i; }
       }
-    }
-    __syncthreads();
-    for (int j = 0; j < k; ++j) {
-      if (live) {
-        float d = work[j * k + j];
-        if (fabsf(d) < kPivotEps) d = 1.0f;
-        for (int t = tid; t < h; t += tsys) pcol[t] = work[t * k + j] / d;
-        for (int t = tid; t < k; t += tsys) prow[t] = work[j * k + t];
-      }
-      __syncthreads();
-      if (live) {
-        int i = i0, c = c0;
-        for (int e = tid; e < n; e += tsys) {
-          work[e] = c == j ? pcol[i] : work[e] - pcol[i] * prow[c];
-          i += di;
-          c += dc;
-          if (c >= k) { c -= k; ++i; }
-        }
-      }
       __syncthreads();
     }
-    if (live) {
-      float* xr = x + r * (int64_t)k;
-      for (int t = tid; t < k; t += tsys) xr[t] = work[k * k + t];
-    }
-    __syncthreads();  // the next systems' load overwrites `work`
+    float* xr = x + r * (int64_t)k;
+    for (int t = tid; t < k; t += nt) xr[t] = work[k * k + t];
+    __syncthreads();  // the next system's load overwrites `work`
   }
 }
 
@@ -207,45 +189,41 @@ int set_smem(Kernel kernel, size_t bytes) {
 
 extern "C" {
 
-// x [r, k] = A^-1 b by column elimination, g systems per block. A [r, k, k]
-// (strides sa*), b [r, k] (strides sb0, sb1). scratch == NULL runs the
-// shared-memory kernel; otherwise scratch holds grid * g * (k + 1) * k
-// floats and grid blocks stride over the systems. Returns
-// cudaGetLastError().
+// x [r, k] = A^-T b by column elimination (A^-1 b for a symmetric A),
+// one system a block. A [r, k, k] (strides sa*), b [r, k] (strides sb0,
+// sb1). scratch == NULL runs the shared-memory kernel; otherwise scratch
+// holds grid * (k + 1) * k floats and grid blocks stride over the
+// systems. Returns cudaGetLastError().
 int gj_packed(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
               const float* b, int64_t sb0, int64_t sb1, float* x,
-              float* scratch, int64_t r, int k, int g, int grid,
-              void* stream) {
+              float* scratch, int64_t r, int k, int grid, void* stream) {
   if (r <= 0) return 0;
   const int n = (k + 1) * k;
-  const int side = (k + 1) + k;
-  const int threads = g * slot_threads(n, g);
+  const size_t side = ((size_t)(k + 1) + k) * sizeof(float);
+  const int threads = block_threads(n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (scratch == nullptr) {
-    const size_t bytes = (size_t)g * (n + side) * sizeof(float);
+    const size_t bytes = (size_t)n * sizeof(float) + side;
     int err = set_smem(packed_kernel<true>, bytes);
     if (err) return err;
-    const int64_t blocks = (r + g - 1) / g;
-    packed_kernel<true><<<(unsigned)blocks, threads, bytes, s>>>(
-        a, sa0, sa1, sa2, b, sb0, sb1, x, nullptr, r, k, g);
+    packed_kernel<true><<<(unsigned)r, threads, bytes, s>>>(
+        a, sa0, sa1, sa2, b, sb0, sb1, x, nullptr, r, k);
   } else {
-    const size_t bytes = (size_t)g * side * sizeof(float);
-    packed_kernel<false><<<grid, threads, bytes, s>>>(
-        a, sa0, sa1, sa2, b, sb0, sb1, x, scratch, r, k, g);
+    packed_kernel<false><<<grid, threads, side, s>>>(
+        a, sa0, sa1, sa2, b, sb0, sb1, x, scratch, r, k);
   }
   return (int)cudaGetLastError();
 }
 
 // x [r, k] = A^-1 b by row elimination two pivots at a time (k even).
-// Arguments as for gj_packed with g = 1; scratch holds grid * k * (k + 1)
-// floats.
+// Arguments as for gj_packed; scratch holds grid * k * (k + 1) floats.
 int gj_blocked2(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
                 const float* b, int64_t sb0, int64_t sb1, float* x,
                 float* scratch, int64_t r, int k, int grid, void* stream) {
   if (r <= 0) return 0;
   if (k % 2) return (int)cudaErrorInvalidValue;
   const int w = k + 1;
-  const int threads = slot_threads(k * w, 1);
+  const int threads = block_threads(k * w);
   const size_t side = ((size_t)2 * w + 2 * k) * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (scratch == nullptr) {

@@ -24,8 +24,8 @@ Layouts:
   forced only. It is the row elimination of [Aᵀ | b], transposed, so
   `packed_kernel` routes it to the ``aug`` kernels' bodies with A read
   transposed: ``gj_packed_reg`` at K ≤ 64, ``gj_packed_cta`` at
-  64 < K ≤ 128, and above that ``gj_packed`` (`packed_groups(K)` systems
-  per thread block, working copy in shared or device memory).
+  64 < K ≤ 128, and above that ``gj_packed`` (one system a thread block,
+  working copy in shared or device memory).
 - ``blocked2``: row Gauss-Jordan two pivots per step through an explicit
   2×2 pivot-block inverse; even K only; forced only.
 
@@ -60,8 +60,6 @@ MULTI_CHUNK = 64
 _PIVOT_EPS = 1e-30
 # device-memory variant: resident blocks that share the scratch slots
 _SCRATCH_SLOTS = 1024
-_LANES = 128  # the TPU kernel's lane width, which sets the packed grouping
-_MAX_GROUPS = 4
 
 # kernel launches per wrapper (plain ints; the plain versions never count)
 launches = {"gj_aug_reg": 0, "gj_aug_cta": 0, "gj_aug": 0,
@@ -79,12 +77,6 @@ def reset_launches() -> None:
 
 def gj_applicable(rank: int) -> bool:
     return rank <= _MAX_RANK
-
-
-def packed_groups(k: int) -> int:
-    """Systems per thread block in the packed layout: the reference's
-    systems per 128-lane block, ⌊128/K⌋ clamped to [1, 4]."""
-    return max(1, min(_MAX_GROUPS, _LANES // k))
 
 
 def _by_rank(k: int, kernel: str) -> str:
@@ -309,11 +301,10 @@ def _bind(lib, source: str) -> None:
                                          p, i64, i32, i32, i32, p]
         fns = (lib.gj_aug_multi_reg,)
     else:
-        lib.gj_packed.argtypes = [p, i64, i64, i64, p, i64, i64, p, p, i64,
-                                  i32, i32, i32, p]
-        lib.gj_blocked2.argtypes = [p, i64, i64, i64, p, i64, i64, p, p,
-                                    i64, i32, i32, p]
         fns = (lib.gj_packed, lib.gj_blocked2)
+        for fn in fns:
+            fn.argtypes = [p, i64, i64, i64, p, i64, i64, p, p, i64, i32,
+                           i32, p]
     for fn in fns:
         fn.restype = i32
 
@@ -331,8 +322,7 @@ def _lib(source: str = "gj_solve"):
 def _block_floats(name: str, k: int, m: int) -> tuple[int, int]:
     """(working-copy floats, pivot row + column floats) of one block."""
     if name == "gj_packed":
-        g = packed_groups(k)
-        return g * (k + 1) * k, g * (2 * k + 1)
+        return (k + 1) * k, 2 * k + 1
     if name == "gj_blocked2":
         return k * (k + 1), 2 * (k + 1) + 2 * k
     return k * (k + m), 2 * k + m
@@ -374,12 +364,11 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
     if r == 0 or m == 0:
         return x
     lib = _lib(_SOURCE[name])
-    g = packed_groups(k) if name == "gj_packed" else 1  # systems per block
     scratch = None
     grid = 0
     if name not in _KERNEL_MAX_RANK and \
             not shared_fits(k, m, a.device, name):
-        grid = min(-(-r // g), _SCRATCH_SLOTS)
+        grid = min(r, _SCRATCH_SLOTS)
         scratch = torch.empty(grid * _block_floats(name, k, m)[0],
                               dtype=torch.float32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -394,10 +383,7 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
     elif name == "gj_aug_multi":
         err = lib.gj_aug_multi(*ab, *b.stride(), x.data_ptr(), sp, r, k, m,
                                grid, stream)
-    elif name == "gj_packed":
-        err = lib.gj_packed(*ab, b.stride(0), b.stride(1), x.data_ptr(), sp,
-                            r, k, g, grid, stream)
-    else:  # gj_aug, gj_blocked2
+    else:  # gj_aug, gj_packed, gj_blocked2
         err = getattr(lib, name)(*ab, b.stride(0), b.stride(1),
                                  x.data_ptr(), sp, r, k, grid, stream)
     if err:

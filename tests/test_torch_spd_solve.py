@@ -162,13 +162,12 @@ def test_env_layout_applies_when_not_given(monkeypatch):
 
 
 def test_packed_groups_pack_small_ranks():
-    """Ranks ≤ 64 share a block in the packed layout (the reference's
-    grouping); 21 systems at K = 16 leave the last block short, and the
-    systems come back in their own order."""
-    assert [spd_solve.packed_groups(k) for k in (10, 16, 32, 33, 64, 65,
-                                                 128, 255)] == \
-        [ref._groups(k) for k in (10, 16, 32, 33, 64, 65, 128, 255)]
-    assert spd_solve.packed_groups(16) == 4
+    """The reference packs ⌊128/K⌋ systems of a small rank into one block
+    (4 at K = 16, so 21 systems leave its last block short); the port runs
+    each system on its own (half-)warp. The systems come back in their own
+    order, and each solved alone equals it solved in the batch."""
+    assert [ref._groups(k) for k in (10, 16, 32, 33, 64, 65, 128, 255)] == \
+        [4, 4, 4, 3, 2, 1, 1, 1]
     rng = np.random.default_rng(5)
     a, b = _spd_batch(rng, 21, 16)
     x = _port(spd_solve.gj_solve, a, b, layout="packed")
@@ -176,6 +175,10 @@ def test_packed_groups_pack_small_ranks():
     x_ref = np.asarray(ref.gj_solve(jnp.asarray(a), jnp.asarray(b),
                                     interpret=True, layout="packed"))
     assert _rel(x, x_ref) < 1e-4
+    for row in (0, 19, 20):
+        alone = _port(spd_solve.gj_solve, a[row:row + 1], b[row:row + 1],
+                      layout="packed")
+        np.testing.assert_array_equal(alone[0], x[row])
 
 
 @pytest.mark.parametrize("layout", ["packed", "blocked2"])
