@@ -34,17 +34,18 @@
 // the padding changes no result. Step p:
 //   - thread p, the owner of the pivot row, guards its pivot d
 //     (|d| < 1e-30 -> 1, so an all-zero padding system solves to exactly
-//     0), takes one IEEE reciprocal __frcp_rn(d), multiplies its row right
-//     of the pivot and b_p by it (each within an ulp of row / d) and
-//     writes them to the pivot-row buffer p mod 2 in shared memory with
-//     16-byte stores;
+//     0), takes one IEEE reciprocal __frcp_rn(d), keeps it, and writes its
+//     row right of the pivot, b_p and 1/d to the pivot-row buffer p mod 2
+//     in shared memory with 16-byte stores. The row is not scaled: that
+//     would be K - p multiplies in one thread while the block waits;
 //   - one __syncthreads;
-//   - every other thread reads the row back as 16-byte broadcast loads
-//     and subtracts c times it from its columns right of p and its b
-//     entry, one fused multiply-add each, c its own column-p value read
-//     before the step. The owner takes c = 0, which leaves its row as it
+//   - every other thread forms its multiplier m = c / d as c * (1/d), c
+//     its own column-p value read before the step, reads the row back as
+//     16-byte broadcast loads and updates its columns right of p and its
+//     b entry with one fused multiply-add each. The pivot row stays as it
 //     is; columns <= p are never read again.
-// After K steps b_i is x_i: the arithmetic of gj_reg.cu's kernel.
+// After K steps row i holds d_i x_i in its b entry, and x_i = b_i * (1/d_i)
+// with the reciprocal thread i took at its own pivot.
 //
 // Why one barrier a step is enough: the pivot row is double-buffered.
 // Buffer p mod 2 is written at step p before barrier p and read after it;
@@ -58,8 +59,9 @@
 // Registers and code: a register array can only be indexed by
 // compile-time constants, yet the step loop, whose body names column p,
 // must not be unrolled in full: at KP = 128 that is ~30 k instructions
-// (~480 KB), far more than an SM's instruction cache; that version ran
-// 1.4-1.7x slower than the form below (PERF.md). So the row is rotated:
+// (~480 KB), far more than an SM's instruction cache; that version, which
+// also scaled the pivot row in its owner, ran 1.4-1.7x slower than the
+// form below (PERF.md). So the row is rotated:
 // the steps run in groups of kGroup (4), each group's pivot columns in
 // r[0..3], and after each group every register moves down four places;
 // one rolled loop body serves every group. The rotation costs a move per
@@ -100,12 +102,13 @@ constexpr int kPhases = 4;  // phases of K/4 steps, each of its own width
 
 // Steps p0 .. p0 + kGroup - 1 (stopping at k) on thread i's row r, which
 // holds A's columns p0, p0 + 1, ... in r[0], r[1], ...; every live column
-// lies in r[0..W-1]. rb is b_i.
+// lies in r[0..W-1]. rb is b_i; inv_own receives 1/d when i pivots.
 template <int KP, int W>
 __device__ __forceinline__ void steps(float (&r)[KP], float& rb,
+                                      float& inv_own,
                                       float4 (*prow)[KP / 4 + 1], int i,
                                       int k, int p0) {
-  constexpr int QB = KP / 4;  // the quad that carries b_p
+  constexpr int QB = KP / 4;  // the quad that carries (b_p, 1/d_p)
 #pragma unroll
   for (int u = 0; u < kGroup; ++u) {
     const int p = p0 + u;
@@ -115,31 +118,28 @@ __device__ __forceinline__ void steps(float (&r)[KP], float& rb,
     if (i == p) {
       float d = r[u];
       if (fabsf(d) < kPivotEps) d = 1.0f;
-      const float inv = __frcp_rn(d);
+      inv_own = __frcp_rn(d);
 #pragma unroll
-      for (int q = (u + 1) / 4; q < W / 4; ++q) {
-#pragma unroll
-        for (int j = 4 * q; j < 4 * q + 4; ++j)
-          if (j > u) r[j] *= inv;
+      for (int q = (u + 1) / 4; q < W / 4; ++q)
         buf[q] = make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2],
                              r[4 * q + 3]);
-      }
-      rb *= inv;
-      buf[QB] = make_float4(rb, 0.0f, 0.0f, 0.0f);
+      buf[QB] = make_float4(rb, inv_own, 0.0f, 0.0f);
       c = 0.0f;
     }
     __syncthreads();
     if (i >= k) continue;  // a padding row: zero, and never read
+    const float4 t = buf[QB];
+    const float m = c * t.y;
 #pragma unroll
     for (int q = (u + 1) / 4; q < W / 4; ++q) {
       const float4 v = buf[q];
       const int j = 4 * q;
-      if (j > u) r[j] = fmaf(-c, v.x, r[j]);
-      if (j + 1 > u) r[j + 1] = fmaf(-c, v.y, r[j + 1]);
-      if (j + 2 > u) r[j + 2] = fmaf(-c, v.z, r[j + 2]);
-      if (j + 3 > u) r[j + 3] = fmaf(-c, v.w, r[j + 3]);
+      if (j > u) r[j] = fmaf(-m, v.x, r[j]);
+      if (j + 1 > u) r[j + 1] = fmaf(-m, v.y, r[j + 1]);
+      if (j + 2 > u) r[j + 2] = fmaf(-m, v.z, r[j + 2]);
+      if (j + 3 > u) r[j + 3] = fmaf(-m, v.w, r[j + 3]);
     }
-    rb = fmaf(-c, buf[QB].x, rb);
+    rb = fmaf(-m, t.x, rb);
   }
 }
 
@@ -148,20 +148,21 @@ __device__ __forceinline__ void steps(float (&r)[KP], float& rb,
 // pivot columns to r[0..kGroup-1]; then the next phase.
 template <int KP, int PH>
 __device__ __forceinline__ void phase(float (&r)[KP], float& rb,
+                                      float& inv_own,
                                       float4 (*prow)[KP / 4 + 1], int i,
                                       int k, int g) {
   constexpr int W = KP - PH * (KP / kPhases);
   constexpr int g_end = (PH + 1) * (KP / kGroup / kPhases);
 #pragma unroll 1
   for (; g < g_end && g * kGroup < k; ++g) {
-    steps<KP, W>(r, rb, prow, i, k, g * kGroup);
+    steps<KP, W>(r, rb, inv_own, prow, i, k, g * kGroup);
 #pragma unroll
     for (int j = 0; j < W - kGroup; ++j) r[j] = r[j + kGroup];
 #pragma unroll
     for (int j = W - kGroup; j < W; ++j) r[j] = 0.0f;
   }
   if constexpr (PH + 1 < kPhases)
-    phase<KP, PH + 1>(r, rb, prow, i, k, g);
+    phase<KP, PH + 1>(r, rb, inv_own, prow, i, k, g);
 }
 
 template <int KP, bool kPacked>
@@ -212,10 +213,11 @@ gj_cta_kernel(const float* __restrict__ a, int64_t sa0, int64_t sa1,
     }
   }
   float rb = i < k ? b[sys * sb0 + i * sb1] : 0.0f;
+  float inv_own = 1.0f;
 
-  phase<KP, 0>(r, rb, prow, i, k, 0);
+  phase<KP, 0>(r, rb, inv_own, prow, i, k, 0);
 
-  if (i < k) x[sys * k + i] = rb;
+  if (i < k) x[sys * k + i] = rb * inv_own;
 }
 
 template <int KP, bool kPacked>

@@ -177,15 +177,25 @@ def gj_solve_cta_plain(a: torch.Tensor, b: torch.Tensor,
                        transpose: bool = False) -> torch.Tensor:
     """x [R, K] for a [R, K, K], b [R, K], K ≤ 128 (plain PyTorch), the
     arithmetic of ``gj_aug_cta`` (``gj_packed_cta`` with `transpose`, which
-    eliminates [Aᵀ | b] and so solves Aᵀx = b): the register kernels'
-    `_gj_reg_plain`, whose zero padding changes no value."""
+    eliminates [Aᵀ | b] and so solves Aᵀx = b), step for step: the pivot
+    row is not scaled; every other row subtracts m·(pivot row) right of
+    the pivot with m = c · (1/d), and x_i = b_i · (1/d_i) at the end."""
     k = a.shape[1]
     if k > _CTA_MAX_RANK:
         raise ValueError(f"the block kernel takes K ≤ {_CTA_MAX_RANK}, "
                          f"got {k}")
     if transpose:
         a = a.transpose(1, 2)
-    return _gj_reg_plain(a, b[..., None], k)[..., 0]
+    work = torch.cat([a.float(), b.float()[..., None]], dim=-1)
+    inv = torch.empty_like(work[:, :, 0])
+    for p in range(k):
+        d = work[:, p, p]
+        d = torch.where(d.abs() < _PIVOT_EPS, torch.ones_like(d), d)
+        inv[:, p] = torch.reciprocal(d)
+        m = work[:, :, p] * inv[:, p, None]
+        m[:, p] = 0.0
+        work[:, :, p + 1:] -= m[:, :, None] * work[:, p, None, p + 1:]
+    return work[:, :, k] * inv
 
 
 def gj_solve_multi_reg_plain(a: torch.Tensor,

@@ -128,8 +128,9 @@ def test_packed_is_the_aug_elimination_of_the_transpose(k):
 @pytest.mark.parametrize("k", [1, 10, 33, 64, 65, 96, 97, 128])
 def test_new_plains_match_the_plains_they_replace(k):
     """Against the plain versions of `gj_packed` and `gj_aug`, the kernels
-    these ranks ran on before: the reciprocal and the skipped columns left
-    of the pivot change nothing beyond rounding."""
+    these ranks ran on before: the reciprocal, the unscaled pivot row and
+    the skipped columns left of the pivot change nothing beyond rounding.
+    """
     a, b = _nonsymmetric_batch(4000 + k, R, k)
     ta, tb = torch.from_numpy(a), torch.from_numpy(b)
     old_packed = spd_solve.gj_solve_packed_plain(ta, tb).numpy()
