@@ -19,7 +19,8 @@ Phases (any failure exits non-zero and prints no result line):
              shapes, the eval path's rank-8 and rank-16 grid solves among
              them (max-rel < 1e-4, all-zero systems exactly 0), with its
              time, the plain version's, one library call's (Cholesky +
-             cholesky_solve) and the card's bound; each new kernel beside
+             cholesky_solve) and the card's bound (bytes, or the
+             operations of a Cholesky solve); each block kernel beside
              the one it replaced, at the same shapes. The kernels (csrc/):
              the aug layout runs `gj_aug_reg` (gj_reg.cu, a warp per
              system, its rows in registers) at K ≤ 64, `gj_aug_cta`

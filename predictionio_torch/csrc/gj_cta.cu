@@ -37,7 +37,8 @@
 //     0), takes one IEEE reciprocal __frcp_rn(d), keeps it, and writes its
 //     row right of the pivot, b_p and 1/d to the pivot-row buffer p mod 2
 //     in shared memory with 16-byte stores. The row is not scaled: that
-//     would be K - p multiplies in one thread while the block waits;
+//     would be K - p multiplies in one thread while the block waits, and
+//     made the kernel 8-11 % slower at K = 80, 96 and 128 (PERF.md);
 //   - one __syncthreads;
 //   - every other thread forms its multiplier m = c / d as c * (1/d), c
 //     its own column-p value read before the step, reads the row back as
