@@ -1,18 +1,22 @@
 // Batched Gauss-Jordan solve of small SPD systems, x = A^-1 b,
-// 64 < K <= 128, one thread block per system with the working copy in
-// registers, for Hopper (sm_90a).
+// 64 < K <= 256, one thread block per system with a row per thread, for
+// Hopper (sm_90a): at 64 < K <= 128 the rows lie in registers, at
+// 128 < K <= 256 each row is split between shared memory and registers.
 //
 // Replaces two TPU kernels of predictionio_tpu/ops/pallas_solve.py at
-// 64 < K <= 128 (any rank from 65 to 95 under `auto`, every rank up to 128
+// 64 < K <= 256 (any rank from 65 to 95 under `auto`, every rank up to 256
 // under a forced layout):
-//   - _build_solver_aug :249 (entry point gj_aug_cta);
-//   - _build_solver_packed :101 (entry point gj_packed_cta).
-// At K <= 64 gj_reg.cu runs both, above K = 128 gj_solve.cu's gj_aug and
-// gj_layouts.cu's gj_packed; ops/spd_solve.py routes. As in gj_reg.cu the
-// packed layout (column Gauss-Jordan on [[A], [b^T]]) is the row
-// elimination below applied to [A^T | b], so one body serves both and only
-// the load differs (kPacked); for an A that is not bitwise symmetric the
-// packed entry point solves A^T x = b, as the TPU kernel does.
+//   - _build_solver_aug :249 (entry points gj_aug_cta at K <= 128,
+//     gj_aug_split above);
+//   - _build_solver_packed :101 (entry points gj_packed_cta,
+//     gj_packed_split).
+// At K <= 64 gj_reg.cu runs both; gj_solve.cu's gj_aug and gj_layouts.cu's
+// gj_packed keep only K > 256, which no route reaches; ops/spd_solve.py
+// routes. As in gj_reg.cu the packed layout (column Gauss-Jordan on
+// [[A], [b^T]]) is the row elimination below applied to [A^T | b], so one
+// body serves both and only the load differs (kPacked); for an A that is
+// not bitwise symmetric the packed entry points solve A^T x = b, as the
+// TPU kernel does.
 //
 // What held the kernels this replaces back: gj_solve.cu and gj_layouts.cu
 // keep the [K][K+1] copy in shared memory and make about four
@@ -87,6 +91,75 @@
 // tile of stride 33 (odd, so lane i reading row i finds 32 different
 // banks). Only x is written.
 //
+// Above K = 128 (gj_aug_split, gj_packed_split; 128 < K <= 256): a row of
+// [A | b] is up to 257 floats, too many for one thread's registers, and
+// the kernels this replaces kept the [K][K+1] copy in shared memory up to
+// K ~ 239 and in device scratch above (261 KB a system at K = 255, more
+// than a block's 227 KB): every step then read and wrote all of it through
+// HBM, two barriers a step. The card's bound: at K = 192 (K^2 + 2K)*4
+// bytes against K^3/3 + 2K^2 operations is ~16 per byte, set by bytes
+// (0.62 ms for 13 850 systems); at K = 255 ~22 per byte, set by the FP32
+// rate (0.087 ms for 1 024 systems).
+//
+// Design: still one thread block per system and a row per thread,
+// round_up(K, 32) <= 256 threads, and one block an SM. Row i is split at
+// L = K - 128 (1 to 128):
+//   - columns 0 .. L-1 lie in dynamic shared memory, row i at i * S floats.
+//     The stride S >= L is a multiple of 4 and S = 4 (mod 32), so a
+//     quarter-warp's 16-byte accesses to its eight own rows at one column
+//     cover all 32 banks; at K = 256, 256 rows * 132 floats = 135 KB;
+//   - columns L .. K-1 and b_i lie in registers, r[0..127] and rb, as in
+//     gj_cta_kernel<128>.
+// Steps 0 .. L-1 pivot in the shared part (split_steps):
+//   - the owner p guards d and takes __frcp_rn(d) as above, and writes
+//     only its register part, b_p and 1/d to the pivot-row buffer. The
+//     shared part of the pivot row is read in place from row p;
+//   - every other thread forms m = c * (1/d) from its own column-p value,
+//     and updates its shared columns from the quad holding p + 1 to L - 1
+//     (16-byte loads of row p, broadcast, and of its own row, one FMA
+//     each, a 16-byte store), its 128 register columns and rb. The
+//     columns <= p it also touches in the first quad are dead: no later
+//     step reads them. The owner skips its shared columns: it would write
+//     the values it has, but the write would race with the readers of
+//     row p.
+// Steps L .. K-1 are gj_cta_kernel<128>'s phases with the row index
+// shifted to i - L: rows i < L get a negative index, never pivot and go
+// on updating; padding rows get i - L >= 128 and skip, as there. After
+// step L - 1 every shared column is dead.
+//
+// Why one barrier a step is still enough: row p is read in place during
+// step p, after barrier p. Its owner next writes it at step p + 1, after
+// barrier p + 1, which no thread passes before it has finished its reads
+// of step p; and every earlier write to row p (by thread p, at steps
+// < p) came before barrier p. A row is written only by its own thread.
+// The pivot-row buffers keep their parity across the hand-off: the
+// shared steps use buffer (p + L) mod 2, so step L - 1 takes buffer 1 and
+// step L, the first register step, buffer 0 (the phases' first), for
+// every L, odd or even; with buffer p mod 2 instead, an odd L would have
+// steps L - 1 and L share buffer 0. The load's writes to shared memory
+// end in one more barrier before step 0.
+//
+// Loads: the shared part first, straight into shared memory with no
+// transpose, staged in r with 32 loads in flight a thread (a block has
+// no other block on its SM to hide a chain of loads behind): aug rows by
+// warps, 32 consecutive columns a warp access; packed columns by threads
+// (thread i reads A[c][i], coalesced across the block), stored four at
+// a time. Then the register part as gj_cta_kernel loads it, at columns
+// L .. K-1 (the aug load through eight per-warp tiles).
+// Only x is written.
+//
+// What bounds it: shared-memory delivery, as at K <= 128 but with twice
+// the threads. Every step of the shared part moves, for each thread, its
+// own quads in and out and the pivot row's quads in, (3 (L - p) + 132) * 4
+// bytes a thread a step with the 33 register-part quads; the register
+// phases then move gj_cta_kernel<128>'s. That is ~50 MB a system at
+// K = 255, ~0.4 M clocks at 128 bytes a clock: ~1.6 ms for 1 024 systems
+// on 132 SMs in eight waves, ~20x the card's bound. Registers: the 129
+// floats of the row and the hoisted broadcasts, under the 255 a thread
+// that 256 threads and one block an SM allow; shared memory: 4 * K * S
+// bytes dynamic (opted into above 48 KB at each launch) and 34 KB static
+// (the aug load's tiles and the pivot-row buffers).
+//
 // Built without --use_fast_math: the reciprocal is __frcp_rn (IEEE, round
 // to nearest), which keeps the 1e-4 bars and the exact zeros.
 
@@ -100,6 +173,20 @@ namespace {
 constexpr float kPivotEps = 1e-30f;
 constexpr int kGroup = 4;   // steps between two rotations of the row
 constexpr int kPhases = 4;  // phases of K/4 steps, each of its own width
+constexpr int kTile = 33;          // the aug load's tile row stride
+constexpr int kSplitCols = 128;     // columns of a split row in registers
+constexpr int kSplitThreads = 256;  // the most threads a split block has
+
+// Floats between two rows of the split kernels' shared part for L shared
+// columns: the least S >= L with S = 4 (mod 32).
+__host__ __device__ constexpr int split_stride(int l) {
+  return (l + 27) / 32 * 32 + 4;
+}
+
+// Dynamic shared bytes of one split block at rank k.
+constexpr size_t split_shared_bytes(int k) {
+  return (size_t)k * split_stride(k - kSplitCols) * sizeof(float);
+}
 
 // Steps p0 .. p0 + kGroup - 1 (stopping at k) on thread i's row r, which
 // holds A's columns p0, p0 + 1, ... in r[0], r[1], ...; every live column
@@ -166,14 +253,49 @@ __device__ __forceinline__ void phase(float (&r)[KP], float& rb,
     phase<KP, PH + 1>(r, rb, inv_own, prow, i, k, g);
 }
 
+// The aug load: the first KP columns of row i of A into r, zero past kc
+// columns or k rows, as the note above says; `as` is A's system moved to
+// the first column to load, strides sa1, sa2; `tile` is the warp's
+// 32 * kTile floats. (The packed load is a plain loop in each kernel:
+// through a helper like this one, gj_packed_cta ran slower than with the
+// loop at K = 80, 96 and 128 in every A/B pair on the card, PERF.md.)
+template <int KP>
+__device__ __forceinline__ void load_row_aug(float (&r)[KP], float* tile,
+                                             const float* as, int64_t sa1,
+                                             int64_t sa2, int i, int k,
+                                             int kc) {
+  // lane reads column 32q + lane of the warp's rows row0 .. row0 + 31
+  // into r[32q + rr]; the tile then hands thread i its row
+  const int lane = i % 32;
+  const int row0 = i - lane;
+#pragma unroll
+  for (int q = 0; q < KP / 32; ++q) {
+    const int c = q * 32 + lane;
+#pragma unroll
+    for (int rr = 0; rr < 32; ++rr) {
+      const int row = row0 + rr;
+      r[q * 32 + rr] =
+          row < k && c < kc ? __ldg(as + row * sa1 + c * sa2) : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < KP / 32; ++q) {
+#pragma unroll
+    for (int rr = 0; rr < 32; ++rr) tile[rr * kTile + lane] = r[q * 32 + rr];
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 32; ++j) r[q * 32 + j] = tile[lane * kTile + j];
+    __syncwarp();  // the next chunk overwrites the tile
+  }
+}
+
 template <int KP, bool kPacked>
 __global__ void __launch_bounds__(KP)
 gj_cta_kernel(const float* __restrict__ a, int64_t sa0, int64_t sa1,
               int64_t sa2, const float* __restrict__ b, int64_t sb0,
               int64_t sb1, float* __restrict__ x, int k) {
-  constexpr int T = 33;  // tile row stride
   __shared__ float4 prow[2][KP / 4 + 1];  // the pivot row, double-buffered
-  __shared__ float tile[kPacked ? 1 : KP / 32][32 * T];
+  __shared__ float tile[kPacked ? 1 : KP / 32][32 * kTile];
 
   const int i = threadIdx.x;
   const int64_t sys = blockIdx.x;
@@ -187,36 +309,146 @@ gj_cta_kernel(const float* __restrict__ a, int64_t sa0, int64_t sa1,
     for (int j = 0; j < KP; ++j)
       r[j] = live && j < k ? __ldg(col + j * sa1) : 0.0f;
   } else {
-    // lane reads column 32q + lane of the warp's rows row0 .. row0 + 31
-    // into r[32q + rr], then each chunk goes through the tile so that
-    // thread i gets row i
-    const int lane = i % 32;
-    const int row0 = i - lane;
-#pragma unroll
-    for (int q = 0; q < KP / 32; ++q) {
-      const int c = q * 32 + lane;
-#pragma unroll
-      for (int rr = 0; rr < 32; ++rr) {
-        const int row = row0 + rr;
-        r[q * 32 + rr] =
-            row < k && c < k ? __ldg(as + row * sa1 + c * sa2) : 0.0f;
-      }
-    }
-    float* t = tile[i / 32];
-#pragma unroll
-    for (int q = 0; q < KP / 32; ++q) {
-#pragma unroll
-      for (int rr = 0; rr < 32; ++rr) t[rr * T + lane] = r[q * 32 + rr];
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < 32; ++j) r[q * 32 + j] = t[lane * T + j];
-      __syncwarp();  // the next chunk overwrites the tile
-    }
+    load_row_aug<KP>(r, tile[i / 32], as, sa1, sa2, i, k, k);
   }
   float rb = i < k ? b[sys * sb0 + i * sb1] : 0.0f;
   float inv_own = 1.0f;
 
   phase<KP, 0>(r, rb, inv_own, prow, i, k, 0);
+
+  if (i < k) x[sys * k + i] = rb * inv_own;
+}
+
+// Steps 0 .. l-1 of a split row: columns 0 .. l-1 in shared memory (own
+// row at `own`, row p at rows + p * s), columns l .. l+127 in r. A
+// padding row (i >= k) only keeps the barriers.
+__device__ __forceinline__ void split_steps(
+    float (&r)[kSplitCols], float& rb, float& inv_own,
+    float4 (*prow)[kSplitCols / 4 + 1], float* rows, int s, int i, int k,
+    int l) {
+  constexpr int QB = kSplitCols / 4;  // the quad that carries (b_p, 1/d_p)
+  const int q_end = (l + 3) / 4;       // quads of the shared part
+  float4* own = reinterpret_cast<float4*>(rows + (i < k ? i : 0) * s);
+#pragma unroll 1
+  for (int p = 0; p < l; ++p) {
+    // buffer (p + l) mod 2: step l - 1 takes buffer 1, so the first
+    // register step (buffer 0) never shares a buffer with the step before
+    float4* buf = prow[(p + l) & 1];
+    float c = i < k ? rows[i * s + p] : 0.0f;
+    if (i == p) {
+      float d = c;
+      if (fabsf(d) < kPivotEps) d = 1.0f;
+      inv_own = __frcp_rn(d);
+#pragma unroll
+      for (int q = 0; q < QB; ++q)
+        buf[q] = make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2],
+                             r[4 * q + 3]);
+      buf[QB] = make_float4(rb, inv_own, 0.0f, 0.0f);
+      c = 0.0f;
+    }
+    __syncthreads();
+    if (i >= k) continue;
+    const float4 t = buf[QB];
+    const float m = c * t.y;
+    if (i != p) {
+      const float4* piv = reinterpret_cast<const float4*>(rows + p * s);
+      for (int q = (p + 1) / 4; q < q_end; ++q) {
+        const float4 v = piv[q];
+        float4 w = own[q];
+        w.x = fmaf(-m, v.x, w.x);
+        w.y = fmaf(-m, v.y, w.y);
+        w.z = fmaf(-m, v.z, w.z);
+        w.w = fmaf(-m, v.w, w.w);
+        own[q] = w;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < QB; ++q) {
+      const float4 v = buf[q];
+      r[4 * q] = fmaf(-m, v.x, r[4 * q]);
+      r[4 * q + 1] = fmaf(-m, v.y, r[4 * q + 1]);
+      r[4 * q + 2] = fmaf(-m, v.z, r[4 * q + 2]);
+      r[4 * q + 3] = fmaf(-m, v.w, r[4 * q + 3]);
+    }
+    rb = fmaf(-m, t.x, rb);
+  }
+}
+
+// One system a block, 128 < k <= 256, round_up(k, 32) threads; dynamic
+// shared memory split_shared_bytes(k).
+template <bool kPacked>
+__global__ void __launch_bounds__(kSplitThreads, 1)
+gj_split_kernel(const float* __restrict__ a, int64_t sa0, int64_t sa1,
+                int64_t sa2, const float* __restrict__ b, int64_t sb0,
+                int64_t sb1, float* __restrict__ x, int k) {
+  constexpr int KP = kSplitCols;
+  extern __shared__ float4 shared_rows[];  // the shared part, row i at i * s
+  __shared__ float4 prow[2][KP / 4 + 1];   // the pivot row, double-buffered
+  __shared__ float tile[kPacked ? 1 : kSplitThreads / 32][32 * kTile];
+
+  const int i = threadIdx.x;
+  const int lane = i % 32;
+  const int l = k - KP;  // shared columns, 1 .. 128
+  const int s = split_stride(l);
+  const int l4 = (l + 3) / 4 * 4;  // the shared columns, padded to a quad
+  float* rows = reinterpret_cast<float*>(shared_rows);
+  const int64_t sys = blockIdx.x;
+  const float* as = a + sys * sa0;
+  float r[KP];  // row i's columns l .. k-1
+
+  // The shared part first, while r is free to stage it: 32 loads in
+  // flight a thread, zero past column l.
+  if constexpr (kPacked) {  // row i of A^T: column i of A
+    const bool live = i < k;
+    const float* col = as + (live ? i : 0) * sa2;
+    if (live) {
+      float4* own = reinterpret_cast<float4*>(rows + i * s);
+      for (int c0 = 0; c0 < l4; c0 += 32) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          r[e] = c0 + e < l ? __ldg(col + (c0 + e) * sa1) : 0.0f;
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          if (c0 + 4 * q < l4)
+            own[c0 / 4 + q] = make_float4(r[4 * q], r[4 * q + 1],
+                                          r[4 * q + 2], r[4 * q + 3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < KP; ++j)  // then the register part
+      r[j] = live ? __ldg(col + (l + j) * sa1) : 0.0f;
+  } else {
+    // warp w loads rows w, w + warps, ..., eight rows at a time, 32
+    // consecutive columns an access
+    const int warps = blockDim.x / 32;
+    for (int row0 = i / 32; row0 < k; row0 += 8 * warps) {
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int row = row0 + u * warps;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int c = q * 32 + lane;
+          r[4 * u + q] =
+              row < k && c < l ? __ldg(as + row * sa1 + c * sa2) : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int row = row0 + u * warps;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (row < k && q * 32 + lane < l4)
+            rows[row * s + q * 32 + lane] = r[4 * u + q];
+      }
+    }
+    load_row_aug<KP>(r, tile[i / 32], as + l * sa2, sa1, sa2, i, k, KP);
+  }
+  float rb = i < k ? b[sys * sb0 + i * sb1] : 0.0f;
+  float inv_own = 1.0f;
+  __syncthreads();  // every shared row is loaded
+
+  split_steps(r, rb, inv_own, prow, rows, s, i, k, l);
+  phase<KP, 0>(r, rb, inv_own, prow, i - l, KP, 0);
 
   if (i < k) x[sys * k + i] = rb * inv_own;
 }
@@ -243,6 +475,24 @@ int dispatch(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
   return (int)cudaErrorInvalidValue;
 }
 
+template <bool kPacked>
+int launch_split(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
+                 const float* b, int64_t sb0, int64_t sb1, float* x,
+                 int64_t r, int k, void* stream) {
+  if (r <= 0) return 0;
+  if (k <= kSplitCols || k > kSplitCols + 128)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = split_shared_bytes(k);
+  cudaError_t err = cudaFuncSetAttribute(
+      gj_split_kernel<kPacked>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  gj_split_kernel<kPacked><<<(unsigned)r, (k + 31) / 32 * 32, bytes,
+                             static_cast<cudaStream_t>(stream)>>>(
+      a, sa0, sa1, sa2, b, sb0, sb1, x, k);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -263,6 +513,40 @@ int gj_packed_cta(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
                   const float* b, int64_t sb0, int64_t sb1, float* x,
                   int64_t r, int k, void* stream) {
   return dispatch<true>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, stream);
+}
+
+// x [r, k] = A^-1 b, arguments as for gj_aug_cta, 128 < k <= 256: the row
+// split between shared memory and registers.
+int gj_aug_split(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
+                 const float* b, int64_t sb0, int64_t sb1, float* x,
+                 int64_t r, int k, void* stream) {
+  return launch_split<false>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k,
+                             stream);
+}
+
+// x [r, k] = A^-T b, arguments as for gj_aug_split.
+int gj_packed_split(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
+                    const float* b, int64_t sb0, int64_t sb1, float* x,
+                    int64_t r, int k, void* stream) {
+  return launch_split<true>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, stream);
+}
+
+// The split kernels' dynamic shared bytes a block at rank k, and in
+// *blocks the blocks an SM holds at once on the current device (packed:
+// gj_packed_split's, else gj_aug_split's). Returns a CUDA error code.
+int gj_split_occupancy(int packed, int k, int* shared_bytes, int* blocks) {
+  if (k <= kSplitCols || k > kSplitCols + 128)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = split_shared_bytes(k);
+  const void* fn = packed ? (const void*)gj_split_kernel<true>
+                          : (const void*)gj_split_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, fn, (k + 31) / 32 * 32, bytes);
+  *shared_bytes = (int)bytes;
+  return (int)err;
 }
 
 }  // extern "C"

@@ -12,8 +12,10 @@ Layouts:
   `aug_kernel` routes by K: ``gj_aug_reg`` at K ≤ 64 (one warp per
   system, rows in registers, one reciprocal per pivot), ``gj_aug_cta`` at
   64 < K ≤ 128 (one thread block per system, a row per thread in
-  registers, one barrier a step), ``gj_aug`` above (working copy in shared
-  or device memory).
+  registers, one barrier a step), ``gj_aug_split`` at 128 < K ≤ 256 (the
+  same block design with each row's first K − 128 columns in shared
+  memory), ``gj_aug`` above (working copy in shared or device memory; no
+  route reaches it, since `gj_applicable` stops at 256).
 - ``schur``: recursive Schur complements; the eliminations become f32
   `torch.bmm` products and the base systems (K ≤ 32, or odd K) go to
   `gj_solve_multi`; `auto` picks it at rank ≥ 96. At K ≤ 32
@@ -24,8 +26,9 @@ Layouts:
   forced only. It is the row elimination of [Aᵀ | b], transposed, so
   `packed_kernel` routes it to the ``aug`` kernels' bodies with A read
   transposed: ``gj_packed_reg`` at K ≤ 64, ``gj_packed_cta`` at
-  64 < K ≤ 128, and above that ``gj_packed`` (one system a thread block,
-  working copy in shared or device memory).
+  64 < K ≤ 128, ``gj_packed_split`` at 128 < K ≤ 256, and above that
+  ``gj_packed`` (one system a thread block, working copy in shared or
+  device memory).
 - ``blocked2``: row Gauss-Jordan two pivots per step through an explicit
   2×2 pivot-block inverse; even K only; forced only.
 
@@ -34,10 +37,12 @@ Dispatch: a tensor on the CPU runs the kernel's plain PyTorch version
 `gj_solve_plain`, `gj_solve_multi_reg_plain`, `gj_solve_multi_plain`,
 `gj_solve_packed_plain`, `gj_solve_blocked2_plain`); a CUDA tensor
 launches the hand-written kernel from ``csrc/gj_reg.cu`` (aug and packed
-at K ≤ 64), ``csrc/gj_cta.cu`` (aug and packed at 64 < K ≤ 128),
+at K ≤ 64), ``csrc/gj_cta.cu`` (aug and packed at 64 < K ≤ 256),
 ``csrc/gj_multi_reg.cu`` (aug_multi at K ≤ 32), ``csrc/gj_solve.cu`` (aug
-and aug_multi above) or ``csrc/gj_layouts.cu`` (packed above K = 128,
-blocked2), or raises. `launches` counts kernel launches per wrapper.
+above K = 256, aug_multi above K = 32) or ``csrc/gj_layouts.cu`` (packed
+above K = 256, blocked2), or raises. One plain version,
+`gj_solve_cta_plain`, serves all four block kernels. `launches` counts
+kernel launches per wrapper.
 
 No pivoting: A = YᵀWY + λ(n)I is SPD. All-zero systems (bucket padding)
 solve to exactly 0 through the pivot guard |d| < 1e-30 → 1.
@@ -53,7 +58,10 @@ import torch
 
 _MAX_RANK = 256
 _REG_MAX_RANK = 64  # largest K the register (warp) kernels take
-_CTA_MAX_RANK = 128  # largest K the one-block-per-system kernels take
+# largest K the block kernels take with rows in registers, and with each
+# row split between shared memory and registers
+_CTA_MAX_RANK = 128
+_SPLIT_MAX_RANK = 256
 _MULTI_REG_MAX_RANK = 32  # largest K the multi-RHS register kernel takes
 # the widest chunk of B's columns one warp of gj_aug_multi_reg takes
 MULTI_CHUNK = 64
@@ -62,9 +70,10 @@ _PIVOT_EPS = 1e-30
 _SCRATCH_SLOTS = 1024
 
 # kernel launches per wrapper (plain ints; the plain versions never count)
-launches = {"gj_aug_reg": 0, "gj_aug_cta": 0, "gj_aug": 0,
-            "gj_aug_multi_reg": 0, "gj_aug_multi": 0, "gj_packed_reg": 0,
-            "gj_packed_cta": 0, "gj_packed": 0, "gj_blocked2": 0}
+launches = {"gj_aug_reg": 0, "gj_aug_cta": 0, "gj_aug_split": 0,
+            "gj_aug": 0, "gj_aug_multi_reg": 0, "gj_aug_multi": 0,
+            "gj_packed_reg": 0, "gj_packed_cta": 0, "gj_packed_split": 0,
+            "gj_packed": 0, "gj_blocked2": 0}
 # the same launches by kernel and rank, keyed "<kernel>/K=<k>"
 launches_by_rank: dict[str, int] = {}
 
@@ -82,13 +91,15 @@ def gj_applicable(rank: int) -> bool:
 def _by_rank(k: int, kernel: str) -> str:
     if k <= _REG_MAX_RANK:
         return f"{kernel}_reg"
-    return f"{kernel}_cta" if k <= _CTA_MAX_RANK else kernel
+    if k <= _CTA_MAX_RANK:
+        return f"{kernel}_cta"
+    return f"{kernel}_split" if k <= _SPLIT_MAX_RANK else kernel
 
 
 def aug_kernel(k: int) -> str:
     """The kernel the ``aug`` layout runs at rank `k`: the warp kernel up
-    to K = 64, the block kernel up to K = 128, the shared/device-memory
-    one above."""
+    to K = 64, the block kernel with rows in registers up to K = 128 and
+    with rows split up to K = 256, the shared/device-memory one above."""
     return _by_rank(k, "gj_aug")
 
 
@@ -175,14 +186,17 @@ def gj_solve_packed_reg_plain(a: torch.Tensor,
 
 def gj_solve_cta_plain(a: torch.Tensor, b: torch.Tensor,
                        transpose: bool = False) -> torch.Tensor:
-    """x [R, K] for a [R, K, K], b [R, K], K ≤ 128 (plain PyTorch), the
-    arithmetic of ``gj_aug_cta`` (``gj_packed_cta`` with `transpose`, which
-    eliminates [Aᵀ | b] and so solves Aᵀx = b), step for step: the pivot
-    row is not scaled; every other row subtracts m·(pivot row) right of
-    the pivot with m = c · (1/d), and x_i = b_i · (1/d_i) at the end."""
+    """x [R, K] for a [R, K, K], b [R, K], K ≤ 256 (plain PyTorch), the
+    arithmetic of the four block kernels: ``gj_aug_cta`` (K ≤ 128) and
+    ``gj_aug_split`` (128 < K ≤ 256), and with `transpose`, which
+    eliminates [Aᵀ | b] and so solves Aᵀx = b, ``gj_packed_cta`` and
+    ``gj_packed_split``. Step for step: the pivot row is not scaled; every
+    other row subtracts m·(pivot row) right of the pivot with
+    m = c · (1/d), and x_i = b_i · (1/d_i) at the end. Where a row lies
+    (registers, or split with shared memory) changes none of it."""
     k = a.shape[1]
-    if k > _CTA_MAX_RANK:
-        raise ValueError(f"the block kernel takes K ≤ {_CTA_MAX_RANK}, "
+    if k > _SPLIT_MAX_RANK:
+        raise ValueError(f"the block kernels take K ≤ {_SPLIT_MAX_RANK}, "
                          f"got {k}")
     if transpose:
         a = a.transpose(1, 2)
@@ -267,17 +281,21 @@ def gj_solve_blocked2_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # kernel → its source under csrc/
 _SOURCE = {"gj_aug_reg": "gj_reg", "gj_packed_reg": "gj_reg",
            "gj_aug_cta": "gj_cta", "gj_packed_cta": "gj_cta",
+           "gj_aug_split": "gj_cta", "gj_packed_split": "gj_cta",
            "gj_aug": "gj_solve", "gj_aug_multi_reg": "gj_multi_reg",
            "gj_aug_multi": "gj_solve", "gj_packed": "gj_layouts",
            "gj_blocked2": "gj_layouts"}
-# the largest K each register kernel takes
-_KERNEL_MAX_RANK = {"gj_aug_reg": _REG_MAX_RANK,
-                    "gj_packed_reg": _REG_MAX_RANK,
-                    "gj_aug_cta": _CTA_MAX_RANK,
-                    "gj_packed_cta": _CTA_MAX_RANK,
-                    "gj_aug_multi_reg": _MULTI_REG_MAX_RANK}
+# the ranks (least, largest) each register or block kernel takes
+_KERNEL_RANKS = {"gj_aug_reg": (1, _REG_MAX_RANK),
+                 "gj_packed_reg": (1, _REG_MAX_RANK),
+                 "gj_aug_cta": (1, _CTA_MAX_RANK),
+                 "gj_packed_cta": (1, _CTA_MAX_RANK),
+                 "gj_aug_split": (_CTA_MAX_RANK + 1, _SPLIT_MAX_RANK),
+                 "gj_packed_split": (_CTA_MAX_RANK + 1, _SPLIT_MAX_RANK),
+                 "gj_aug_multi_reg": (1, _MULTI_REG_MAX_RANK)}
 # the kernels with one right-hand side and the signature of gj_aug_reg
-_ONE_RHS = ("gj_aug_reg", "gj_packed_reg", "gj_aug_cta", "gj_packed_cta")
+_ONE_RHS = ("gj_aug_reg", "gj_packed_reg", "gj_aug_cta", "gj_packed_cta",
+            "gj_aug_split", "gj_packed_split")
 _max_shared: dict[int, int] = {}
 
 
@@ -293,9 +311,13 @@ def _bind(lib, source: str) -> None:
         fns = (lib.gj_aug, lib.gj_aug_multi)
     elif source in ("gj_reg", "gj_cta"):
         fns = ((lib.gj_aug_reg, lib.gj_packed_reg) if source == "gj_reg"
-               else (lib.gj_aug_cta, lib.gj_packed_cta))
+               else (lib.gj_aug_cta, lib.gj_packed_cta, lib.gj_aug_split,
+                     lib.gj_packed_split))
         for fn in fns:
             fn.argtypes = [p, i64, i64, i64, p, i64, i64, p, i64, i32, p]
+        if source == "gj_cta":
+            lib.gj_split_occupancy.argtypes = [i32, i32, p, p]
+            fns += (lib.gj_split_occupancy,)
     elif source == "gj_multi_reg":
         lib.gj_aug_multi_reg.argtypes = [p, i64, i64, i64, p, i64, i64, i64,
                                          p, i64, i32, i32, i32, p]
@@ -339,17 +361,26 @@ def shared_fits(k: int, m: int, device: torch.device,
     return sum(_block_floats(name, k, m)) * 4 <= _max_shared[idx]
 
 
+def split_occupancy(name: str, k: int, device: torch.device) -> tuple[int, int]:
+    """(dynamic shared bytes of one block, blocks an SM holds at once) of
+    split kernel `name` at rank `k` on `device`, as the CUDA runtime
+    reckons them."""
+    shared, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _lib("gj_cta").gj_split_occupancy(
+            int(name == "gj_packed_split"), k, ctypes.byref(shared),
+            ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"{name} occupancy at K={k}: CUDA error {err}")
+    return shared.value, blocks.value
+
+
 def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
             chunk: int = MULTI_CHUNK) -> torch.Tensor:
     """Launch `name` on CUDA tensors a [R, K, K] and b [R, K, M] (any
     strides; M = 1 but for the aug_multi kernels); returns X [R, K, M].
     `chunk` (32 or 64) is gj_aug_multi_reg's widest chunk of B's columns
     a warp takes; X does not depend on it."""
-    if a.device.type != "cuda" or b.device != a.device:
-        raise ValueError(f"{name}: a and b must be on one CUDA device, got "
-                         f"{a.device} and {b.device}")
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise ValueError(f"{name}: needs float32, got {a.dtype}/{b.dtype}")
     r, k, k2 = a.shape
     if k2 != k or b.dim() != 3 or b.shape[:2] != (r, k):
         raise ValueError(f"{name}: shapes {tuple(a.shape)} and "
@@ -357,16 +388,22 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
     m = b.shape[2]
     if name in (*_ONE_RHS, "gj_packed", "gj_blocked2") and m != 1:
         raise ValueError(f"{name}: takes one right-hand side, got M={m}")
-    if k > _KERNEL_MAX_RANK.get(name, k):
-        raise ValueError(f"{name}: takes K ≤ {_KERNEL_MAX_RANK[name]}, "
-                         f"got {k}")
+    lo, hi = _KERNEL_RANKS.get(name, (1, k))
+    if not lo <= k <= hi:
+        raise ValueError(f"{name}: takes {f'{lo} ≤ ' if lo > 1 else ''}"
+                         f"K ≤ {hi}, got {k}")
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"{name}: a and b must be on one CUDA device, got "
+                         f"{a.device} and {b.device}")
+    if a.dtype != torch.float32 or b.dtype != torch.float32:
+        raise ValueError(f"{name}: needs float32, got {a.dtype}/{b.dtype}")
     x = torch.empty((r, k, m), dtype=torch.float32, device=a.device)
     if r == 0 or m == 0:
         return x
     lib = _lib(_SOURCE[name])
     scratch = None
     grid = 0
-    if name not in _KERNEL_MAX_RANK and \
+    if name not in _KERNEL_RANKS and \
             not shared_fits(k, m, a.device, name):
         grid = min(r, _SCRATCH_SLOTS)
         scratch = torch.empty(grid * _block_floats(name, k, m)[0],
@@ -467,9 +504,9 @@ def gj_solve(a: torch.Tensor, b: torch.Tensor, layout: str = "") -> torch.Tensor
         return schur_solve(a, b)
     if layout == "packed":
         name = packed_kernel(k)
+        block = functools.partial(gj_solve_cta_plain, transpose=True)
         plain = {"gj_packed_reg": gj_solve_packed_reg_plain,
-                 "gj_packed_cta": functools.partial(gj_solve_cta_plain,
-                                                    transpose=True),
+                 "gj_packed_cta": block, "gj_packed_split": block,
                  "gj_packed": gj_solve_packed_plain}[name]
         return _solve_one(name, plain, a, b)
     if layout == "blocked2":
@@ -483,5 +520,6 @@ def gj_solve(a: torch.Tensor, b: torch.Tensor, layout: str = "") -> torch.Tensor
     name = aug_kernel(k)
     plain = {"gj_aug_reg": gj_solve_reg_plain,
              "gj_aug_cta": gj_solve_cta_plain,
+             "gj_aug_split": gj_solve_cta_plain,
              "gj_aug": gj_solve_plain}[name]
     return _solve_one(name, plain, a, b)

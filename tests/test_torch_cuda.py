@@ -126,7 +126,7 @@ _LAYOUT_PLAIN = {"packed": spd_solve.gj_solve_packed_plain,
     ("blocked2", 37, 10), ("blocked2", 9, 128), ("blocked2", 6, 256)])
 def test_layout_kernels_match_plain(dev, layout, r, k):
     """packed (K ≤ 64 and K ≤ 128 on the register kernels, K = 255 on
-    the device-memory variant) and blocked2 (K = 256: the device-memory
+    the split block kernel) and blocked2 (K = 256: the device-memory
     variant) against the plain versions of the layouts' elimination."""
     gen = torch.Generator(device=dev).manual_seed(r * k)
     a, b = _spd(gen, r, k, 1, dev)
@@ -280,6 +280,118 @@ def test_new_wrappers_refuse_what_the_kernel_does_not_take(dev):
         with pytest.raises(ValueError, match="K ≤ 128"):
             big = torch.eye(129, device=dev).expand(2, 129, 129)
             spd_solve._launch(name, big, torch.ones(2, 129, 1, device=dev))
+    assert not any(spd_solve.launches.values())
+
+
+# the split block kernels (128 < K ≤ 256), each with its layout and the
+# block kernels' one plain version
+_SPLIT_PLAIN = {
+    "gj_aug_split": ("aug", spd_solve.gj_solve_cta_plain),
+    "gj_packed_split": ("packed", lambda a, b: spd_solve.gj_solve_cta_plain(
+        a, b, transpose=True)),
+}
+# L = K - 128 shared columns: 1, 2, 31, 32, 33 (quad and warp boundaries),
+# 64, 96, 127 (odd: the hand-off's buffer parity), 128
+_SPLIT_RANKS = (129, 130, 159, 160, 161, 192, 224, 255, 256)
+
+
+@pytest.mark.parametrize("r", [1, 3])
+@pytest.mark.parametrize("k", _SPLIT_RANKS)
+@pytest.mark.parametrize("name", list(_SPLIT_PLAIN))
+def test_split_kernels_match_plain(dev, name, k, r):
+    """One routed call, one launch of the split kernel; R = 3 holds _spd's
+    all-zero system."""
+    layout, plain = _SPLIT_PLAIN[name]
+    gen = torch.Generator(device=dev).manual_seed(k * 10 + r)
+    a, b = _spd(gen, 3, k, 1, dev)
+    a, b = a[:r], b[:r, :, 0]
+    x = spd_solve.gj_solve(a, b, layout=layout)
+    assert spd_solve.launches[name] == 1
+    assert sum(spd_solve.launches.values()) == 1
+    assert x.shape == (r, k)
+    assert torch.isfinite(x).all()
+    assert _rel(x, plain(a, b)) < 1e-4
+    assert _rel(x.double(), _solve64(a, b, layout)) < 1e-4
+    if r == 3:
+        assert bool((x[1] == 0).all())
+
+
+@pytest.mark.parametrize("k", [130, 192, 256])
+@pytest.mark.parametrize("name", list(_SPLIT_PLAIN))
+def test_split_kernels_take_strided_inputs(dev, name, k):
+    """A sub-block of a larger A, its transpose and b as a column of a
+    wider array: views that are not contiguous, read uncopied."""
+    layout, plain = _SPLIT_PLAIN[name]
+    gen = torch.Generator(device=dev).manual_seed(k)
+    a, b = _spd(gen, 9, k + 8, 3, dev)
+    for sub_a in (a[:, :k, :k], a[:, :k, :k].transpose(1, 2),
+                  a[:, 8:, 8:]):
+        sub_b = b[:, 8:, 1]
+        assert not sub_a.is_contiguous() and not sub_b.is_contiguous()
+        x = spd_solve.gj_solve(sub_a, sub_b, layout=layout)
+        assert _rel(x, plain(sub_a, sub_b)) < 1e-4
+        assert bool((x[1] == 0).all())
+    assert spd_solve.launches[name] == 3
+    assert sum(spd_solve.launches.values()) == 3
+
+
+@pytest.mark.parametrize("k", [160, 255])
+@pytest.mark.parametrize("name", list(_SPLIT_PLAIN))
+def test_split_kernels_system_alone_equals_in_batch(dev, name, k):
+    """A system's x is bitwise the same solved alone and inside a
+    batch."""
+    layout, _ = _SPLIT_PLAIN[name]
+    gen = torch.Generator(device=dev).manual_seed(k + 1)
+    a, b = _spd(gen, 301, k, 1, dev)
+    b = b[..., 0]
+    x = spd_solve.gj_solve(a, b, layout=layout)
+    for row in (0, 1, 150, 300):
+        alone = spd_solve.gj_solve(a[row:row + 1].clone(),
+                                   b[row:row + 1].clone(), layout=layout)
+        assert torch.equal(alone[0], x[row])
+
+
+@pytest.mark.parametrize("k", [129, 192, 256])
+@pytest.mark.parametrize("name", list(_SPLIT_PLAIN))
+def test_split_kernels_all_zero_systems_are_exactly_zero(dev, name, k):
+    layout, _ = _SPLIT_PLAIN[name]
+    a = torch.zeros(7, k, k, device=dev)
+    b = torch.zeros(7, k, device=dev)
+    x = spd_solve.gj_solve(a, b, layout=layout)
+    assert bool((x == 0).all())
+    assert spd_solve.launches[name] == 1
+
+
+@pytest.mark.parametrize("r,k", [(13_850, 192), (1_024, 255)])
+@pytest.mark.parametrize("name", list(_SPLIT_PLAIN))
+def test_split_kernels_repeat_bitwise_at_full_size(dev, name, r, k):
+    """One barrier a step, the pivot row read in place from shared
+    memory, and the buffers' parity carried across the hand-off from the
+    shared steps to the register steps (K = 255: L = 127 is odd). A buffer
+    or a row overwritten before every thread had read it would show as a
+    difference from run to run, or from the plain version."""
+    layout, plain = _SPLIT_PLAIN[name]
+    gen = torch.Generator(device=dev).manual_seed(k + 3)
+    a, b = _spd(gen, r, k, 1, dev)
+    b = b[..., 0]
+    x = spd_solve.gj_solve(a, b, layout=layout)
+    for _ in range(3):
+        assert torch.equal(spd_solve.gj_solve(a, b, layout=layout), x)
+    assert _rel(x, plain(a, b)) < 1e-4
+    assert spd_solve.launches[name] == 4
+
+
+def test_split_wrappers_refuse_what_the_kernel_does_not_take(dev):
+    for name in _SPLIT_PLAIN:
+        for k in (128, 257):
+            big = torch.eye(k, device=dev).expand(2, k, k)
+            with pytest.raises(ValueError, match="129 ≤ K ≤ 256"):
+                spd_solve._launch(name, big, torch.ones(2, k, 1, device=dev))
+        a = torch.eye(192, device=dev).expand(2, 192, 192)
+        with pytest.raises(ValueError, match="one right-hand side"):
+            spd_solve._launch(name, a, torch.ones(2, 192, 2, device=dev))
+        with pytest.raises(ValueError, match="CUDA"):
+            spd_solve._launch(name, a, torch.ones(2, 192, 1))
     assert not any(spd_solve.launches.values())
 
 

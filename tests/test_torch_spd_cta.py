@@ -158,19 +158,21 @@ def test_all_zero_system_is_exactly_zero(layout, k):
 
 _PLAIN = {"gj_aug_reg": "gj_solve_reg_plain",
           "gj_aug_cta": "gj_solve_cta_plain",
+          "gj_aug_split": "gj_solve_cta_plain",
           "gj_aug": "gj_solve_plain",
           "gj_packed_reg": "gj_solve_packed_reg_plain",
           "gj_packed_cta": "gj_solve_cta_plain",
+          "gj_packed_split": "gj_solve_cta_plain",
           "gj_packed": "gj_solve_packed_plain"}
 
 
 @pytest.mark.parametrize("k,suffix", [(1, "_reg"), (64, "_reg"),
                                       (65, "_cta"), (128, "_cta"),
-                                      (129, ""), (255, "")])
+                                      (129, "_split"), (255, "_split")])
 @pytest.mark.parametrize("layout", ["aug", "packed"])
 def test_layouts_route_by_rank(layout, k, suffix, monkeypatch):
-    """`aug_kernel` and `packed_kernel` split at K = 64 and 128; on the CPU
-    `gj_solve` runs the named kernel's plain version, once."""
+    """`aug_kernel` and `packed_kernel` split at K = 64, 128 and 256; on
+    the CPU `gj_solve` runs the named kernel's plain version, once."""
     kernel = f"gj_{layout}{suffix}"
     route = spd_solve.aug_kernel if layout == "aug" else \
         spd_solve.packed_kernel
@@ -190,8 +192,10 @@ def test_layouts_route_by_rank(layout, k, suffix, monkeypatch):
 
 
 def test_cta_plain_refuses_ranks_above_128():
-    a, b = _spd_batch(1, 2, 129)
-    with pytest.raises(ValueError, match="K ≤ 128"):
+    """The block kernels' plain version serves K ≤ 128 (rows in
+    registers) and 128 < K ≤ 256 (rows split), and refuses above."""
+    a, b = _spd_batch(1, 2, 257)
+    with pytest.raises(ValueError, match="K ≤ 256"):
         spd_solve.gj_solve_cta_plain(torch.from_numpy(a),
                                      torch.from_numpy(b))
 
