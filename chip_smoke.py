@@ -11,10 +11,13 @@ Phases (any failure exits non-zero and prints no result line):
              one nvcc per source, all started together, and prints the
              -Xptxas -v report; the register kernels' instantiations
              (gj_reg.cu: KP = 16, 32, 64 × aug/packed load; gj_cta.cu:
-             KP = 96, 128 × aug/packed; gj_multi_reg.cu: KP = 16, 32 ×
-             one or two column slots) must show a 0-byte stack frame and
-             no spills; their SASS size goes to the report;
-2. kernels — each of the nine solve kernels against its plain PyTorch
+             KP = 96, 128 × aug/packed and the split kernel × aug/packed;
+             gj_multi_reg.cu: KP = 16, 32 × one or two column slots) must
+             show a 0-byte stack frame and no spills; their SASS size
+             goes to the report, with blocks an SM (for the split kernels
+             the runtime's occupancy and dynamic shared bytes at K = 129,
+             192, 255, 256);
+2. kernels — each of the eleven solve kernels against its plain PyTorch
              version and a float64 solve on the card at the main paths'
              shapes, the eval path's rank-8 and rank-16 grid solves among
              them (max-rel < 1e-4, all-zero systems exactly 0), with its
@@ -25,15 +28,19 @@ Phases (any failure exits non-zero and prints no result line):
              the aug layout runs `gj_aug_reg` (gj_reg.cu, a warp per
              system, its rows in registers) at K ≤ 64, `gj_aug_cta`
              (gj_cta.cu, a block per system, a row per thread in
-             registers) at 64 < K ≤ 128 (held at K = 80, 96, 128) and
-             `gj_aug` (gj_solve.cu, shared or device memory) above (held at
-             K = 255, its device-memory variant, and timed at K = 64-128
-             beside the kernels that took those ranks over); the packed
-             layout (PIO_GJ_LAYOUT=packed) runs the same two register
-             bodies with A loaded transposed, `gj_packed_reg` at K ≤ 64
-             and `gj_packed_cta` at 64 < K ≤ 128, and `gj_packed`
-             (gj_layouts.cu, a block per system) above (K = 255; timed
-             at K = 128 too); `gj_aug_multi_reg` (gj_multi_reg.cu) is the Schur
+             registers) at 64 < K ≤ 128 (held at K = 80, 96, 128),
+             `gj_aug_split` (gj_cta.cu, the same with each row's first
+             K − 128 columns in shared memory) at 128 < K ≤ 256 (held at
+             [13 850, 192, 1] and [1 024, 255, 1]) and `gj_aug`
+             (gj_solve.cu, shared or device memory) above, where no route
+             goes (held at K = 255, its device-memory variant, and timed
+             at K = 64-192 beside the kernels that took those ranks over);
+             the packed layout (PIO_GJ_LAYOUT=packed) runs the same three
+             bodies with A loaded transposed, `gj_packed_reg` at K ≤ 64,
+             `gj_packed_cta` at 64 < K ≤ 128 and `gj_packed_split` at
+             128 < K ≤ 256, and `gj_packed` (gj_layouts.cu, a block per
+             system) above (K = 255; timed at K = 128 and 192 too);
+             `gj_aug_multi_reg` (gj_multi_reg.cu) is the Schur
              recursion's base at K ≤ 32 (every rank from 96 to 256), a
              warp per system and chunk of right-hand sides with its
              columns in registers, held against both plain versions at the
@@ -47,12 +54,14 @@ Phases (any failure exits non-zero and prints no result line):
 3. train   — `als_train` on synth_explicit("2m") at rank 64 (`gj_aug_reg`
              alone), rank 80 (`gj_aug_cta` alone), rank 128 (Schur
              recursion over `gj_aug_multi_reg` alone), rank 64 under
-             PIO_GJ_LAYOUT=packed (`gj_packed_reg`) and =blocked2, and
-             rank 128 under =packed (`gj_packed_cta`); each run launches
-             its kernel and no other; each RMSE trajectory within rtol
-             2e-3 of a solver="chol" run of its rank; profiles of the
-             rank-64, 80 and 128 trains must show their register kernel
-             and no `gj_kernel<` (gj_solve.cu's);
+             PIO_GJ_LAYOUT=packed (`gj_packed_reg`) and =blocked2, rank
+             128 under =packed (`gj_packed_cta`), rank 192 under =aug
+             (`gj_aug_split`) and rank 256 under =packed
+             (`gj_packed_split`); each run launches its kernel and no
+             other; each RMSE trajectory within rtol 2e-3 of a
+             solver="chol" run of its rank; profiles of the rank-64, 80
+             and 128 trains must show their register kernel and no
+             `gj_kernel<` (gj_solve.cu's);
 4. serve   — synth_explicit("100k") as a JSON-lines events file,
              `console train` on the card, `console deploy --port 0` in a
              subprocess, POST /queries.json answers equal the in-process
@@ -75,7 +84,7 @@ Phases (any failure exits non-zero and prints no result line):
 
 Launch counts are zeroed just before each path (phases 3-4: train →
 serve; phase 5: eval → batchpredict) and read just after; every kernel of
-a path must have launched there, and `gj_aug` and `gj_packed` (K > 128
+a path must have launched there, and `gj_aug` and `gj_packed` (K > 256
 only) and `gj_aug_multi` (K > 32 only) on neither.
 The eval path's counts add the console
 children's own to the grids'; the sequential trains phase 5a compares
@@ -125,11 +134,13 @@ _MULTI = "predictionio_tpu/ops/pallas_solve.py:296"
 KERNELS = {
     "gj_aug_reg": (_AUG, "gj_reg.cu"),
     "gj_aug_cta": (_AUG, "gj_cta.cu"),
+    "gj_aug_split": (_AUG, "gj_cta.cu"),
     "gj_aug": (_AUG, "gj_solve.cu"),
     "gj_aug_multi_reg": (_MULTI, "gj_multi_reg.cu"),
     "gj_aug_multi": (_MULTI, "gj_solve.cu"),
     "gj_packed_reg": (_PACKED, "gj_reg.cu"),
     "gj_packed_cta": (_PACKED, "gj_cta.cu"),
+    "gj_packed_split": (_PACKED, "gj_cta.cu"),
     "gj_packed": (_PACKED, "gj_layouts.cu"),
     "gj_blocked2": ("predictionio_tpu/ops/pallas_solve.py:177",
                     "gj_layouts.cu"),
@@ -137,31 +148,40 @@ KERNELS = {
 # the ranks each kernel takes on the paths below
 KERNEL_RANKS = {"gj_aug_reg": "aug, K ≤ 64",
                 "gj_aug_cta": "aug, 64 < K ≤ 128 (auto: rank 65-95)",
-                "gj_aug": "aug, K > 128",
+                "gj_aug_split": "forced aug, 128 < K ≤ 256",
+                "gj_aug": "aug, K > 256 (no route: ranks stop at 256)",
                 "gj_aug_multi_reg": "Schur base, K ≤ 32 (rank 96-256)",
                 "gj_aug_multi": "Schur base, K > 32 (odd splits)",
                 "gj_packed_reg": "forced packed, K ≤ 64",
                 "gj_packed_cta": "forced packed, 64 < K ≤ 128",
-                "gj_packed": "forced packed, K > 128",
+                "gj_packed_split": "forced packed, 128 < K ≤ 256",
+                "gj_packed": "forced packed, K > 256 (no route)",
                 "gj_blocked2": "forced blocked2"}
-# the kernels on no main path: gj_aug and gj_packed (K > 128),
+# the kernels on no main path: gj_aug and gj_packed (K > 256),
 # gj_aug_multi (K > 32)
 OFF_PATH = ("gj_aug", "gj_packed", "gj_aug_multi")
 PATH_KERNELS = [name for name in KERNELS if name not in OFF_PATH]
-# the register kernels' sources: (kernel symbol, instantiations)
-REG_SOURCES = {"gj_reg": ("gj_reg_kernel", 6),
-               "gj_cta": ("gj_cta_kernel", 4),
-               "gj_multi_reg": ("gj_multi_reg_kernel", 4)}
+# the register kernels' sources: (kernel symbols, instantiations)
+REG_SOURCES = {"gj_reg": (("gj_reg_kernel",), 6),
+               "gj_cta": (("gj_cta_kernel", "gj_split_kernel"), 6),
+               "gj_multi_reg": (("gj_multi_reg_kernel",), 4)}
+# the split kernels' ranks whose shared memory and occupancy phase 1
+# reports
+SPLIT_REPORT_RANKS = (129, 192, 255, 256)
 # the kernel each PIO_GJ_LAYOUT runs at rank ≤ 64
 LAYOUT_KERNEL = {"auto": "gj_aug_reg", "packed": "gj_packed_reg",
                  "blocked2": "gj_blocked2"}
-# the kernels that keep their working copy in registers
-REGISTER_KERNELS = ("gj_aug_reg", "gj_aug_cta", "gj_aug_multi_reg",
-                    "gj_packed_reg", "gj_packed_cta")
+# the kernels that keep their working copy in registers (the split ones
+# in registers and shared memory), each also held against the plain
+# version of the shared-memory kernel that ran its ranks before
+REGISTER_KERNELS = ("gj_aug_reg", "gj_aug_cta", "gj_aug_split",
+                    "gj_aug_multi_reg", "gj_packed_reg", "gj_packed_cta",
+                    "gj_packed_split")
 # each kernel that took ranks over from an older one, and that kernel
 # (gj_packed_reg's, gj_packed with ⌊128/K⌋ systems a block, is gone: its
 # times stand in PERF.md)
-REPLACED = {"gj_aug_cta": "gj_aug", "gj_packed_cta": "gj_packed"}
+REPLACED = {"gj_aug_cta": "gj_aug", "gj_packed_cta": "gj_packed",
+            "gj_aug_split": "gj_aug", "gj_packed_split": "gj_packed"}
 # runs the console in a child process and prints, as its last line, its
 # launch counts and its grid trains (als_grid.grid_log)
 _CONSOLE_CHILD = (
@@ -262,8 +282,8 @@ def blocks_per_sm(threads: int, registers: int) -> int:
     return min(32, 65_536 // (threads * -(-registers // 8) * 8))
 
 
-def phase_build(report: dict, card: str) -> None:
-    from predictionio_torch.ops import _build
+def phase_build(report: dict, card: str, device) -> None:
+    from predictionio_torch.ops import _build, spd_solve
 
     names = _build.sources()
     t0 = time.perf_counter()
@@ -277,16 +297,29 @@ def phase_build(report: dict, card: str) -> None:
     # the register kernels keep their working copy in registers: no stack
     # frame (a register array indexed at run time) and no spills
     report["build"] = {"sources": names, "wall_s": wall}
-    for source, (symbol, count) in REG_SOURCES.items():
+    for source, (symbols, count) in REG_SOURCES.items():
         reg = {fn: props for fn, props in
                _build.ptxas_kernels(_build.build_log[source][1]).items()
-               if symbol in fn}
+               if any(symbol in fn for symbol in symbols)}
         sass = sass_instructions(_build._lib_path(source))
         for fn, props in reg.items():
+            props["sass_instructions"] = sass.get(fn)
+            if "gj_split_kernel" in fn:
+                # shared memory binds here too: the runtime's reckoning,
+                # per rank
+                name = ("gj_packed_split" if "ILb1E" in fn
+                        else "gj_aug_split")
+                props["kernel"] = name
+                props["by_rank"] = {}
+                for k in SPLIT_REPORT_RANKS:
+                    shared, blocks = spd_solve.split_occupancy(name, k,
+                                                               device)
+                    props["by_rank"][k] = {"dynamic_shared_bytes": shared,
+                                           "blocks_per_sm": blocks}
+                continue
             # a block is 128 threads, but for gj_cta_kernel<KP>: KP
             kp = re.search(r"ILi(\d+)E", fn)
-            threads = int(kp.group(1)) if symbol == "gj_cta_kernel" else 128
-            props["sass_instructions"] = sass.get(fn)
+            threads = int(kp.group(1)) if "gj_cta_kernel" in fn else 128
             if "registers" in props:
                 props["blocks_per_sm"] = blocks_per_sm(threads,
                                                        props["registers"])
@@ -331,12 +364,17 @@ def _kernel_calls(name, a, b):
         return (lambda: spd_solve._launch(name, a, b),
                 lambda: spd_solve.gj_solve_multi_plain(a, b))
     b1 = b[..., 0]
+
+    def block_packed(a, b):
+        return spd_solve.gj_solve_cta_plain(a, b, transpose=True)
+
     plain = {"gj_aug_reg": spd_solve.gj_solve_reg_plain,
              "gj_aug_cta": spd_solve.gj_solve_cta_plain,
+             "gj_aug_split": spd_solve.gj_solve_cta_plain,
              "gj_aug": spd_solve.gj_solve_plain,
              "gj_packed_reg": spd_solve.gj_solve_packed_reg_plain,
-             "gj_packed_cta": lambda a, b: spd_solve.gj_solve_cta_plain(
-                 a, b, transpose=True),
+             "gj_packed_cta": block_packed,
+             "gj_packed_split": block_packed,
              "gj_packed": spd_solve.gj_solve_packed_plain,
              "gj_blocked2": spd_solve.gj_solve_blocked2_plain}[name]
     layout = ("blocked2" if name == "gj_blocked2" else
@@ -477,6 +515,17 @@ def phase_kernels(report: dict, device) -> dict:
     if any(row["shared_memory"] for row in deep):
         raise AssertionError("K = 255 should take the device-memory variant")
     rows += deep
+    # the split kernels at a rank-192 user half-epoch (the replaced
+    # kernels' shared-memory variant, timed beside them) and at K = 255
+    # (their device-memory variant, above)
+    for name, old in (("gj_aug_split", "gj_aug"),
+                      ("gj_packed_split", "gj_packed")):
+        rows += [_check_kernel(name, r, k, 1, gen, device, reps)
+                 for r, k, reps in ((13_850, 192, 10), (1_024, 255, 20))]
+        rows.append(_check_kernel(old, 13_850, 192, 1, gen, device, 2))
+        if not rows[-1]["shared_memory"]:
+            raise AssertionError(f"{old} at K = 192 should take its "
+                                 "shared-memory variant")
     # each new kernel's time over the one it replaced, at the same shape
     for row in rows:
         old = REPLACED.get(row["name"])
@@ -492,16 +541,20 @@ def phase_kernels(report: dict, device) -> dict:
     report["kernels"] = rows
     # each kernel's main-path shape: the rank-64 user half-epoch, for
     # gj_aug_cta a rank auto sends it (80), for gj_packed_cta rank 128,
-    # for gj_aug and gj_packed the K > 128 they now take, for the
+    # for the split kernels the rank-192 user half-epoch, for gj_aug and
+    # gj_packed K = 255 (their device-memory variant), for the
     # multi-RHS register kernel the largest base call of the rank-128
     # recursion (its largest bucket, widest M), and for gj_aug_multi a K
     # above 32
     main_shape = {"gj_aug_reg": [13_850, 64, 1],
-                  "gj_aug_cta": [13_850, 80, 1], "gj_aug": [1_024, 255, 1],
+                  "gj_aug_cta": [13_850, 80, 1],
+                  "gj_aug_split": [13_850, 192, 1],
+                  "gj_aug": [1_024, 255, 1],
                   "gj_aug_multi_reg": [2_744, 32, 97],
                   "gj_aug_multi": [2_744, 49, 1],
                   "gj_packed_reg": [13_850, 64, 1],
                   "gj_packed_cta": [13_850, 128, 1],
+                  "gj_packed_split": [13_850, 192, 1],
                   "gj_packed": [1_024, 255, 1],
                   "gj_blocked2": [13_850, 64, 1]}
     return {name: next(row for row in rows if row["name"] == name
@@ -534,7 +587,7 @@ def phase_train_reference(report: dict, data, device) -> dict:
     from predictionio_torch.tools.profile_train import profile_train
 
     out = {}
-    for rank in (64, 80, 128):
+    for rank in (64, 80, 128, 192, 256):
         before = dict(spd_solve.launches)
         res, wall = _train(data, rank, "chol", device)
         if spd_solve.launches != before:
@@ -561,9 +614,9 @@ def phase_train_reference(report: dict, data, device) -> dict:
 
 def phase_train(report: dict, data, device, chol: dict) -> dict:
     """solver='gj' at rank 64, 80 and 128 under the auto layout, at rank 64
-    under each forced layout and at rank 128 under the packed one; every
-    run's RMSE trajectory against the chol run's of its rank, and its
-    kernel launched alone."""
+    under each forced layout, at rank 128 and 256 under the packed one
+    and at rank 192 under the aug one; every run's RMSE trajectory against
+    the chol run's of its rank, and its kernel launched alone."""
     from predictionio_torch.ops import spd_solve
 
     runs = {}
@@ -572,6 +625,8 @@ def phase_train(report: dict, data, device, chol: dict) -> dict:
                                  (128, "auto", "gj_aug_multi_reg"),
                                  (64, "packed", "gj_packed_reg"),
                                  (128, "packed", "gj_packed_cta"),
+                                 (192, "aug", "gj_aug_split"),
+                                 (256, "packed", "gj_packed_split"),
                                  (64, "blocked2", "gj_blocked2")):
         before = dict(spd_solve.launches)
         with gj_layout(layout):
@@ -982,7 +1037,7 @@ def main(argv=None) -> int:
                     "cuda": torch.version.cuda}
     t_all = time.perf_counter()
 
-    phase_build(report, card)
+    phase_build(report, card, device)
     main_shapes = phase_kernels(report, device)
     data = synth_explicit("2m")
     chol = phase_train_reference(report, data, device)
