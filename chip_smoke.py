@@ -526,6 +526,13 @@ def phase_kernels(report: dict, device) -> dict:
         if not rows[-1]["shared_memory"]:
             raise AssertionError(f"{old} at K = 192 should take its "
                                  "shared-memory variant")
+    # gj_blocked2 above K = 128: its shared-memory variant at K = 192, its
+    # device-memory variant at K = 256 (a [K][K + 1] copy of 263 KB)
+    for r, k, shared in ((13_850, 192, True), (1_024, 256, False)):
+        rows.append(_check_kernel("gj_blocked2", r, k, 1, gen, device, 2))
+        if rows[-1]["shared_memory"] != shared:
+            raise AssertionError(f"gj_blocked2 at K = {k}: shared memory "
+                                 f"{rows[-1]['shared_memory']}, want {shared}")
     # each new kernel's time over the one it replaced, at the same shape
     for row in rows:
         old = REPLACED.get(row["name"])
