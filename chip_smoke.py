@@ -10,14 +10,14 @@ Phases (any failure exits non-zero and prints no result line):
 1. build   — nvcc builds every kernel source under predictionio_torch/csrc,
              one nvcc per source, all started together, and prints the
              -Xptxas -v report; the register kernels' instantiations
-             (gj_reg.cu: KP = 16, 32, 64 × aug/packed load; gj_cta.cu:
-             KP = 96, 128 × aug/packed and the split kernel × aug/packed;
-             gj_multi_reg.cu: KP = 16, 32 × one or two column slots) must
-             show a 0-byte stack frame and no spills; their SASS size
-             goes to the report, with blocks an SM (for the split kernels
-             the runtime's occupancy and dynamic shared bytes at K = 129,
-             192, 255, 256);
-2. kernels — each of the eleven solve kernels against its plain PyTorch
+             (gj_reg.cu: KP = 16, 32, 64 × aug/packed/blocked2 layout;
+             gj_cta.cu: KP = 96, 128 × the three layouts and the split
+             kernel × the three; gj_multi_reg.cu: KP = 16, 32 × one or two
+             column slots) must show a 0-byte stack frame and no spills;
+             their SASS size goes to the report, with blocks an SM (for
+             the split kernels the runtime's occupancy and dynamic shared
+             bytes at K = 129, 192, 255, 256, the even ones for blocked2);
+2. kernels — each of the fourteen solve kernels against its plain PyTorch
              version and a float64 solve on the card at the main paths'
              shapes, the eval path's rank-8 and rank-16 grid solves among
              them (max-rel < 1e-4, all-zero systems exactly 0), with its
@@ -49,15 +49,23 @@ Phases (any failure exits non-zero and prints no result line):
              timed under both chunk widths; `gj_aug_multi` (gj_solve.cu)
              takes the base at odd K > 32, held at rank 98's (K = 49) and
              timed at the rank-128 shapes beside the register kernel;
-             `gj_blocked2` (gj_layouts.cu) runs under
-             PIO_GJ_LAYOUT=blocked2;
+             the blocked2 layout (PIO_GJ_LAYOUT=blocked2, even K) runs the
+             aug bodies two pivots a step, `gj_blocked2_reg` at K ≤ 64
+             (held at the aug kernel's four shapes), `gj_blocked2_cta` at
+             64 < K ≤ 128 (K = 80, 96, 128) and `gj_blocked2_split` at
+             128 < K ≤ 256 ([13 850, 192, 1] and [1 024, 256, 1]), each
+             also against the plain version of `gj_blocked2`
+             (gj_layouts.cu, shared or device memory), which keeps K > 256,
+             where no route goes, and is timed beside them at every shape;
 3. train   — `als_train` on synth_explicit("2m") at rank 64 (`gj_aug_reg`
              alone), rank 80 (`gj_aug_cta` alone), rank 128 (Schur
              recursion over `gj_aug_multi_reg` alone), rank 64 under
-             PIO_GJ_LAYOUT=packed (`gj_packed_reg`) and =blocked2, rank
-             128 under =packed (`gj_packed_cta`), rank 192 under =aug
+             PIO_GJ_LAYOUT=packed (`gj_packed_reg`) and =blocked2
+             (`gj_blocked2_reg`), rank 128 under =packed (`gj_packed_cta`)
+             and =blocked2 (`gj_blocked2_cta`), rank 192 under =aug
              (`gj_aug_split`) and rank 256 under =packed
-             (`gj_packed_split`); each run launches its kernel and no
+             (`gj_packed_split`) and =blocked2 (`gj_blocked2_split`); each
+             run launches its kernel and no
              other; each RMSE trajectory within rtol 2e-3 of a
              solver="chol" run of its rank; profiles of the rank-64, 80
              and 128 trains must show their register kernel and no
@@ -75,8 +83,8 @@ Phases (any failure exits non-zero and prints no result line):
              `als_train` runs (factors rel < 1e-4); (b) `console eval` of
              RecommendationEvaluation on phase 4's events file in a
              subprocess under each layout: the grid path (3 folds × 2 rank
-             groups), the layout's kernel launched (under auto: the
-             register kernel at K = 8 and at K = 16), the same best cell and
+             groups), the layout's warp kernel launched at K = 8 and at
+             K = 16, the same best cell and
              per-cell MAP@10 within rel 2e-3 + abs 2e-5 of the auto run's;
              (c)
              `console batchpredict` of 1,024 queries on phase 4's model in
@@ -84,8 +92,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 Launch counts are zeroed just before each path (phases 3-4: train →
 serve; phase 5: eval → batchpredict) and read just after; every kernel of
-a path must have launched there, and `gj_aug` and `gj_packed` (K > 256
-only) and `gj_aug_multi` (K > 32 only) on neither.
+a path must have launched there, and `gj_aug`, `gj_packed` and
+`gj_blocked2` (K > 256 only) and `gj_aug_multi` (K > 32 only) on neither.
 The eval path's counts add the console
 children's own to the grids'; the sequential trains phase 5a compares
 with run before its counts are zeroed. `--report PATH` also writes a JSON report
@@ -131,6 +139,7 @@ EVAL_CLASS = ("predictionio_torch.templates.recommendation.evaluation."
 _AUG = "predictionio_tpu/ops/pallas_solve.py:249"
 _PACKED = "predictionio_tpu/ops/pallas_solve.py:101"
 _MULTI = "predictionio_tpu/ops/pallas_solve.py:296"
+_BLOCKED2 = "predictionio_tpu/ops/pallas_solve.py:177"
 KERNELS = {
     "gj_aug_reg": (_AUG, "gj_reg.cu"),
     "gj_aug_cta": (_AUG, "gj_cta.cu"),
@@ -142,8 +151,10 @@ KERNELS = {
     "gj_packed_cta": (_PACKED, "gj_cta.cu"),
     "gj_packed_split": (_PACKED, "gj_cta.cu"),
     "gj_packed": (_PACKED, "gj_layouts.cu"),
-    "gj_blocked2": ("predictionio_tpu/ops/pallas_solve.py:177",
-                    "gj_layouts.cu"),
+    "gj_blocked2_reg": (_BLOCKED2, "gj_reg.cu"),
+    "gj_blocked2_cta": (_BLOCKED2, "gj_cta.cu"),
+    "gj_blocked2_split": (_BLOCKED2, "gj_cta.cu"),
+    "gj_blocked2": (_BLOCKED2, "gj_layouts.cu"),
 }
 # the ranks each kernel takes on the paths below
 KERNEL_RANKS = {"gj_aug_reg": "aug, K ≤ 64",
@@ -156,32 +167,41 @@ KERNEL_RANKS = {"gj_aug_reg": "aug, K ≤ 64",
                 "gj_packed_cta": "forced packed, 64 < K ≤ 128",
                 "gj_packed_split": "forced packed, 128 < K ≤ 256",
                 "gj_packed": "forced packed, K > 256 (no route)",
-                "gj_blocked2": "forced blocked2"}
-# the kernels on no main path: gj_aug and gj_packed (K > 256),
-# gj_aug_multi (K > 32)
-OFF_PATH = ("gj_aug", "gj_packed", "gj_aug_multi")
+                "gj_blocked2_reg": "forced blocked2, even K ≤ 64",
+                "gj_blocked2_cta": "forced blocked2, even 64 < K ≤ 128",
+                "gj_blocked2_split": "forced blocked2, even 128 < K ≤ 256",
+                "gj_blocked2": "forced blocked2, K > 256 (no route)"}
+# the kernels on no main path: gj_aug, gj_packed and gj_blocked2
+# (K > 256), gj_aug_multi (K > 32)
+OFF_PATH = ("gj_aug", "gj_packed", "gj_aug_multi", "gj_blocked2")
 PATH_KERNELS = [name for name in KERNELS if name not in OFF_PATH]
 # the register kernels' sources: (kernel symbols, instantiations)
-REG_SOURCES = {"gj_reg": (("gj_reg_kernel",), 6),
-               "gj_cta": (("gj_cta_kernel", "gj_split_kernel"), 6),
+REG_SOURCES = {"gj_reg": (("gj_reg_kernel",), 9),
+               "gj_cta": (("gj_cta_kernel", "gj_split_kernel"), 9),
                "gj_multi_reg": (("gj_multi_reg_kernel",), 4)}
 # the split kernels' ranks whose shared memory and occupancy phase 1
-# reports
+# reports (the pair kernel's: the even ones)
 SPLIT_REPORT_RANKS = (129, 192, 255, 256)
+# the split kernels by their layout template argument (kLayout)
+SPLIT_KERNELS = ("gj_aug_split", "gj_packed_split", "gj_blocked2_split")
 # the kernel each PIO_GJ_LAYOUT runs at rank ≤ 64
 LAYOUT_KERNEL = {"auto": "gj_aug_reg", "packed": "gj_packed_reg",
-                 "blocked2": "gj_blocked2"}
+                 "blocked2": "gj_blocked2_reg"}
 # the kernels that keep their working copy in registers (the split ones
 # in registers and shared memory), each also held against the plain
 # version of the shared-memory kernel that ran its ranks before
 REGISTER_KERNELS = ("gj_aug_reg", "gj_aug_cta", "gj_aug_split",
                     "gj_aug_multi_reg", "gj_packed_reg", "gj_packed_cta",
-                    "gj_packed_split")
+                    "gj_packed_split", "gj_blocked2_reg", "gj_blocked2_cta",
+                    "gj_blocked2_split")
 # each kernel that took ranks over from an older one, and that kernel
 # (gj_packed_reg's, gj_packed with ⌊128/K⌋ systems a block, is gone: its
 # times stand in PERF.md)
 REPLACED = {"gj_aug_cta": "gj_aug", "gj_packed_cta": "gj_packed",
-            "gj_aug_split": "gj_aug", "gj_packed_split": "gj_packed"}
+            "gj_aug_split": "gj_aug", "gj_packed_split": "gj_packed",
+            "gj_blocked2_reg": "gj_blocked2",
+            "gj_blocked2_cta": "gj_blocked2",
+            "gj_blocked2_split": "gj_blocked2"}
 # runs the console in a child process and prints, as its last line, its
 # launch counts and its grid trains (als_grid.grid_log)
 _CONSOLE_CHILD = (
@@ -304,14 +324,16 @@ def phase_build(report: dict, card: str, device) -> None:
         sass = sass_instructions(_build._lib_path(source))
         for fn, props in reg.items():
             props["sass_instructions"] = sass.get(fn)
-            if "gj_split_kernel" in fn:
+            split = re.search(r"gj_split_kernelILi(\d)E", fn)
+            if split:
                 # shared memory binds here too: the runtime's reckoning,
                 # per rank
-                name = ("gj_packed_split" if "ILb1E" in fn
-                        else "gj_aug_split")
+                name = SPLIT_KERNELS[int(split.group(1))]
                 props["kernel"] = name
                 props["by_rank"] = {}
                 for k in SPLIT_REPORT_RANKS:
+                    if name == "gj_blocked2_split" and k % 2:
+                        continue
                     shared, blocks = spd_solve.split_occupancy(name, k,
                                                                device)
                     props["by_rank"][k] = {"dynamic_shared_bytes": shared,
@@ -376,11 +398,14 @@ def _kernel_calls(name, a, b):
              "gj_packed_cta": block_packed,
              "gj_packed_split": block_packed,
              "gj_packed": spd_solve.gj_solve_packed_plain,
+             "gj_blocked2_reg": spd_solve.gj_solve_pair_plain,
+             "gj_blocked2_cta": spd_solve.gj_solve_pair_plain,
+             "gj_blocked2_split": spd_solve.gj_solve_pair_plain,
              "gj_blocked2": spd_solve.gj_solve_blocked2_plain}[name]
-    layout = ("blocked2" if name == "gj_blocked2" else
+    layout = ("blocked2" if name.startswith("gj_blocked2") else
               "packed" if name.startswith("gj_packed") else "aug")
-    routed = (spd_solve.packed_kernel(k) if layout == "packed" else
-              spd_solve.aug_kernel(k) if layout == "aug" else name)
+    routed = {"aug": spd_solve.aug_kernel, "packed": spd_solve.packed_kernel,
+              "blocked2": spd_solve.blocked2_kernel}[layout](k)
 
     def kernel():
         if routed == name:  # through the layout, as a caller gets it
@@ -414,7 +439,9 @@ def _check_kernel(name, r, k, m, gen, device, reps):
         rel_shared = _rel(x, spd_solve.gj_solve_multi_plain(a, b))
     elif name in REGISTER_KERNELS:
         shared = (spd_solve.gj_solve_packed_plain
-                  if name.startswith("gj_packed")
+                  if name.startswith("gj_packed") else
+                  spd_solve.gj_solve_blocked2_plain
+                  if name.startswith("gj_blocked2")
                   else spd_solve.gj_solve_plain)
         rel_shared = _rel(x, shared(a, b[..., 0]))
     # a float64 solve (the packed kernels solve Aᵀx = b; the all-zero
@@ -509,6 +536,7 @@ def phase_kernels(report: dict, device) -> dict:
     rows.append(_check_kernel("gj_packed_cta", 13_850, 128, 1, gen, device,
                               20))
     rows.append(_check_kernel("gj_packed", 13_850, 128, 1, gen, device, 5))
+    # the kernel the pair kernels replaced, at their shapes (more below)
     rows += [_check_kernel("gj_blocked2", r, k, 1, gen, device, reps)
              for r, k, reps in shapes + ((13_850, 128, 5),)]
     deep.append(_check_kernel("gj_packed", 1_024, 255, 1, gen, device, 3))
@@ -533,6 +561,18 @@ def phase_kernels(report: dict, device) -> dict:
         if rows[-1]["shared_memory"] != shared:
             raise AssertionError(f"gj_blocked2 at K = {k}: shared memory "
                                  f"{rows[-1]['shared_memory']}, want {shared}")
+    rows += [_check_kernel("gj_blocked2", 13_850, k, 1, gen, device, 10)
+             for k in (80, 96)]
+    # the blocked2 layout's pair kernels, after every other row so that
+    # the other rows' inputs do not move: the warp kernel at the rank-64
+    # and eval shapes, the block kernel at 64 < K ≤ 128, the split one at
+    # a rank-192 user half-epoch and at K = 256
+    rows += [_check_kernel("gj_blocked2_reg", r, k, 1, gen, device, reps)
+             for r, k, reps in shapes]
+    rows += [_check_kernel("gj_blocked2_cta", 13_850, k, 1, gen, device, 20)
+             for k in (80, 96, 128)]
+    rows += [_check_kernel("gj_blocked2_split", r, k, 1, gen, device, reps)
+             for r, k, reps in ((13_850, 192, 10), (1_024, 256, 20))]
     # each new kernel's time over the one it replaced, at the same shape
     for row in rows:
         old = REPLACED.get(row["name"])
@@ -563,7 +603,10 @@ def phase_kernels(report: dict, device) -> dict:
                   "gj_packed_cta": [13_850, 128, 1],
                   "gj_packed_split": [13_850, 192, 1],
                   "gj_packed": [1_024, 255, 1],
-                  "gj_blocked2": [13_850, 64, 1]}
+                  "gj_blocked2_reg": [13_850, 64, 1],
+                  "gj_blocked2_cta": [13_850, 128, 1],
+                  "gj_blocked2_split": [13_850, 192, 1],
+                  "gj_blocked2": [1_024, 256, 1]}
     return {name: next(row for row in rows if row["name"] == name
                        and row["shape"] == shape)
             for name, shape in main_shape.items()}
@@ -621,9 +664,10 @@ def phase_train_reference(report: dict, data, device) -> dict:
 
 def phase_train(report: dict, data, device, chol: dict) -> dict:
     """solver='gj' at rank 64, 80 and 128 under the auto layout, at rank 64
-    under each forced layout, at rank 128 and 256 under the packed one
-    and at rank 192 under the aug one; every run's RMSE trajectory against
-    the chol run's of its rank, and its kernel launched alone."""
+    under each forced layout, at rank 128 and 256 under the packed and the
+    blocked2 one and at rank 192 under the aug one; every run's RMSE
+    trajectory against the chol run's of its rank, and its kernel launched
+    alone."""
     from predictionio_torch.ops import spd_solve
 
     runs = {}
@@ -634,7 +678,9 @@ def phase_train(report: dict, data, device, chol: dict) -> dict:
                                  (128, "packed", "gj_packed_cta"),
                                  (192, "aug", "gj_aug_split"),
                                  (256, "packed", "gj_packed_split"),
-                                 (64, "blocked2", "gj_blocked2")):
+                                 (64, "blocked2", "gj_blocked2_reg"),
+                                 (128, "blocked2", "gj_blocked2_cta"),
+                                 (256, "blocked2", "gj_blocked2_split")):
         before = dict(spd_solve.launches)
         with gj_layout(layout):
             res, wall = _train(data, rank, "gj", device)

@@ -3,20 +3,24 @@
 // Hopper (sm_90a): at 64 < K <= 128 the rows lie in registers, at
 // 128 < K <= 256 each row is split between shared memory and registers.
 //
-// Replaces two TPU kernels of predictionio_tpu/ops/pallas_solve.py at
+// Replaces three TPU kernels of predictionio_tpu/ops/pallas_solve.py at
 // 64 < K <= 256 (any rank from 65 to 95 under `auto`, every rank up to 256
 // under a forced layout):
 //   - _build_solver_aug :249 (entry points gj_aug_cta at K <= 128,
 //     gj_aug_split above);
 //   - _build_solver_packed :101 (entry points gj_packed_cta,
-//     gj_packed_split).
-// At K <= 64 gj_reg.cu runs both; gj_solve.cu's gj_aug and gj_layouts.cu's
-// gj_packed keep only K > 256, which no route reaches; ops/spd_solve.py
-// routes. As in gj_reg.cu the packed layout (column Gauss-Jordan on
-// [[A], [b^T]]) is the row elimination below applied to [A^T | b], so one
-// body serves both and only the load differs (kPacked); for an A that is
-// not bitwise symmetric the packed entry points solve A^T x = b, as the
-// TPU kernel does.
+//     gj_packed_split);
+//   - _build_solver_blocked2 :177, pallas_call at :237 (entry points
+//     gj_blocked2_cta, gj_blocked2_split; even K).
+// At K <= 64 gj_reg.cu runs all three; gj_solve.cu's gj_aug and
+// gj_layouts.cu's gj_packed and gj_blocked2 keep only K > 256, which no
+// route reaches; ops/spd_solve.py routes. As in gj_reg.cu the packed
+// layout (column Gauss-Jordan on [[A], [b^T]]) is the row elimination
+// below applied to [A^T | b], so one body serves both and only the load
+// differs (kLayout); for an A that is not bitwise symmetric the packed
+// entry points solve A^T x = b, as the TPU kernel does. The blocked2
+// layout loads as aug does and takes two pivots a step (at the end of
+// this note).
 //
 // What held the kernels this replaces back: gj_solve.cu and gj_layouts.cu
 // keep the [K][K+1] copy in shared memory and make about four
@@ -160,8 +164,34 @@
 // bytes dynamic (opted into above 48 KB at each launch) and 34 KB static
 // (the aug load's tiles and the pivot-row buffers).
 //
-// Built without --use_fast_math: the reciprocal is __frcp_rn (IEEE, round
-// to nearest), which keeps the 1e-4 bars and the exact zeros.
+// blocked2 (kPair; gj_blocked2_cta, gj_blocked2_split): the kernel it
+// replaces, gj_layouts.cu's gj_blocked2, kept the [K][K+1] copy in shared
+// memory (in device scratch at K = 256, 263 KB), two barriers and about
+// four shared accesses an element a pivot pair: 18.1 ms at
+// [13 850, 128, 1], twice the library's Cholesky solve (PERF.md). The
+// card's bound is the one above. The pair bodies are the single-step
+// ones with each group of four steps run as two pair steps p, p + 1
+// (p even, k even):
+//   - owners p and p + 1 write their rows right of the pair, their b and
+//     their two pivot-block entries to buffers prow[2t] and prow[2t + 1],
+//     t = (p/2) mod 2; the split steps read the shared part of both rows
+//     in place, and the owners skip their shared rows, as above;
+//   - one __syncthreads a pair step: the argument above holds with pair
+//     steps in place of steps. Across the hand-off the shared pair steps
+//     take t = ((p + L)/2) mod 2, so step L - 2 takes t = 1 and the first
+//     register pair step t = 0 (L = K - 128 is even);
+//   - every thread guards det = p00 p11 - p01 p10 (|det| < 1e-30 -> 1),
+//     takes rdet = 1/det alike, and forms [m0 m1] = [c0 c1] P^-1 from its
+//     own columns p, p + 1; columns right of p + 1 and b take
+//     w -= m0 row_p + m1 row_p+1, two FMAs. The owners keep their rows and
+//     their row of P^-1, and x_p = (row of P^-1) . (b_p, b_p+1), the
+//     partner's b one __shfl_xor_sync(.., 1) away.
+// A pair step delivers two pivot rows for twice the FMAs, so the
+// shared-memory floor above stays; the pair halves the barriers and the
+// dependent pivot chains.
+//
+// Built without --use_fast_math: the reciprocals are __frcp_rn (IEEE,
+// round to nearest), which keeps the 1e-4 bars and the exact zeros.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -176,6 +206,10 @@ constexpr int kPhases = 4;  // phases of K/4 steps, each of its own width
 constexpr int kTile = 33;          // the aug load's tile row stride
 constexpr int kSplitCols = 128;     // columns of a split row in registers
 constexpr int kSplitThreads = 256;  // the most threads a split block has
+// the layouts the kernels serve (kLayout)
+constexpr int kAug = 0;     // row Gauss-Jordan on [A | b]
+constexpr int kPacked = 1;  // the same on [A^T | b]
+constexpr int kPair = 2;    // blocked2: [A | b], two pivots a step
 
 // Floats between two rows of the split kernels' shared part for L shared
 // columns: the least S >= L with S = 4 (mod 32).
@@ -231,26 +265,109 @@ __device__ __forceinline__ void steps(float (&r)[KP], float& rb,
   }
 }
 
+// The pivot-block inverse of a pair step from the owners' quads
+// t0 = (b_p0, p00, p01, .) and t1 = (b_p1, p10, p11, .): rdet = 1/det
+// (|det| < 1e-30 -> 1, so an all-zero system solves to exactly 0); every
+// thread computes it alike from the same values.
+__device__ __forceinline__ float pair_rdet(float4 t0, float4 t1) {
+  float det = t0.y * t1.z - t0.z * t1.y;
+  if (fabsf(det) < kPivotEps) det = 1.0f;
+  return __frcp_rn(det);
+}
+
+// Thread i's multipliers [m0 m1] = [c0 c1] P^-1 from its columns p0, p1;
+// the owners of rows p0 (i == p) and p1 keep their row of P^-1 in inv and
+// take m0 = m1 = 0, which leaves their rows as they are.
+__device__ __forceinline__ void pair_multipliers(float c0, float c1,
+                                                 float4 t0, float4 t1,
+                                                 float rdet, int i, int p,
+                                                 float& m0, float& m1,
+                                                 float2& inv) {
+  m0 = (c0 * t1.z - c1 * t1.y) * rdet;
+  m1 = (c1 * t0.y - c0 * t0.z) * rdet;
+  if (i == p) {
+    inv = make_float2(t1.z * rdet, -t0.z * rdet);
+    m0 = m1 = 0.0f;
+  } else if (i == p + 1) {
+    inv = make_float2(-t1.y * rdet, t0.y * rdet);
+    m0 = m1 = 0.0f;
+  }
+}
+
+// x_i = (row i of its pivot block's inverse) . (b_p0, b_p1): rows p0 (even)
+// and p1 = p0 + 1 lie in threads i and i ^ 1 of one warp, and every
+// thread of the warp takes part in the shuffle.
+__device__ __forceinline__ float pair_x(float rb, float2 inv, int i) {
+  const float other = __shfl_xor_sync(0xffffffffu, rb, 1);
+  const bool first = (i & 1) == 0;
+  return fmaf(inv.y, first ? other : rb, inv.x * (first ? rb : other));
+}
+
+// The blocked2 layout's steps p0 .. p0 + kGroup - 1 as two pair steps
+// (p, p + 1 for p = p0, p0 + 2; k is even), on thread i's row r as in
+// `steps` above. Pair step p/2 takes buffers prow[2t] (row p) and
+// prow[2t + 1] (row p + 1), t = (p/2) mod 2 = u/2, each with its owner's
+// b and pivot-block entries in quad QB; inv receives thread i's row of
+// its pivot block's inverse.
+template <int KP, int W>
+__device__ __forceinline__ void steps(float (&r)[KP], float& rb, float2& inv,
+                                      float4 (*prow)[KP / 4 + 1], int i,
+                                      int k, int p0) {
+  constexpr int QB = KP / 4;
+#pragma unroll
+  for (int u = 0; u < kGroup; u += 2) {
+    const int p = p0 + u;
+    if (p >= k) return;  // uniform: k is the same for every thread
+    float4* buf0 = prow[u];  // p0 is a multiple of kGroup
+    float4* buf1 = prow[u + 1];
+    const float c0 = r[u], c1 = r[u + 1];
+    if (i == p || i == p + 1) {
+      float4* buf = i == p ? buf0 : buf1;
+#pragma unroll
+      for (int q = (u + 2) / 4; q < W / 4; ++q)
+        buf[q] = make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2],
+                             r[4 * q + 3]);
+      buf[QB] = make_float4(rb, c0, c1, 0.0f);
+    }
+    __syncthreads();
+    if (i >= k) continue;  // a padding row: zero, and never read
+    const float4 t0 = buf0[QB], t1 = buf1[QB];
+    float m0, m1;
+    pair_multipliers(c0, c1, t0, t1, pair_rdet(t0, t1), i, p, m0, m1, inv);
+#pragma unroll
+    for (int q = (u + 2) / 4; q < W / 4; ++q) {
+      const float4 v = buf0[q], w = buf1[q];
+      const int j = 4 * q;
+      if (j > u + 1) r[j] = fmaf(-m1, w.x, fmaf(-m0, v.x, r[j]));
+      if (j + 1 > u + 1) r[j + 1] = fmaf(-m1, w.y, fmaf(-m0, v.y, r[j + 1]));
+      if (j + 2 > u + 1) r[j + 2] = fmaf(-m1, w.z, fmaf(-m0, v.z, r[j + 2]));
+      if (j + 3 > u + 1) r[j + 3] = fmaf(-m1, w.w, fmaf(-m0, v.w, r[j + 3]));
+    }
+    rb = fmaf(-m1, t1.x, fmaf(-m0, t0.x, rb));
+  }
+}
+
 // Phase PH: the groups from g up to the phase's last (or to step k), at
 // width W, each followed by the rotation that brings the next group's
-// pivot columns to r[0..kGroup-1]; then the next phase.
-template <int KP, int PH>
-__device__ __forceinline__ void phase(float (&r)[KP], float& rb,
-                                      float& inv_own,
+// pivot columns to r[0..kGroup-1]; then the next phase. Inv is float
+// (1/d of the pivot thread i took) for single steps, float2 (its row of
+// its pivot block's inverse) for pair steps.
+template <int KP, int PH, typename Inv>
+__device__ __forceinline__ void phase(float (&r)[KP], float& rb, Inv& inv,
                                       float4 (*prow)[KP / 4 + 1], int i,
                                       int k, int g) {
   constexpr int W = KP - PH * (KP / kPhases);
   constexpr int g_end = (PH + 1) * (KP / kGroup / kPhases);
 #pragma unroll 1
   for (; g < g_end && g * kGroup < k; ++g) {
-    steps<KP, W>(r, rb, inv_own, prow, i, k, g * kGroup);
+    steps<KP, W>(r, rb, inv, prow, i, k, g * kGroup);
 #pragma unroll
     for (int j = 0; j < W - kGroup; ++j) r[j] = r[j + kGroup];
 #pragma unroll
     for (int j = W - kGroup; j < W; ++j) r[j] = 0.0f;
   }
   if constexpr (PH + 1 < kPhases)
-    phase<KP, PH + 1>(r, rb, inv_own, prow, i, k, g);
+    phase<KP, PH + 1>(r, rb, inv, prow, i, k, g);
 }
 
 // The aug load: the first KP columns of row i of A into r, zero past kc
@@ -289,20 +406,21 @@ __device__ __forceinline__ void load_row_aug(float (&r)[KP], float* tile,
   }
 }
 
-template <int KP, bool kPacked>
+template <int KP, int kLayout>
 __global__ void __launch_bounds__(KP)
 gj_cta_kernel(const float* __restrict__ a, int64_t sa0, int64_t sa1,
               int64_t sa2, const float* __restrict__ b, int64_t sb0,
               int64_t sb1, float* __restrict__ x, int k) {
-  __shared__ float4 prow[2][KP / 4 + 1];  // the pivot row, double-buffered
-  __shared__ float tile[kPacked ? 1 : KP / 32][32 * kTile];
+  // the pivot row (pair steps: both pivot rows), double-buffered
+  __shared__ float4 prow[kLayout == kPair ? 4 : 2][KP / 4 + 1];
+  __shared__ float tile[kLayout == kPacked ? 1 : KP / 32][32 * kTile];
 
   const int i = threadIdx.x;
   const int64_t sys = blockIdx.x;
   const float* as = a + sys * sa0;
   float r[KP];  // row i of A, zero past K
 
-  if constexpr (kPacked) {  // row i of A^T: column i of A
+  if constexpr (kLayout == kPacked) {  // row i of A^T: column i of A
     const bool live = i < k;
     const float* col = as + (live ? i : 0) * sa2;
 #pragma unroll
@@ -312,11 +430,18 @@ gj_cta_kernel(const float* __restrict__ a, int64_t sa0, int64_t sa1,
     load_row_aug<KP>(r, tile[i / 32], as, sa1, sa2, i, k, k);
   }
   float rb = i < k ? b[sys * sb0 + i * sb1] : 0.0f;
-  float inv_own = 1.0f;
+  if constexpr (kLayout == kPair) {
+    float2 inv = make_float2(0.0f, 0.0f);
+    phase<KP, 0>(r, rb, inv, prow, i, k, 0);
+    const float xi = pair_x(rb, inv, i);
+    if (i < k) x[sys * k + i] = xi;
+  } else {
+    float inv_own = 1.0f;
 
-  phase<KP, 0>(r, rb, inv_own, prow, i, k, 0);
+    phase<KP, 0>(r, rb, inv_own, prow, i, k, 0);
 
-  if (i < k) x[sys * k + i] = rb * inv_own;
+    if (i < k) x[sys * k + i] = rb * inv_own;
+  }
 }
 
 // Steps 0 .. l-1 of a split row: columns 0 .. l-1 in shared memory (own
@@ -374,17 +499,78 @@ __device__ __forceinline__ void split_steps(
   }
 }
 
+// The blocked2 layout's steps 0 .. l-1 of a split row (l even), as pair
+// steps p, p + 1: rows p and p + 1 are read in place from shared memory,
+// their owners put only their register parts, b and pivot-block entries
+// through the buffers, and skip their shared rows.
+__device__ __forceinline__ void split_steps(
+    float (&r)[kSplitCols], float& rb, float2& inv,
+    float4 (*prow)[kSplitCols / 4 + 1], float* rows, int s, int i, int k,
+    int l) {
+  constexpr int QB = kSplitCols / 4;
+  const int q_end = (l + 3) / 4;
+  float4* own = reinterpret_cast<float4*>(rows + (i < k ? i : 0) * s);
+#pragma unroll 1
+  for (int p = 0; p < l; p += 2) {
+    // buffers 2t, 2t + 1 with t = ((p + l) / 2) mod 2: the last shared
+    // pair step (p = l - 2) takes t = 1, so the first register pair step
+    // (t = 0) never shares buffers with the step before
+    const int t = ((p + l) / 2) & 1;
+    float4* buf0 = prow[2 * t];
+    float4* buf1 = prow[2 * t + 1];
+    const float c0 = i < k ? rows[i * s + p] : 0.0f;
+    const float c1 = i < k ? rows[i * s + p + 1] : 0.0f;
+    if (i == p || i == p + 1) {
+      float4* buf = i == p ? buf0 : buf1;
+#pragma unroll
+      for (int q = 0; q < QB; ++q)
+        buf[q] = make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2],
+                             r[4 * q + 3]);
+      buf[QB] = make_float4(rb, c0, c1, 0.0f);
+    }
+    __syncthreads();
+    if (i >= k) continue;
+    const float4 t0 = buf0[QB], t1 = buf1[QB];
+    float m0, m1;
+    pair_multipliers(c0, c1, t0, t1, pair_rdet(t0, t1), i, p, m0, m1, inv);
+    if (i != p && i != p + 1) {
+      const float4* piv0 = reinterpret_cast<const float4*>(rows + p * s);
+      const float4* piv1 = piv0 + s / 4;
+      for (int q = (p + 2) / 4; q < q_end; ++q) {
+        const float4 v = piv0[q], w = piv1[q];
+        float4 o = own[q];
+        o.x = fmaf(-m1, w.x, fmaf(-m0, v.x, o.x));
+        o.y = fmaf(-m1, w.y, fmaf(-m0, v.y, o.y));
+        o.z = fmaf(-m1, w.z, fmaf(-m0, v.z, o.z));
+        o.w = fmaf(-m1, w.w, fmaf(-m0, v.w, o.w));
+        own[q] = o;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < QB; ++q) {
+      const float4 v = buf0[q], w = buf1[q];
+      r[4 * q] = fmaf(-m1, w.x, fmaf(-m0, v.x, r[4 * q]));
+      r[4 * q + 1] = fmaf(-m1, w.y, fmaf(-m0, v.y, r[4 * q + 1]));
+      r[4 * q + 2] = fmaf(-m1, w.z, fmaf(-m0, v.z, r[4 * q + 2]));
+      r[4 * q + 3] = fmaf(-m1, w.w, fmaf(-m0, v.w, r[4 * q + 3]));
+    }
+    rb = fmaf(-m1, t1.x, fmaf(-m0, t0.x, rb));
+  }
+}
+
 // One system a block, 128 < k <= 256, round_up(k, 32) threads; dynamic
 // shared memory split_shared_bytes(k).
-template <bool kPacked>
+template <int kLayout>
 __global__ void __launch_bounds__(kSplitThreads, 1)
 gj_split_kernel(const float* __restrict__ a, int64_t sa0, int64_t sa1,
                 int64_t sa2, const float* __restrict__ b, int64_t sb0,
                 int64_t sb1, float* __restrict__ x, int k) {
   constexpr int KP = kSplitCols;
   extern __shared__ float4 shared_rows[];  // the shared part, row i at i * s
-  __shared__ float4 prow[2][KP / 4 + 1];   // the pivot row, double-buffered
-  __shared__ float tile[kPacked ? 1 : kSplitThreads / 32][32 * kTile];
+  // the pivot row (pair steps: both pivot rows), double-buffered
+  __shared__ float4 prow[kLayout == kPair ? 4 : 2][KP / 4 + 1];
+  __shared__ float tile[kLayout == kPacked ? 1 : kSplitThreads / 32]
+                       [32 * kTile];
 
   const int i = threadIdx.x;
   const int lane = i % 32;
@@ -398,7 +584,7 @@ gj_split_kernel(const float* __restrict__ a, int64_t sa0, int64_t sa1,
 
   // The shared part first, while r is free to stage it: 32 loads in
   // flight a thread, zero past column l.
-  if constexpr (kPacked) {  // row i of A^T: column i of A
+  if constexpr (kLayout == kPacked) {  // row i of A^T: column i of A
     const bool live = i < k;
     const float* col = as + (live ? i : 0) * sa2;
     if (live) {
@@ -444,38 +630,49 @@ gj_split_kernel(const float* __restrict__ a, int64_t sa0, int64_t sa1,
     load_row_aug<KP>(r, tile[i / 32], as + l * sa2, sa1, sa2, i, k, KP);
   }
   float rb = i < k ? b[sys * sb0 + i * sb1] : 0.0f;
-  float inv_own = 1.0f;
-  __syncthreads();  // every shared row is loaded
+  if constexpr (kLayout == kPair) {
+    float2 inv = make_float2(0.0f, 0.0f);
+    __syncthreads();  // every shared row is loaded
 
-  split_steps(r, rb, inv_own, prow, rows, s, i, k, l);
-  phase<KP, 0>(r, rb, inv_own, prow, i - l, KP, 0);
+    split_steps(r, rb, inv, prow, rows, s, i, k, l);
+    phase<KP, 0>(r, rb, inv, prow, i - l, KP, 0);
 
-  if (i < k) x[sys * k + i] = rb * inv_own;
+    const float xi = pair_x(rb, inv, i);
+    if (i < k) x[sys * k + i] = xi;
+  } else {
+    float inv_own = 1.0f;
+    __syncthreads();  // every shared row is loaded
+
+    split_steps(r, rb, inv_own, prow, rows, s, i, k, l);
+    phase<KP, 0>(r, rb, inv_own, prow, i - l, KP, 0);
+
+    if (i < k) x[sys * k + i] = rb * inv_own;
+  }
 }
 
-template <int KP, bool kPacked>
+template <int KP, int kLayout>
 int launch(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
            const float* b, int64_t sb0, int64_t sb1, float* x, int64_t r,
            int k, cudaStream_t stream) {
-  gj_cta_kernel<KP, kPacked><<<(unsigned)r, KP, 0, stream>>>(
+  gj_cta_kernel<KP, kLayout><<<(unsigned)r, KP, 0, stream>>>(
       a, sa0, sa1, sa2, b, sb0, sb1, x, k);
   return (int)cudaGetLastError();
 }
 
-template <bool kPacked>
+template <int kLayout>
 int dispatch(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
              const float* b, int64_t sb0, int64_t sb1, float* x, int64_t r,
              int k, void* stream) {
   if (r <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k >= 1 && k <= 96)
-    return launch<96, kPacked>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, s);
+    return launch<96, kLayout>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, s);
   if (k > 96 && k <= 128)
-    return launch<128, kPacked>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, s);
+    return launch<128, kLayout>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, s);
   return (int)cudaErrorInvalidValue;
 }
 
-template <bool kPacked>
+template <int kLayout>
 int launch_split(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
                  const float* b, int64_t sb0, int64_t sb1, float* x,
                  int64_t r, int k, void* stream) {
@@ -484,10 +681,10 @@ int launch_split(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
     return (int)cudaErrorInvalidValue;
   const size_t bytes = split_shared_bytes(k);
   cudaError_t err = cudaFuncSetAttribute(
-      gj_split_kernel<kPacked>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gj_split_kernel<kLayout>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  gj_split_kernel<kPacked><<<(unsigned)r, (k + 31) / 32 * 32, bytes,
+  gj_split_kernel<kLayout><<<(unsigned)r, (k + 31) / 32 * 32, bytes,
                              static_cast<cudaStream_t>(stream)>>>(
       a, sa0, sa1, sa2, b, sb0, sb1, x, k);
   return (int)cudaGetLastError();
@@ -504,7 +701,7 @@ extern "C" {
 int gj_aug_cta(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
                const float* b, int64_t sb0, int64_t sb1, float* x,
                int64_t r, int k, void* stream) {
-  return dispatch<false>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, stream);
+  return dispatch<kAug>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, stream);
 }
 
 // x [r, k] = A^-T b (the packed layout's elimination; A^-1 b for a
@@ -512,7 +709,7 @@ int gj_aug_cta(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
 int gj_packed_cta(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
                   const float* b, int64_t sb0, int64_t sb1, float* x,
                   int64_t r, int k, void* stream) {
-  return dispatch<true>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, stream);
+  return dispatch<kPacked>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, stream);
 }
 
 // x [r, k] = A^-1 b, arguments as for gj_aug_cta, 128 < k <= 256: the row
@@ -520,7 +717,7 @@ int gj_packed_cta(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
 int gj_aug_split(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
                  const float* b, int64_t sb0, int64_t sb1, float* x,
                  int64_t r, int k, void* stream) {
-  return launch_split<false>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k,
+  return launch_split<kAug>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k,
                              stream);
 }
 
@@ -528,18 +725,40 @@ int gj_aug_split(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
 int gj_packed_split(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
                     const float* b, int64_t sb0, int64_t sb1, float* x,
                     int64_t r, int k, void* stream) {
-  return launch_split<true>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, stream);
+  return launch_split<kPacked>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, stream);
+}
+
+// x [r, k] = A^-1 b by row elimination two pivots a step (the blocked2
+// layout; any A whose pivot blocks are invertible), arguments as for
+// gj_aug_cta, k even.
+int gj_blocked2_cta(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
+                    const float* b, int64_t sb0, int64_t sb1, float* x,
+                    int64_t r, int k, void* stream) {
+  if (k % 2) return (int)cudaErrorInvalidValue;
+  return dispatch<kPair>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, stream);
+}
+
+// The blocked2 layout as gj_blocked2_cta, 128 < k <= 256: the row split
+// between shared memory and registers.
+int gj_blocked2_split(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
+                      const float* b, int64_t sb0, int64_t sb1, float* x,
+                      int64_t r, int k, void* stream) {
+  if (k % 2) return (int)cudaErrorInvalidValue;
+  return launch_split<kPair>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, stream);
 }
 
 // The split kernels' dynamic shared bytes a block at rank k, and in
-// *blocks the blocks an SM holds at once on the current device (packed:
-// gj_packed_split's, else gj_aug_split's). Returns a CUDA error code.
-int gj_split_occupancy(int packed, int k, int* shared_bytes, int* blocks) {
-  if (k <= kSplitCols || k > kSplitCols + 128)
+// *blocks the blocks an SM holds at once on the current device, for
+// layout 0 (gj_aug_split), 1 (gj_packed_split) or 2 (gj_blocked2_split).
+// Returns a CUDA error code.
+int gj_split_occupancy(int layout, int k, int* shared_bytes, int* blocks) {
+  if (k <= kSplitCols || k > kSplitCols + 128 || layout < kAug ||
+      layout > kPair)
     return (int)cudaErrorInvalidValue;
   const size_t bytes = split_shared_bytes(k);
-  const void* fn = packed ? (const void*)gj_split_kernel<true>
-                          : (const void*)gj_split_kernel<false>;
+  const void* fn = layout == kPacked ? (const void*)gj_split_kernel<kPacked>
+                   : layout == kPair ? (const void*)gj_split_kernel<kPair>
+                                     : (const void*)gj_split_kernel<kAug>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess)

@@ -6,7 +6,10 @@
 //   - _build_solver_blocked2 (entry point gj_blocked2)
 // Both compute what gj_aug (gj_solve.cu) computes, by a different
 // elimination; the layout switch (gj_solve(layout=...), PIO_GJ_LAYOUT)
-// picks one of them for an A/B on this card.
+// picks one of them for an A/B on this card. ops/spd_solve.py routes
+// both here above K = 256 only, where no route reaches (ranks stop at
+// 256): gj_reg.cu and gj_cta.cu run both layouts below, on the working
+// copy in registers (and shared memory above K = 128).
 //
 // gj_packed: column Gauss-Jordan on M = [[A], [b^T]], a [K+1][K] working
 // copy read from A's rows as they lie (so for an A that is not bitwise
@@ -15,16 +18,17 @@
 // divided by d and the pivot row, then sets column j to the saved column
 // and subtracts pcol[i] * prow[c] from every other column. After K steps
 // A has become I and the b row holds x^T. One thread block owns one
-// system. ops/spd_solve.py routes the packed layout here above K = 128
-// only (gj_reg.cu and gj_cta.cu run it below), where the TPU kernel's
-// floor(128/K) systems a 128-lane block is one.
+// system.
 //
 // gj_blocked2: row Gauss-Jordan on [A | b] ([K][K+1], the gj_aug working
 // copy), two pivots per step: the 2x2 pivot block P of rows and columns
 // j0 = 2s, j1 = 2s + 1 is inverted explicitly (det guard |det| < 1e-30
 // -> 1), the two pivot rows become P^-1 [row0; row1], and every other
 // row subtracts col0[i] * n0 + col1[i] * n1. K/2 steps of two barriers
-// each, against gj_aug's K steps. K must be even.
+// each, against gj_aug's K steps. K must be even. It took 2.82 ms at
+// [13 850, 64, 1] and 18.1 ms at [13 850, 128, 1] (PERF.md), twice the
+// library's Cholesky solve there: gj_reg.cu's and gj_cta.cu's gj_blocked2_*
+// bodies replaced it at K <= 256.
 //
 // What bounds them on this card: the same bytes as gj_aug, (K^2 + 2K)*4
 // per system (A and b read once, x written once), against the K^3/3 +

@@ -29,20 +29,25 @@ Layouts:
   64 < K ≤ 128, ``gj_packed_split`` at 128 < K ≤ 256, and above that
   ``gj_packed`` (one system a thread block, working copy in shared or
   device memory).
-- ``blocked2``: row Gauss-Jordan two pivots per step through an explicit
-  2×2 pivot-block inverse; even K only; forced only.
+- ``blocked2``: row Gauss-Jordan on [A | b] two pivots per step through
+  the 2×2 pivot-block inverse; even K only; forced only. `blocked2_kernel`
+  routes it to the ``aug`` kernels' bodies, each taking a pivot pair a
+  step: ``gj_blocked2_reg`` at K ≤ 64, ``gj_blocked2_cta`` at
+  64 < K ≤ 128, ``gj_blocked2_split`` at 128 < K ≤ 256, and above that
+  ``gj_blocked2`` (working copy in shared or device memory; no route).
 
 Dispatch: a tensor on the CPU runs the kernel's plain PyTorch version
 (`gj_solve_reg_plain`, `gj_solve_packed_reg_plain`, `gj_solve_cta_plain`,
-`gj_solve_plain`, `gj_solve_multi_reg_plain`, `gj_solve_multi_plain`,
-`gj_solve_packed_plain`, `gj_solve_blocked2_plain`); a CUDA tensor
-launches the hand-written kernel from ``csrc/gj_reg.cu`` (aug and packed
-at K ≤ 64), ``csrc/gj_cta.cu`` (aug and packed at 64 < K ≤ 256),
-``csrc/gj_multi_reg.cu`` (aug_multi at K ≤ 32), ``csrc/gj_solve.cu`` (aug
-above K = 256, aug_multi above K = 32) or ``csrc/gj_layouts.cu`` (packed
-above K = 256, blocked2), or raises. One plain version,
-`gj_solve_cta_plain`, serves all four block kernels. `launches` counts
-kernel launches per wrapper.
+`gj_solve_pair_plain`, `gj_solve_plain`, `gj_solve_multi_reg_plain`,
+`gj_solve_multi_plain`, `gj_solve_packed_plain`,
+`gj_solve_blocked2_plain`); a CUDA tensor launches the hand-written
+kernel from ``csrc/gj_reg.cu`` (aug, packed and blocked2 at K ≤ 64),
+``csrc/gj_cta.cu`` (the three at 64 < K ≤ 256), ``csrc/gj_multi_reg.cu``
+(aug_multi at K ≤ 32), ``csrc/gj_solve.cu`` (aug above K = 256,
+aug_multi above K = 32) or ``csrc/gj_layouts.cu`` (packed and blocked2
+above K = 256), or raises. One plain version, `gj_solve_cta_plain`,
+serves the four aug and packed block kernels, and `gj_solve_pair_plain`
+the three pair kernels. `launches` counts kernel launches per wrapper.
 
 No pivoting: A = YᵀWY + λ(n)I is SPD. All-zero systems (bucket padding)
 solve to exactly 0 through the pivot guard |d| < 1e-30 → 1.
@@ -73,7 +78,8 @@ _SCRATCH_SLOTS = 1024
 launches = {"gj_aug_reg": 0, "gj_aug_cta": 0, "gj_aug_split": 0,
             "gj_aug": 0, "gj_aug_multi_reg": 0, "gj_aug_multi": 0,
             "gj_packed_reg": 0, "gj_packed_cta": 0, "gj_packed_split": 0,
-            "gj_packed": 0, "gj_blocked2": 0}
+            "gj_packed": 0, "gj_blocked2_reg": 0, "gj_blocked2_cta": 0,
+            "gj_blocked2_split": 0, "gj_blocked2": 0}
 # the same launches by kernel and rank, keyed "<kernel>/K=<k>"
 launches_by_rank: dict[str, int] = {}
 
@@ -107,6 +113,12 @@ def packed_kernel(k: int) -> str:
     """The kernel the ``packed`` layout runs at rank `k`, split by K as
     `aug_kernel`'s."""
     return _by_rank(k, "gj_packed")
+
+
+def blocked2_kernel(k: int) -> str:
+    """The kernel the ``blocked2`` layout runs at (even) rank `k`, split
+    by K as `aug_kernel`'s."""
+    return _by_rank(k, "gj_blocked2")
 
 
 def multi_kernel(k: int) -> str:
@@ -276,6 +288,44 @@ def gj_solve_blocked2_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return w[:, :, k]
 
 
+def gj_solve_pair_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x [R, K] = A⁻¹ b for a [R, K, K], b [R, K], even K ≤ 256 (plain
+    PyTorch), the arithmetic of the three pair kernels, ``gj_blocked2_reg``,
+    ``gj_blocked2_cta`` and ``gj_blocked2_split``: row Gauss-Jordan on
+    [A | b], pair step p = 0, 2, ... taking pivots p, p + 1. Step for step:
+    the pivot block P is guarded (|det| < 1e-30 → 1) and inverted through
+    rdet = 1/det; every other row takes [m0 m1] = [c0 c1]·P⁻¹ from its
+    columns p, p + 1 and subtracts m0·(row p) + m1·(row p + 1) right of
+    p + 1; the pivot rows stay, and x_p, x_p+1 = P⁻¹·(b_p, b_p+1) at the
+    end. Where a row lies changes none of it."""
+    r, k = a.shape[0], a.shape[1]
+    if k % 2:
+        raise ValueError(f"layout='blocked2' needs even rank, got {k}")
+    if k > _SPLIT_MAX_RANK:
+        raise ValueError(f"the pair kernels take K ≤ {_SPLIT_MAX_RANK}, "
+                         f"got {k}")
+    work = torch.cat([a.float(), b.float()[..., None]], dim=-1)
+    inv = torch.empty((r, k, 2), dtype=torch.float32, device=a.device)
+    for p in range(0, k, 2):
+        p00, p01 = work[:, p, p], work[:, p, p + 1]
+        p10, p11 = work[:, p + 1, p], work[:, p + 1, p + 1]
+        det = p00 * p11 - p01 * p10
+        det = torch.where(det.abs() < _PIVOT_EPS, torch.ones_like(det), det)
+        rdet = torch.reciprocal(det)
+        c0, c1 = work[:, :, p], work[:, :, p + 1]
+        m0 = (c0 * p11[:, None] - c1 * p10[:, None]) * rdet[:, None]
+        m1 = (c1 * p00[:, None] - c0 * p01[:, None]) * rdet[:, None]
+        m0[:, p:p + 2] = 0.0
+        m1[:, p:p + 2] = 0.0
+        inv[:, p] = torch.stack([p11 * rdet, -p01 * rdet], dim=1)
+        inv[:, p + 1] = torch.stack([-p10 * rdet, p00 * rdet], dim=1)
+        work[:, :, p + 2:] -= (m0[:, :, None] * work[:, p, None, p + 2:]
+                               + m1[:, :, None] * work[:, p + 1, None, p + 2:])
+    bp = work[:, :, k].reshape(r, k // 2, 1, 2)  # (b_p, b_p+1) of each pair
+    inv = inv.reshape(r, k // 2, 2, 2)
+    return (inv[..., 0] * bp[..., 0] + inv[..., 1] * bp[..., 1]).reshape(r, k)
+
+
 # -- the CUDA kernels -------------------------------------------------------
 
 # kernel → its source under csrc/
@@ -284,7 +334,8 @@ _SOURCE = {"gj_aug_reg": "gj_reg", "gj_packed_reg": "gj_reg",
            "gj_aug_split": "gj_cta", "gj_packed_split": "gj_cta",
            "gj_aug": "gj_solve", "gj_aug_multi_reg": "gj_multi_reg",
            "gj_aug_multi": "gj_solve", "gj_packed": "gj_layouts",
-           "gj_blocked2": "gj_layouts"}
+           "gj_blocked2_reg": "gj_reg", "gj_blocked2_cta": "gj_cta",
+           "gj_blocked2_split": "gj_cta", "gj_blocked2": "gj_layouts"}
 # the ranks (least, largest) each register or block kernel takes
 _KERNEL_RANKS = {"gj_aug_reg": (1, _REG_MAX_RANK),
                  "gj_packed_reg": (1, _REG_MAX_RANK),
@@ -292,10 +343,17 @@ _KERNEL_RANKS = {"gj_aug_reg": (1, _REG_MAX_RANK),
                  "gj_packed_cta": (1, _CTA_MAX_RANK),
                  "gj_aug_split": (_CTA_MAX_RANK + 1, _SPLIT_MAX_RANK),
                  "gj_packed_split": (_CTA_MAX_RANK + 1, _SPLIT_MAX_RANK),
+                 "gj_blocked2_reg": (1, _REG_MAX_RANK),
+                 "gj_blocked2_cta": (1, _CTA_MAX_RANK),
+                 "gj_blocked2_split": (_CTA_MAX_RANK + 1, _SPLIT_MAX_RANK),
                  "gj_aug_multi_reg": (1, _MULTI_REG_MAX_RANK)}
 # the kernels with one right-hand side and the signature of gj_aug_reg
 _ONE_RHS = ("gj_aug_reg", "gj_packed_reg", "gj_aug_cta", "gj_packed_cta",
-            "gj_aug_split", "gj_packed_split")
+            "gj_aug_split", "gj_packed_split", "gj_blocked2_reg",
+            "gj_blocked2_cta", "gj_blocked2_split")
+# the split kernels' layout index in gj_split_occupancy
+_SPLIT_LAYOUT = {"gj_aug_split": 0, "gj_packed_split": 1,
+                 "gj_blocked2_split": 2}
 _max_shared: dict[int, int] = {}
 
 
@@ -310,9 +368,11 @@ def _bind(lib, source: str) -> None:
                                      p, i64, i32, i32, i32, p]
         fns = (lib.gj_aug, lib.gj_aug_multi)
     elif source in ("gj_reg", "gj_cta"):
-        fns = ((lib.gj_aug_reg, lib.gj_packed_reg) if source == "gj_reg"
+        fns = ((lib.gj_aug_reg, lib.gj_packed_reg, lib.gj_blocked2_reg)
+               if source == "gj_reg"
                else (lib.gj_aug_cta, lib.gj_packed_cta, lib.gj_aug_split,
-                     lib.gj_packed_split))
+                     lib.gj_packed_split, lib.gj_blocked2_cta,
+                     lib.gj_blocked2_split))
         for fn in fns:
             fn.argtypes = [p, i64, i64, i64, p, i64, i64, p, i64, i32, p]
         if source == "gj_cta":
@@ -368,7 +428,7 @@ def split_occupancy(name: str, k: int, device: torch.device) -> tuple[int, int]:
     shared, blocks = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(device):
         err = _lib("gj_cta").gj_split_occupancy(
-            int(name == "gj_packed_split"), k, ctypes.byref(shared),
+            _SPLIT_LAYOUT[name], k, ctypes.byref(shared),
             ctypes.byref(blocks))
     if err:
         raise RuntimeError(f"{name} occupancy at K={k}: CUDA error {err}")
@@ -392,6 +452,8 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
     if not lo <= k <= hi:
         raise ValueError(f"{name}: takes {f'{lo} ≤ ' if lo > 1 else ''}"
                          f"K ≤ {hi}, got {k}")
+    if name.startswith("gj_blocked2") and k % 2:
+        raise ValueError(f"{name}: needs even rank, got {k}")
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"{name}: a and b must be on one CUDA device, got "
                          f"{a.device} and {b.device}")
@@ -510,10 +572,12 @@ def gj_solve(a: torch.Tensor, b: torch.Tensor, layout: str = "") -> torch.Tensor
                  "gj_packed": gj_solve_packed_plain}[name]
         return _solve_one(name, plain, a, b)
     if layout == "blocked2":
-        # a forced layout never measures another kernel than it names
         if k % 2:
             raise ValueError(f"layout='blocked2' needs even rank, got {k}")
-        return _solve_one("gj_blocked2", gj_solve_blocked2_plain, a, b)
+        name = blocked2_kernel(k)
+        plain = (gj_solve_blocked2_plain if name == "gj_blocked2"
+                 else gj_solve_pair_plain)
+        return _solve_one(name, plain, a, b)
     if layout != "aug":
         raise ValueError(f"unknown gj_solve layout {layout!r} "
                          "(want auto/aug/packed/blocked2/schur)")

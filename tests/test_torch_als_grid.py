@@ -132,9 +132,10 @@ def test_forced_layouts_under_the_grid_match_aug(layout, monkeypatch):
     aug = als_grid.als_train_grid(u, i, v, n_u, n_i, cfgs, device="cpu",
                                   compute_rmse=True)
     called = []
-    # packed at K ≤ 64 runs gj_packed_reg's plain version
+    # packed and blocked2 at K ≤ 64 run gj_packed_reg's and
+    # gj_blocked2_reg's plain versions
     plain = {"packed": "gj_solve_packed_reg_plain",
-             "blocked2": "gj_solve_blocked2_plain"}[layout]
+             "blocked2": "gj_solve_pair_plain"}[layout]
     real = getattr(spd_solve, plain)
     monkeypatch.setattr(spd_solve, plain,
                         lambda *a, **k: called.append(1) or real(*a, **k))

@@ -117,7 +117,7 @@ def test_aug_launches_the_routed_kernel(dev, k, kernel):
 
 
 _LAYOUT_PLAIN = {"packed": spd_solve.gj_solve_packed_plain,
-                 "blocked2": spd_solve.gj_solve_blocked2_plain}
+                 "blocked2": spd_solve.gj_solve_pair_plain}
 
 
 @pytest.mark.parametrize("layout,r,k", [
@@ -126,8 +126,10 @@ _LAYOUT_PLAIN = {"packed": spd_solve.gj_solve_packed_plain,
     ("blocked2", 37, 10), ("blocked2", 9, 128), ("blocked2", 6, 256)])
 def test_layout_kernels_match_plain(dev, layout, r, k):
     """packed (K ≤ 64 and K ≤ 128 on the register kernels, K = 255 on
-    the split block kernel) and blocked2 (K = 256: the device-memory
-    variant) against the plain versions of the layouts' elimination."""
+    the split block kernel) against the plain version of the layout's
+    elimination, and blocked2 (K ≤ 64 on the warp kernel, 128 on the
+    block kernel, 256 on the split one) against the pair kernels' plain
+    version."""
     gen = torch.Generator(device=dev).manual_seed(r * k)
     a, b = _spd(gen, r, k, 1, dev)
     x = spd_solve.gj_solve(a, b[..., 0], layout=layout)
@@ -135,7 +137,7 @@ def test_layout_kernels_match_plain(dev, layout, r, k):
     assert _rel(x, want) < 1e-4
     assert bool((x[1] == 0).all())
     kernel = (spd_solve.packed_kernel(k) if layout == "packed"
-              else "gj_blocked2")
+              else spd_solve.blocked2_kernel(k))
     assert spd_solve.launches[kernel] == 1
     assert sum(spd_solve.launches.values()) == 1
 
@@ -393,6 +395,172 @@ def test_split_wrappers_refuse_what_the_kernel_does_not_take(dev):
         with pytest.raises(ValueError, match="CUDA"):
             spd_solve._launch(name, a, torch.ones(2, 192, 1))
     assert not any(spd_solve.launches.values())
+
+
+# the blocked2 layout's pair kernels (even K ≤ 256), and the ranks each
+# is held at: each body's ends, the padded sizes' boundaries, the
+# phase-2 ranks (8, 10, 16, 64; 80, 96, 128; 192, 256), L = K - 128 = 2
+# and 128 shared columns
+_PAIR_RANKS = {"gj_blocked2_reg": (2, 8, 10, 16, 18, 32, 34, 48, 64),
+               "gj_blocked2_cta": (66, 80, 94, 96, 98, 126, 128),
+               "gj_blocked2_split": (130, 132, 160, 192, 254, 256)}
+_PAIR_CASES = [(name, k) for name, ks in _PAIR_RANKS.items() for k in ks]
+
+
+@pytest.mark.parametrize("r", [1, 3])
+@pytest.mark.parametrize("name,k", _PAIR_CASES)
+def test_pair_kernels_match_plain(dev, name, k, r):
+    """One routed call, one launch of the pair kernel at K, against the
+    pair kernels' plain version, the plain version of the kernel they
+    replaced and a float64 solve; R = 3 holds _spd's all-zero system."""
+    gen = torch.Generator(device=dev).manual_seed(k * 10 + r)
+    a, b = _spd(gen, 3, k, 1, dev)
+    a, b = a[:r], b[:r, :, 0]
+    x = spd_solve.gj_solve(a, b, layout="blocked2")
+    assert spd_solve.launches[name] == 1
+    assert sum(spd_solve.launches.values()) == 1
+    assert x.shape == (r, k)
+    assert torch.isfinite(x).all()
+    assert _rel(x, spd_solve.gj_solve_pair_plain(a, b)) < 1e-4
+    assert _rel(x, spd_solve.gj_solve_blocked2_plain(a, b)) < 1e-4
+    assert _rel(x.double(), _solve64(a, b, "blocked2")) < 1e-4
+    if r == 3:
+        assert bool((x[1] == 0).all())
+
+
+@pytest.mark.parametrize("name,k", [("gj_blocked2_reg", 16),
+                                    ("gj_blocked2_reg", 64),
+                                    ("gj_blocked2_cta", 80),
+                                    ("gj_blocked2_cta", 128),
+                                    ("gj_blocked2_split", 130),
+                                    ("gj_blocked2_split", 256)])
+def test_pair_kernels_take_strided_inputs(dev, name, k):
+    """Schur-style sub-blocks of a larger A, a transposed one, and b as a
+    column of a wider array: views that are not contiguous, read
+    uncopied."""
+    gen = torch.Generator(device=dev).manual_seed(k)
+    a, b = _spd(gen, 9, k + 8, 3, dev)
+    for sub_a in (a[:, :k, :k], a[:, :k, :k].transpose(1, 2),
+                  a[:, 8:, 8:]):
+        sub_b = b[:, 8:, 1]
+        assert not sub_a.is_contiguous() and not sub_b.is_contiguous()
+        x = spd_solve.gj_solve(sub_a, sub_b, layout="blocked2")
+        assert _rel(x, spd_solve.gj_solve_pair_plain(sub_a, sub_b)) < 1e-4
+        assert bool((x[1] == 0).all())
+    assert spd_solve.launches[name] == 3
+    assert sum(spd_solve.launches.values()) == 3
+
+
+@pytest.mark.parametrize("name,k", [("gj_blocked2_reg", 10),
+                                    ("gj_blocked2_reg", 64),
+                                    ("gj_blocked2_cta", 98),
+                                    ("gj_blocked2_split", 192)])
+def test_pair_kernels_system_alone_equals_in_batch(dev, name, k):
+    """A system's x is bitwise the same solved alone and inside a
+    batch."""
+    gen = torch.Generator(device=dev).manual_seed(k + 1)
+    a, b = _spd(gen, 301, k, 1, dev)
+    b = b[..., 0]
+    x = spd_solve.gj_solve(a, b, layout="blocked2")
+    for row in (0, 1, 150, 300):
+        alone = spd_solve.gj_solve(a[row:row + 1].clone(),
+                                   b[row:row + 1].clone(), layout="blocked2")
+        assert torch.equal(alone[0], x[row])
+    assert spd_solve.launches[name] == 5
+
+
+@pytest.mark.parametrize("name,k", [("gj_blocked2_reg", 2),
+                                    ("gj_blocked2_reg", 64),
+                                    ("gj_blocked2_cta", 66),
+                                    ("gj_blocked2_cta", 128),
+                                    ("gj_blocked2_split", 130),
+                                    ("gj_blocked2_split", 256)])
+def test_pair_kernels_all_zero_systems_are_exactly_zero(dev, name, k):
+    a = torch.zeros(7, k, k, device=dev)
+    b = torch.zeros(7, k, device=dev)
+    x = spd_solve.gj_solve(a, b, layout="blocked2")
+    assert bool((x == 0).all())
+    assert spd_solve.launches[name] == 1
+
+
+@pytest.mark.parametrize("name,r,k", [("gj_blocked2_split", 13_850, 192),
+                                      ("gj_blocked2_split", 64, 256),
+                                      ("gj_blocked2_cta", 300, 128)])
+def test_pair_kernels_repeat_bitwise(dev, name, r, k):
+    """One barrier a pair step, both pivot rows double-buffered (the split
+    kernel reads their shared parts in place), and the buffers' parity
+    carried across the split kernel's hand-off. A buffer or a row
+    overwritten before every thread had read it would show as a
+    difference from run to run, or from the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(k + 3)
+    a, b = _spd(gen, r, k, 1, dev)
+    b = b[..., 0]
+    x = spd_solve.gj_solve(a, b, layout="blocked2")
+    for _ in range(3):
+        assert torch.equal(spd_solve.gj_solve(a, b, layout="blocked2"), x)
+    assert _rel(x, spd_solve.gj_solve_pair_plain(a, b)) < 1e-4
+    assert spd_solve.launches[name] == 4
+
+
+def test_blocked2_above_256_runs_the_kernel_it_replaced(dev):
+    """K = 258 routes to gj_layouts.cu's gj_blocked2, its device-memory
+    variant (a [K][K + 1] copy past a block's shared memory)."""
+    k = 258
+    gen = torch.Generator(device=dev).manual_seed(k)
+    a, b = _spd(gen, 4, k, 1, dev)
+    assert spd_solve.blocked2_kernel(k) == "gj_blocked2"
+    assert not spd_solve.shared_fits(k, 1, a.device, "gj_blocked2")
+    x = spd_solve.gj_solve(a, b[..., 0], layout="blocked2")
+    assert spd_solve.launches["gj_blocked2"] == 1
+    assert sum(spd_solve.launches.values()) == 1
+    assert _rel(x, spd_solve.gj_solve_blocked2_plain(a, b[..., 0])) < 1e-4
+    assert _rel(x.double(), _solve64(a, b[..., 0], "blocked2")) < 1e-4
+    assert bool((x[1] == 0).all())
+
+
+@pytest.mark.parametrize("name,k,match", [
+    ("gj_blocked2_reg", 63, "needs even rank"),
+    ("gj_blocked2_reg", 66, "K ≤ 64"),
+    ("gj_blocked2_cta", 99, "needs even rank"),
+    ("gj_blocked2_cta", 130, "K ≤ 128"),
+    ("gj_blocked2_split", 193, "needs even rank"),
+    ("gj_blocked2_split", 128, "129 ≤ K ≤ 256"),
+    ("gj_blocked2_split", 258, "129 ≤ K ≤ 256")])
+def test_pair_wrappers_refuse_ranks_they_do_not_take(dev, name, k, match):
+    a = torch.eye(k, device=dev).expand(2, k, k)
+    with pytest.raises(ValueError, match=match):
+        spd_solve._launch(name, a, torch.ones(2, k, 1, device=dev))
+    assert not any(spd_solve.launches.values())
+
+
+def test_pair_wrappers_refuse_what_the_kernel_does_not_take(dev):
+    for name, ks in _PAIR_RANKS.items():
+        k = ks[-1]
+        a = torch.eye(k, device=dev).expand(2, k, k)
+        with pytest.raises(ValueError, match="one right-hand side"):
+            spd_solve._launch(name, a, torch.ones(2, k, 2, device=dev))
+        with pytest.raises(ValueError, match="CUDA"):
+            spd_solve._launch(name, a, torch.ones(2, k, 1))
+    assert not any(spd_solve.launches.values())
+
+
+@pytest.mark.parametrize("rank", [16, 100, 160])
+def test_als_under_blocked2_matches_chol_on_card(dev, rank, monkeypatch):
+    rng = np.random.default_rng(5)
+    ui = rng.integers(0, 300, 6000).astype(np.int32)
+    ii = rng.integers(0, 200, 6000).astype(np.int32)
+    r = rng.uniform(1, 5, 6000).astype(np.float32)
+    base = dict(rank=rank, iterations=4, reg=0.05, seed=0, split_cap=32)
+    monkeypatch.setenv("PIO_GJ_LAYOUT", "blocked2")
+    gj = als.als_train(ui, ii, r, 300, 200, als.ALSConfig(solver="gj", **base),
+                       device=dev, compute_rmse=True)
+    name = spd_solve.blocked2_kernel(rank)
+    assert spd_solve.launches[name] > 0
+    assert sum(spd_solve.launches.values()) == spd_solve.launches[name]
+    ch = als.als_train(ui, ii, r, 300, 200,
+                       als.ALSConfig(solver="chol", **base), device=dev,
+                       compute_rmse=True)
+    np.testing.assert_allclose(gj.rmse_history, ch.rmse_history, rtol=2e-3)
 
 
 # chunk widths 32 and 64: one below, at and above each boundary, and the

@@ -214,9 +214,10 @@ def test_blocked2_refuses_odd_rank(monkeypatch):
 @pytest.mark.parametrize("layout", ["packed", "blocked2"])
 def test_env_selects_forced_layouts(layout, monkeypatch):
     called = []
-    # packed at K ≤ 64 runs gj_packed_reg's plain version
+    # packed and blocked2 at K ≤ 64 run gj_packed_reg's and
+    # gj_blocked2_reg's plain versions
     plain = {"packed": "gj_solve_packed_reg_plain",
-             "blocked2": "gj_solve_blocked2_plain"}[layout]
+             "blocked2": "gj_solve_pair_plain"}[layout]
     real = getattr(spd_solve, plain)
     monkeypatch.setattr(spd_solve, plain,
                         lambda *a, **k: called.append(1) or real(*a, **k))
@@ -240,11 +241,15 @@ def test_layout_plain_versions_repeat_the_reference_elimination():
              for lay in ("packed", "blocked2")}
     xp = _port(spd_solve.gj_solve_packed_plain, a, b)
     xb = _port(spd_solve.gj_solve_blocked2_plain, a, b)
+    # the pair kernels' plain version, which the blocked2 layout runs
+    x2 = _port(spd_solve.gj_solve_pair_plain, a, b)
     assert _rel(xp, x_ref["packed"]) < 1e-4
     assert _rel(xb, x_ref["blocked2"]) < 1e-4
+    assert _rel(x2, x_ref["blocked2"]) < 1e-4
     at = a.transpose(0, 2, 1)
     assert _rel(xp, np.linalg.solve(at, b[..., None])[..., 0]) < 1e-4
     assert _rel(xb, np.linalg.solve(a, b[..., None])[..., 0]) < 1e-4
+    assert _rel(x2, np.linalg.solve(a, b[..., None])[..., 0]) < 1e-4
     assert _rel(xp, xb) > 1e-2  # not the same elimination
 
 
