@@ -1,10 +1,11 @@
 """A/B of the aug and packed solve kernels of two checkouts on one card.
 
 Each run imports `predictionio_torch` from the checkout at ``--root``,
-builds its kernels there, runs each of them on the same seeded inputs at
-the shapes `chip_smoke.py`'s phase 2 holds them at, and writes per kernel
-and shape the SHA-256 of x's bytes, the kernel's time (CUDA events) and
-the ptxas registers of every kernel of its sources:
+builds its kernels there, runs each of them through `gj_solve` on the
+same seeded inputs at the main paths' shapes (every instantiation of
+gj_reg.cu and gj_cta.cu at one shape or more), and writes per kernel and
+shape the SHA-256 of x's bytes, the call's time (CUDA events) and the
+ptxas registers of every kernel of those two sources:
 
     python3 predictionio_torch/tools/kernel_ab.py --root A --out a.json
     python3 predictionio_torch/tools/kernel_ab.py --root B --out b.json
@@ -21,10 +22,10 @@ import argparse
 import hashlib
 import json
 import os
+import re
 import sys
 
-# (kernel, layout, [(R, K), ...]): every instantiation of gj_reg.cu and
-# gj_cta.cu for the aug and packed layouts
+# (kernel, layout, [(R, K), ...]) for the aug and packed layouts
 CASES = (
     ("gj_aug_reg", "aug", ((13_850, 64), (943, 10), (1_886, 8),
                            (1_886, 16), (13_850, 32))),
@@ -78,8 +79,11 @@ def run(root: str) -> dict:
                 "sha256": digest, "ms": start.elapsed_time(end) / REPS}
     for source in ("gj_reg", "gj_cta"):
         report = _build.build_log[source][1]
+        # the kernel's name and template arguments, without the
+        # translation unit's anonymous namespace
         out["ptxas"][source] = {
-            fn: props.get("registers")
+            re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", fn):
+            props.get("registers")
             for fn, props in _build.ptxas_kernels(report).items()}
     return out
 

@@ -518,21 +518,6 @@ def test_blocked2_above_256_runs_the_kernel_it_replaced(dev):
     assert bool((x[1] == 0).all())
 
 
-@pytest.mark.parametrize("name,k,match", [
-    ("gj_blocked2_reg", 63, "needs even rank"),
-    ("gj_blocked2_reg", 66, "K ≤ 64"),
-    ("gj_blocked2_cta", 99, "needs even rank"),
-    ("gj_blocked2_cta", 130, "K ≤ 128"),
-    ("gj_blocked2_split", 193, "needs even rank"),
-    ("gj_blocked2_split", 128, "129 ≤ K ≤ 256"),
-    ("gj_blocked2_split", 258, "129 ≤ K ≤ 256")])
-def test_pair_wrappers_refuse_ranks_they_do_not_take(dev, name, k, match):
-    a = torch.eye(k, device=dev).expand(2, k, k)
-    with pytest.raises(ValueError, match=match):
-        spd_solve._launch(name, a, torch.ones(2, k, 1, device=dev))
-    assert not any(spd_solve.launches.values())
-
-
 def test_pair_wrappers_refuse_what_the_kernel_does_not_take(dev):
     for name, ks in _PAIR_RANKS.items():
         k = ks[-1]
