@@ -1,9 +1,11 @@
 // The two A/B layouts of the batched Gauss-Jordan SPD solve, x = A^-1 b,
 // for Hopper (sm_90a).
 //
-// Replaces the TPU kernels of predictionio_tpu/ops/pallas_solve.py:
-//   - _build_solver_packed   (entry point gj_packed)
-//   - _build_solver_blocked2 (entry point gj_blocked2)
+// Replaces the TPU kernels of predictionio_tpu/ops/pallas_solve.py above
+// K = 256:
+//   - _build_solver_packed :101   (entry point gj_packed)
+//   - _build_solver_blocked2 :177, pallas_call at :237 (entry point
+//     gj_blocked2)
 // Both compute what gj_aug (gj_solve.cu) computes, by a different
 // elimination; the layout switch (gj_solve(layout=...), PIO_GJ_LAYOUT)
 // picks one of them for an A/B on this card. ops/spd_solve.py routes
@@ -26,9 +28,9 @@
 // -> 1), the two pivot rows become P^-1 [row0; row1], and every other
 // row subtracts col0[i] * n0 + col1[i] * n1. K/2 steps of two barriers
 // each, against gj_aug's K steps. K must be even. It took 2.82 ms at
-// [13 850, 64, 1] and 18.1 ms at [13 850, 128, 1] (PERF.md), twice the
-// library's Cholesky solve there: gj_reg.cu's and gj_cta.cu's gj_blocked2_*
-// bodies replaced it at K <= 256.
+// [13 850, 64, 1], about the library's Cholesky solve, and 18.1 ms at
+// [13 850, 128, 1], twice the library's (PERF.md): gj_reg.cu's and
+// gj_cta.cu's gj_blocked2_* bodies replaced it at K <= 256.
 //
 // What bounds them on this card: the same bytes as gj_aug, (K^2 + 2K)*4
 // per system (A and b read once, x written once), against the K^3/3 +
