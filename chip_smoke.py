@@ -11,13 +11,15 @@ Phases (any failure exits non-zero and prints no result line):
              one nvcc per source, all started together, and prints the
              -Xptxas -v report; the register kernels' instantiations
              (gj_reg.cu: KP = 16, 32, 64 × aug/packed/blocked2 layout;
-             gj_cta.cu: KP = 96, 128 × the three layouts and the split
-             kernel × the three; gj_multi_reg.cu: KP = 16, 32 × one or two
-             column slots) must show a 0-byte stack frame and no spills;
+             gj_cta.cu: KP = 96, 128 × the three layouts, the split
+             kernel × the three, and the multi-RHS block kernel at
+             KP = 64 × C = 32, 64 column slots and KP = 96, 128 × 32;
+             gj_multi_reg.cu: KP = 16, 32 × one or two column slots) must
+             show a 0-byte stack frame and no spills;
              their SASS size goes to the report, with blocks an SM (for
              the split kernels the runtime's occupancy and dynamic shared
              bytes at K = 129, 192, 255, 256, the even ones for blocked2);
-2. kernels — each of the fourteen solve kernels against its plain PyTorch
+2. kernels — each of the fifteen solve kernels against its plain PyTorch
              version and a float64 solve on the card at the main paths'
              shapes, the eval path's rank-8 and rank-16 grid solves among
              them (max-rel < 1e-4, all-zero systems exactly 0), with its
@@ -40,15 +42,25 @@ Phases (any failure exits non-zero and prints no result line):
              `gj_packed_cta` at 64 < K ≤ 128 and `gj_packed_split` at
              128 < K ≤ 256, and `gj_packed` (gj_layouts.cu, a block per
              system) above (K = 255; timed at K = 128 and 192 too);
-             `gj_aug_multi_reg` (gj_multi_reg.cu) is the Schur
-             recursion's base at K ≤ 32 (every rank from 96 to 256), a
-             warp per system and chunk of right-hand sides with its
-             columns in registers, held against both plain versions at the
-             rank-128 base calls (R = 13 850, the path's largest bucket
+             the Schur recursion's base calls go by (K, M)
+             (`multi_kernel`): `gj_aug_multi_reg` (gj_multi_reg.cu) at
+             K ≤ 32, a warp per system and chunk of right-hand sides with
+             its columns in registers, held against both plain versions at
+             the rank-128 base calls (R = 13 850, the path's largest bucket
              2 744, and a small one, 560), at rank 96's and rank 256's, and
-             timed under both chunk widths; `gj_aug_multi` (gj_solve.cu)
-             takes the base at odd K > 32, held at rank 98's (K = 49) and
-             timed at the rank-128 shapes beside the register kernel;
+             timed under both chunk widths; above K = 32 with one
+             right-hand side (every odd rank from 97 to 255) the aug
+             kernel of K; `gj_aug_multi_cta` (gj_cta.cu, a block per
+             system and chunk of up to 64 columns of B, 32 above K = 64,
+             a row of A and its chunk of B per thread in registers) at
+             32 < K ≤ 128 with M > 1 (ranks 2·odd and 4·odd from 98),
+             held at rank 196's, 150's, 252's and 250's widest base calls
+             ([13 850, 49, 50], [13 850, 75, 76], [2 744, 63, 190],
+             [2 744, 125, 126]) and a small bucket, [560, 125, 126];
+             `gj_aug_multi` (gj_solve.cu) keeps K > 128 with M > 1, where
+             no route goes, held at rank 98's [2 744, 49, 50] and timed at
+             the rank-128 shapes and beside `gj_aug_multi_cta` at its
+             five;
              the blocked2 layout (PIO_GJ_LAYOUT=blocked2, even K) runs the
              aug bodies two pivots a step, `gj_blocked2_reg` at K ≤ 64
              (held at the aug kernel's four shapes), `gj_blocked2_cta` at
@@ -59,13 +71,15 @@ Phases (any failure exits non-zero and prints no result line):
              where no route goes, and is timed beside them at every shape;
 3. train   — `als_train` on synth_explicit("2m") at rank 64 (`gj_aug_reg`
              alone), rank 80 (`gj_aug_cta` alone), rank 128 (Schur
-             recursion over `gj_aug_multi_reg` alone), rank 64 under
+             recursion over `gj_aug_multi_reg` alone), rank 250 (Schur
+             over `gj_aug_multi_cta` and `gj_aug_cta`), rank 255 (Schur
+             base [R, 255, 1] on `gj_aug_split` alone), rank 64 under
              PIO_GJ_LAYOUT=packed (`gj_packed_reg`) and =blocked2
              (`gj_blocked2_reg`), rank 128 under =packed (`gj_packed_cta`)
              and =blocked2 (`gj_blocked2_cta`), rank 192 under =aug
              (`gj_aug_split`) and rank 256 under =packed
              (`gj_packed_split`) and =blocked2 (`gj_blocked2_split`); each
-             run launches its kernel and no
+             run launches its kernels and no
              other; each RMSE trajectory within rtol 2e-3 of a
              solver="chol" run of its rank; profiles of the rank-64, 80
              and 128 trains must show their register kernel and no
@@ -93,7 +107,8 @@ Phases (any failure exits non-zero and prints no result line):
 Launch counts are zeroed just before each path (phases 3-4: train →
 serve; phase 5: eval → batchpredict) and read just after; every kernel of
 a path must have launched there, and `gj_aug`, `gj_packed` and
-`gj_blocked2` (K > 256 only) and `gj_aug_multi` (K > 32 only) on neither.
+`gj_blocked2` (K > 256 only) and `gj_aug_multi` (K > 128 with M > 1 only)
+on neither.
 The eval path's counts add the console
 children's own to the grids'; the sequential trains phase 5a compares
 with run before its counts are zeroed. `--report PATH` also writes a JSON report
@@ -146,6 +161,7 @@ KERNELS = {
     "gj_aug_split": (_AUG, "gj_cta.cu"),
     "gj_aug": (_AUG, "gj_solve.cu"),
     "gj_aug_multi_reg": (_MULTI, "gj_multi_reg.cu"),
+    "gj_aug_multi_cta": (_MULTI, "gj_cta.cu"),
     "gj_aug_multi": (_MULTI, "gj_solve.cu"),
     "gj_packed_reg": (_PACKED, "gj_reg.cu"),
     "gj_packed_cta": (_PACKED, "gj_cta.cu"),
@@ -157,12 +173,17 @@ KERNELS = {
     "gj_blocked2": (_BLOCKED2, "gj_layouts.cu"),
 }
 # the ranks each kernel takes on the paths below
-KERNEL_RANKS = {"gj_aug_reg": "aug, K ≤ 64",
-                "gj_aug_cta": "aug, 64 < K ≤ 128 (auto: rank 65-95)",
-                "gj_aug_split": "forced aug, 128 < K ≤ 256",
+KERNEL_RANKS = {"gj_aug_reg": "aug, K ≤ 64; Schur base [R, K, 1] at odd "
+                              "K 33-63",
+                "gj_aug_cta": "aug, 64 < K ≤ 128 (auto: rank 65-95); Schur "
+                              "base [R, K, 1] at odd K 65-127",
+                "gj_aug_split": "forced aug, 128 < K ≤ 256; Schur base "
+                                "[R, K, 1] at odd K 129-255",
                 "gj_aug": "aug, K > 256 (no route: ranks stop at 256)",
-                "gj_aug_multi_reg": "Schur base, K ≤ 32 (rank 96-256)",
-                "gj_aug_multi": "Schur base, K > 32 (odd splits)",
+                "gj_aug_multi_reg": "Schur base, K ≤ 32",
+                "gj_aug_multi_cta": "Schur base, 32 < K ≤ 128 with M > 1 "
+                                    "(ranks 2·odd and 4·odd from 98)",
+                "gj_aug_multi": "Schur base, K > 128 with M > 1 (no route)",
                 "gj_packed_reg": "forced packed, K ≤ 64",
                 "gj_packed_cta": "forced packed, 64 < K ≤ 128",
                 "gj_packed_split": "forced packed, 128 < K ≤ 256",
@@ -172,12 +193,13 @@ KERNEL_RANKS = {"gj_aug_reg": "aug, K ≤ 64",
                 "gj_blocked2_split": "forced blocked2, even 128 < K ≤ 256",
                 "gj_blocked2": "forced blocked2, K > 256 (no route)"}
 # the kernels on no main path: gj_aug, gj_packed and gj_blocked2
-# (K > 256), gj_aug_multi (K > 32)
+# (K > 256), gj_aug_multi (K > 128 with M > 1)
 OFF_PATH = ("gj_aug", "gj_packed", "gj_aug_multi", "gj_blocked2")
 PATH_KERNELS = [name for name in KERNELS if name not in OFF_PATH]
 # the register kernels' sources: (kernel symbols, instantiations)
 REG_SOURCES = {"gj_reg": (("gj_reg_kernel",), 9),
-               "gj_cta": (("gj_cta_kernel", "gj_split_kernel"), 9),
+               "gj_cta": (("gj_cta_kernel", "gj_split_kernel",
+                           "gj_multi_cta_kernel"), 13),
                "gj_multi_reg": (("gj_multi_reg_kernel",), 4)}
 # the split kernels' ranks whose shared memory and occupancy phase 1
 # reports (the pair kernel's: the even ones)
@@ -191,7 +213,8 @@ LAYOUT_KERNEL = {"auto": "gj_aug_reg", "packed": "gj_packed_reg",
 # in registers and shared memory), each also held against the plain
 # version of the shared-memory kernel that ran its ranks before
 REGISTER_KERNELS = ("gj_aug_reg", "gj_aug_cta", "gj_aug_split",
-                    "gj_aug_multi_reg", "gj_packed_reg", "gj_packed_cta",
+                    "gj_aug_multi_reg", "gj_aug_multi_cta", "gj_packed_reg",
+                    "gj_packed_cta",
                     "gj_packed_split", "gj_blocked2_reg", "gj_blocked2_cta",
                     "gj_blocked2_split")
 # each kernel that took ranks over from an older one, and that kernel
@@ -201,7 +224,8 @@ REPLACED = {"gj_aug_cta": "gj_aug", "gj_packed_cta": "gj_packed",
             "gj_aug_split": "gj_aug", "gj_packed_split": "gj_packed",
             "gj_blocked2_reg": "gj_blocked2",
             "gj_blocked2_cta": "gj_blocked2",
-            "gj_blocked2_split": "gj_blocked2"}
+            "gj_blocked2_split": "gj_blocked2",
+            "gj_aug_multi_cta": "gj_aug_multi"}
 # runs the console in a child process and prints, as its last line, its
 # launch counts and its grid trains (als_grid.grid_log)
 _CONSOLE_CHILD = (
@@ -339,9 +363,11 @@ def phase_build(report: dict, card: str, device) -> None:
                     props["by_rank"][k] = {"dynamic_shared_bytes": shared,
                                            "blocks_per_sm": blocks}
                 continue
-            # a block is 128 threads, but for gj_cta_kernel<KP>: KP
+            # a block is 128 threads, but for gj_cta_kernel<KP> and
+            # gj_multi_cta_kernel<KP, C>: KP
             kp = re.search(r"ILi(\d+)E", fn)
-            threads = int(kp.group(1)) if "gj_cta_kernel" in fn else 128
+            threads = (int(kp.group(1)) if "gj_cta_kernel" in fn
+                       or "gj_multi_cta_kernel" in fn else 128)
             if "registers" in props:
                 props["blocks_per_sm"] = blocks_per_sm(threads,
                                                        props["registers"])
@@ -375,14 +401,17 @@ def _kernel_calls(name, a, b):
     """(kernel call, plain call) of `name` on a [R, K, K], b [R, K, M]."""
     from predictionio_torch.ops import spd_solve
 
-    k = b.shape[1]
-    if name == "gj_aug_multi_reg":
-        if spd_solve.multi_kernel(k) != name:
-            raise AssertionError(f"aug_multi at K = {k} does not route to "
-                                 f"{name}")
+    k, m = b.shape[1], b.shape[2]
+    if name in ("gj_aug_multi_reg", "gj_aug_multi_cta"):
+        if spd_solve.multi_kernel(k, m) != name:
+            raise AssertionError(f"aug_multi at K = {k}, M = {m} does not "
+                                 f"route to {name}")
+        plain = (spd_solve.gj_solve_multi_reg_plain
+                 if name == "gj_aug_multi_reg" else
+                 spd_solve.gj_solve_cta_plain)
         return (lambda: spd_solve.gj_solve_multi(a, b),
-                lambda: spd_solve.gj_solve_multi_reg_plain(a, b))
-    if name == "gj_aug_multi":  # straight to it: K ≤ 32 routes away
+                lambda: plain(a, b))
+    if name == "gj_aug_multi":  # straight to it: no route reaches it
         return (lambda: spd_solve._launch(name, a, b),
                 lambda: spd_solve.gj_solve_multi_plain(a, b))
     b1 = b[..., 0]
@@ -435,7 +464,7 @@ def _check_kernel(name, r, k, m, gen, device, reps):
     err = (x - want).abs().max().item()
     rel = err / want.abs().max().item()
     rel_shared = rel  # against the shared-memory kernel's plain version
-    if name == "gj_aug_multi_reg":
+    if name in ("gj_aug_multi_reg", "gj_aug_multi_cta"):
         rel_shared = _rel(x, spd_solve.gj_solve_multi_plain(a, b))
     elif name in REGISTER_KERNELS:
         shared = (spd_solve.gj_solve_packed_plain
@@ -484,6 +513,10 @@ def _check_kernel(name, r, k, m, gen, device, reps):
             same = same and torch.equal(call(), x)
             row["kernel_ms_by_chunk"][chunk] = time_ms(call, reps)
         row["chunks_bitwise_equal"] = same
+    elif name == "gj_aug_multi_cta":
+        # one barrier a step: a buffer overwritten early would show here
+        same = torch.equal(kernel(), x)
+        row["repeat_bitwise_equal"] = same
     emit(dict(phase="kernels", **row))
     if not (rel < REL_BAR and rel_shared < REL_BAR and rel_f64 < REL_BAR
             and zeros and finite and same):
@@ -573,6 +606,15 @@ def phase_kernels(report: dict, device) -> dict:
              for k in (80, 96, 128)]
     rows += [_check_kernel("gj_blocked2_split", r, k, 1, gen, device, reps)
              for r, k, reps in ((13_850, 192, 10), (1_024, 256, 20))]
+    # the multi-RHS block kernel at the widest base calls of ranks 196
+    # (whole user side), 150, 252 and 250 (the path's largest bucket) and
+    # at a small bucket, each beside the kernel it replaced; after every
+    # other row, as above
+    for r, k, m in ((13_850, 49, 50), (13_850, 75, 76), (2_744, 63, 190),
+                    (2_744, 125, 126), (560, 125, 126)):
+        rows.append(_check_kernel("gj_aug_multi_cta", r, k, m, gen, device,
+                                  20))
+        rows.append(_check_kernel("gj_aug_multi", r, k, m, gen, device, 5))
     # each new kernel's time over the one it replaced, at the same shape
     for row in rows:
         old = REPLACED.get(row["name"])
@@ -591,14 +633,15 @@ def phase_kernels(report: dict, device) -> dict:
     # for the split kernels the rank-192 user half-epoch, for gj_aug and
     # gj_packed K = 255 (their device-memory variant), for the
     # multi-RHS register kernel the largest base call of the rank-128
-    # recursion (its largest bucket, widest M), and for gj_aug_multi a K
-    # above 32
+    # recursion (its largest bucket, widest M), for the multi-RHS block
+    # kernel and the kernel it replaced rank 250's
     main_shape = {"gj_aug_reg": [13_850, 64, 1],
                   "gj_aug_cta": [13_850, 80, 1],
                   "gj_aug_split": [13_850, 192, 1],
                   "gj_aug": [1_024, 255, 1],
                   "gj_aug_multi_reg": [2_744, 32, 97],
-                  "gj_aug_multi": [2_744, 49, 1],
+                  "gj_aug_multi_cta": [2_744, 125, 126],
+                  "gj_aug_multi": [2_744, 125, 126],
                   "gj_packed_reg": [13_850, 64, 1],
                   "gj_packed_cta": [13_850, 128, 1],
                   "gj_packed_split": [13_850, 192, 1],
@@ -637,7 +680,7 @@ def phase_train_reference(report: dict, data, device) -> dict:
     from predictionio_torch.tools.profile_train import profile_train
 
     out = {}
-    for rank in (64, 80, 128, 192, 256):
+    for rank in (64, 80, 128, 192, 250, 255, 256):
         before = dict(spd_solve.launches)
         res, wall = _train(data, rank, "chol", device)
         if spd_solve.launches != before:
@@ -663,24 +706,26 @@ def phase_train_reference(report: dict, data, device) -> dict:
 
 
 def phase_train(report: dict, data, device, chol: dict) -> dict:
-    """solver='gj' at rank 64, 80 and 128 under the auto layout, at rank 64
-    under each forced layout, at rank 128 and 256 under the packed and the
-    blocked2 one and at rank 192 under the aug one; every run's RMSE
-    trajectory against the chol run's of its rank, and its kernel launched
-    alone."""
+    """solver='gj' at rank 64, 80, 128, 250 and 255 under the auto layout,
+    at rank 64 under each forced layout, at rank 128 and 256 under the
+    packed and the blocked2 one and at rank 192 under the aug one; every
+    run's RMSE trajectory against the chol run's of its rank, and its
+    kernels launched alone."""
     from predictionio_torch.ops import spd_solve
 
     runs = {}
-    for rank, layout, kernel in ((64, "auto", "gj_aug_reg"),
-                                 (80, "auto", "gj_aug_cta"),
-                                 (128, "auto", "gj_aug_multi_reg"),
-                                 (64, "packed", "gj_packed_reg"),
-                                 (128, "packed", "gj_packed_cta"),
-                                 (192, "aug", "gj_aug_split"),
-                                 (256, "packed", "gj_packed_split"),
-                                 (64, "blocked2", "gj_blocked2_reg"),
-                                 (128, "blocked2", "gj_blocked2_cta"),
-                                 (256, "blocked2", "gj_blocked2_split")):
+    for rank, layout, kernels in (
+            (64, "auto", ("gj_aug_reg",)), (80, "auto", ("gj_aug_cta",)),
+            (128, "auto", ("gj_aug_multi_reg",)),
+            (250, "auto", ("gj_aug_multi_cta", "gj_aug_cta")),
+            (255, "auto", ("gj_aug_split",)),
+            (64, "packed", ("gj_packed_reg",)),
+            (128, "packed", ("gj_packed_cta",)),
+            (192, "aug", ("gj_aug_split",)),
+            (256, "packed", ("gj_packed_split",)),
+            (64, "blocked2", ("gj_blocked2_reg",)),
+            (128, "blocked2", ("gj_blocked2_cta",)),
+            (256, "blocked2", ("gj_blocked2_split",))):
         before = dict(spd_solve.launches)
         with gj_layout(layout):
             res, wall = _train(data, rank, "gj", device)
@@ -701,9 +746,10 @@ def phase_train(report: dict, data, device, chol: dict) -> dict:
         if not ok or len(res.rmse_history) != len(ref):
             raise AssertionError(f"rank {rank} {layout}: gj trajectory "
                                  f"{res.rmse_history} vs chol {ref}")
-        others = {k: v for k, v in launched.items() if k != kernel and v}
-        if launched[kernel] <= 0 or others:
-            raise AssertionError(f"rank {rank} {layout}: want {kernel} "
+        others = {k: v for k, v in launched.items()
+                  if k not in kernels and v}
+        if any(launched[k] <= 0 for k in kernels) or others:
+            raise AssertionError(f"rank {rank} {layout}: want {kernels} "
                                  f"alone, launched {launched}")
         runs[(rank, layout)] = row
     report["train"] = {f"{rank}-{layout}": row

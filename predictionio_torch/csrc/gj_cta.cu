@@ -1,26 +1,32 @@
 // Batched Gauss-Jordan solve of small SPD systems, x = A^-1 b,
 // 64 < K <= 256, one thread block per system with a row per thread, for
 // Hopper (sm_90a): at 64 < K <= 128 the rows lie in registers, at
-// 128 < K <= 256 each row is split between shared memory and registers.
+// 128 < K <= 256 each row is split between shared memory and registers;
+// and X = A^-1 B with M right-hand sides at 32 < K <= 128 (at the end of
+// this note).
 //
-// Replaces three TPU kernels of predictionio_tpu/ops/pallas_solve.py at
-// 64 < K <= 256 (any rank from 65 to 95 under `auto`, every rank up to 256
-// under a forced layout):
-//   - _build_solver_aug :249 (entry points gj_aug_cta at K <= 128,
-//     gj_aug_split above);
+// Replaces four TPU kernels of predictionio_tpu/ops/pallas_solve.py:
+//   - _build_solver_aug :249 at 64 < K <= 256 (entry points gj_aug_cta at
+//     K <= 128, gj_aug_split above; any rank from 65 to 95 under `auto`,
+//     every rank up to 256 under a forced layout, and the Schur
+//     recursion's base calls with one right-hand side at K > 64);
 //   - _build_solver_packed :101 (entry points gj_packed_cta,
 //     gj_packed_split);
 //   - _build_solver_blocked2 :177, pallas_call at :237 (entry points
-//     gj_blocked2_cta, gj_blocked2_split; even K).
-// At K <= 64 gj_reg.cu runs all three; gj_solve.cu's gj_aug and
-// gj_layouts.cu's gj_packed and gj_blocked2 keep only K > 256, which no
-// route reaches; ops/spd_solve.py routes. As in gj_reg.cu the packed
-// layout (column Gauss-Jordan on [[A], [b^T]]) is the row elimination
-// below applied to [A^T | b], so one body serves both and only the load
-// differs (kLayout); for an A that is not bitwise symmetric the packed
-// entry points solve A^T x = b, as the TPU kernel does. The blocked2
-// layout loads as aug does and takes two pivots a step (at the end of
-// this note).
+//     gj_blocked2_cta, gj_blocked2_split; even K);
+//   - _build_solver_aug_multi :296, pallas_call at :329, at 32 < K <= 128
+//     with M > 1 (entry point gj_aug_multi_cta; the Schur base calls of
+//     ranks such as 98, 150, 250 and 252).
+// At K <= 64 gj_reg.cu runs the first three, and gj_multi_reg.cu the
+// fourth at K <= 32; gj_solve.cu's gj_aug and gj_layouts.cu's gj_packed
+// and gj_blocked2 keep only K > 256, and gj_solve.cu's gj_aug_multi only
+// K > 128 with M > 1, where no route goes; ops/spd_solve.py routes. As
+// in gj_reg.cu the packed layout (column Gauss-Jordan on [[A], [b^T]]) is
+// the row elimination below applied to [A^T | b], so one body serves both
+// and only the load differs (kLayout); for an A that is not bitwise
+// symmetric the packed entry points solve A^T x = b, as the TPU kernel
+// does. The blocked2 layout loads as aug does and takes two pivots a step
+// (at the end of this note).
 //
 // What held the kernels this replaces back: gj_solve.cu and gj_layouts.cu
 // keep the [K][K+1] copy in shared memory and make about four
@@ -190,6 +196,54 @@
 // shared-memory floor above stays; the pair halves the barriers and the
 // dependent pivot chains.
 //
+// Many right-hand sides (gj_aug_multi_cta; 32 < K <= 128, any M): the
+// Schur recursion ends at every odd K, so every rank from 96 to 256 but
+// the 25 whose halving stays even down to K <= 32 has base calls above
+// K = 32: [R, K, 1] at odd ranks (the one-RHS kernels take those), and
+// [R, K, K + 1], [R, K, 2K + 1], [R, K, 3K + 1] with odd K from 33 to 127
+// at ranks 2K and 4K (M from 34 to 190). The kernel it replaces there,
+// gj_solve.cu's gj_aug_multi, keeps the [K][K+M] copy in shared memory and
+// rewrites every element of it, the dead columns at or left of the pivot
+// too, in each of the K steps with two barriers a step and at most 256
+// threads: 0.58 ms at [2 744, 49, 50], 2.5 % of its bound (PERF.md), and
+// the copy grows as K (K + M), to 125 x 251 at rank 250. The card's bound
+// is (K^2 + 2KM)*4 bytes against K^3/3 + 2K^2 M operations: set by bytes
+// up to K ~ 100 (0.121 ms at [13 850, 49, 50]), by the FP32 rate above
+// (0.188 ms at [2 744, 125, 126]).
+//
+// Design: gj_cta_kernel's body with B's columns beside the row. One
+// thread block per (system, chunk of B's columns), KP in {64, 96, 128}
+// threads; B's M columns are split into nq = ceil(M / Cmax) near-equal
+// chunks, Cmax = 64 at KP = 64 and 32 above, and a chunk of w columns runs
+// in C = 32 (w <= 32) or 64 column slots; KP and C are template
+// parameters. Thread i holds row i of A in r[0..KP-1] and its w entries
+// of the chunk in rb[0..C-1], zero past w, all in registers. Every step
+// is the single-step body above with C more columns: the owner writes its
+// C entries to the pivot-row buffer after its row, and 1/d in the quad
+// after them; every other thread updates its C entries with one FMA each.
+// At the end X_ij = B_ij * (1/d_i), written through the warp's load tile
+// so that each row of X goes out in coalesced runs of 32 columns. Every
+// chunk's block repeats A's elimination, as gj_multi_reg.cu's warps do: a
+// column of X then depends on nothing but A and its own column of B, so X
+// is bitwise the same whatever R, the chunking and the other systems of
+// the launch are. A and B are loaded as the aug load loads A (B's rows
+// contiguous for the recursion's torch.cat results and views).
+//
+// Registers set Cmax: ptxas takes 146 and 241 registers at KP = 64 with
+// C = 32 and 64, 188 and 242 at KP = 96 and 128 with C = 32, and spills
+// with C = 64 there (or C = 96, 128 at KP = 64), with or without fences
+// that keep the step's loads of B from being hoisted (PERF.md).
+//
+// What bounds it: shared-memory delivery again, (W + C + 4)*4 bytes a
+// thread a step for W + C FMAs, in each of nq chunks: 30 MB a system at
+// [*, 125, 126] (four chunks of C = 32), a 2.46 ms floor for 2 744
+// systems at 128 bytes a clock an SM, 13x the card's bound; 1.45 MB a
+// system at [*, 49, 50] (one chunk of 64), 0.60 ms for 13 850. The kernel
+// runs at 1.3-1.7x that floor. The other design, A's row in registers and
+// B's rows in shared memory (3 shared accesses an element a step, no
+// repeated elimination), ran slower at four of five shapes and faster at
+// [13 850, 75, 76], where this one takes three chunks (PERF.md).
+//
 // Built without --use_fast_math: the reciprocals are __frcp_rn (IEEE,
 // round to nearest), which keeps the 1e-4 bars and the exact zeros.
 
@@ -222,6 +276,32 @@ constexpr size_t split_shared_bytes(int k) {
   return (size_t)k * split_stride(k - kSplitCols) * sizeof(float);
 }
 
+// The pivot row's owner at step p0 + u: its columns right of the pivot,
+// quads (u + 1)/4 .. W/4 - 1 of r, to the pivot-row buffer.
+template <int KP, int W>
+__device__ __forceinline__ void put_row(float4* buf, const float (&r)[KP],
+                                        int u) {
+#pragma unroll
+  for (int q = (u + 1) / 4; q < W / 4; ++q)
+    buf[q] = make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3]);
+}
+
+// Every other thread at step p0 + u: r -= m * (pivot row) right of the
+// pivot, one FMA a column.
+template <int KP, int W>
+__device__ __forceinline__ void sub_row(float (&r)[KP], const float4* buf,
+                                        float m, int u) {
+#pragma unroll
+  for (int q = (u + 1) / 4; q < W / 4; ++q) {
+    const float4 v = buf[q];
+    const int j = 4 * q;
+    if (j > u) r[j] = fmaf(-m, v.x, r[j]);
+    if (j + 1 > u) r[j + 1] = fmaf(-m, v.y, r[j + 1]);
+    if (j + 2 > u) r[j + 2] = fmaf(-m, v.z, r[j + 2]);
+    if (j + 3 > u) r[j + 3] = fmaf(-m, v.w, r[j + 3]);
+  }
+}
+
 // Steps p0 .. p0 + kGroup - 1 (stopping at k) on thread i's row r, which
 // holds A's columns p0, p0 + 1, ... in r[0], r[1], ...; every live column
 // lies in r[0..W-1]. rb is b_i; inv_own receives 1/d when i pivots.
@@ -241,10 +321,7 @@ __device__ __forceinline__ void steps(float (&r)[KP], float& rb,
       float d = r[u];
       if (fabsf(d) < kPivotEps) d = 1.0f;
       inv_own = __frcp_rn(d);
-#pragma unroll
-      for (int q = (u + 1) / 4; q < W / 4; ++q)
-        buf[q] = make_float4(r[4 * q], r[4 * q + 1], r[4 * q + 2],
-                             r[4 * q + 3]);
+      put_row<KP, W>(buf, r, u);
       buf[QB] = make_float4(rb, inv_own, 0.0f, 0.0f);
       c = 0.0f;
     }
@@ -252,16 +329,52 @@ __device__ __forceinline__ void steps(float (&r)[KP], float& rb,
     if (i >= k) continue;  // a padding row: zero, and never read
     const float4 t = buf[QB];
     const float m = c * t.y;
-#pragma unroll
-    for (int q = (u + 1) / 4; q < W / 4; ++q) {
-      const float4 v = buf[q];
-      const int j = 4 * q;
-      if (j > u) r[j] = fmaf(-m, v.x, r[j]);
-      if (j + 1 > u) r[j + 1] = fmaf(-m, v.y, r[j + 1]);
-      if (j + 2 > u) r[j + 2] = fmaf(-m, v.z, r[j + 2]);
-      if (j + 3 > u) r[j + 3] = fmaf(-m, v.w, r[j + 3]);
-    }
+    sub_row<KP, W>(r, buf, m, u);
     rb = fmaf(-m, t.x, rb);
+  }
+}
+
+// The same steps with C right-hand sides (gj_aug_multi_cta): rb holds
+// thread i's C entries of its chunk of B. The owner's entries go to
+// quads QB .. QB + C/4 - 1 of the pivot-row buffer and 1/d to the quad
+// after them.
+template <int KP, int W, int C>
+__device__ __forceinline__ void steps(float (&r)[KP], float (&rb)[C],
+                                      float& inv_own,
+                                      float4 (*prow)[KP / 4 + C / 4 + 1],
+                                      int i, int k, int p0) {
+  constexpr int QB = KP / 4;      // the first quad of the owner's B entries
+  constexpr int QI = QB + C / 4;  // the quad that carries 1/d_p
+#pragma unroll
+  for (int u = 0; u < kGroup; ++u) {
+    const int p = p0 + u;
+    if (p >= k) return;  // uniform: k is the same for every thread
+    float4* buf = prow[u & 1];  // p mod 2: p0 is a multiple of kGroup
+    float c = r[u];
+    if (i == p) {
+      float d = r[u];
+      if (fabsf(d) < kPivotEps) d = 1.0f;
+      inv_own = __frcp_rn(d);
+      put_row<KP, W>(buf, r, u);
+#pragma unroll
+      for (int q = 0; q < C / 4; ++q)
+        buf[QB + q] = make_float4(rb[4 * q], rb[4 * q + 1], rb[4 * q + 2],
+                                  rb[4 * q + 3]);
+      buf[QI] = make_float4(inv_own, 0.0f, 0.0f, 0.0f);
+      c = 0.0f;
+    }
+    __syncthreads();
+    if (i >= k) continue;  // a padding row: zero, and never read
+    const float m = c * buf[QI].x;
+    sub_row<KP, W>(r, buf, m, u);
+#pragma unroll
+    for (int q = 0; q < C / 4; ++q) {
+      const float4 v = buf[QB + q];
+      rb[4 * q] = fmaf(-m, v.x, rb[4 * q]);
+      rb[4 * q + 1] = fmaf(-m, v.y, rb[4 * q + 1]);
+      rb[4 * q + 2] = fmaf(-m, v.z, rb[4 * q + 2]);
+      rb[4 * q + 3] = fmaf(-m, v.w, rb[4 * q + 3]);
+    }
   }
 }
 
@@ -349,13 +462,13 @@ __device__ __forceinline__ void steps(float (&r)[KP], float& rb, float2& inv,
 
 // Phase PH: the groups from g up to the phase's last (or to step k), at
 // width W, each followed by the rotation that brings the next group's
-// pivot columns to r[0..kGroup-1]; then the next phase. Inv is float
-// (1/d of the pivot thread i took) for single steps, float2 (its row of
-// its pivot block's inverse) for pair steps.
-template <int KP, int PH, typename Inv>
-__device__ __forceinline__ void phase(float (&r)[KP], float& rb, Inv& inv,
-                                      float4 (*prow)[KP / 4 + 1], int i,
-                                      int k, int g) {
+// pivot columns to r[0..kGroup-1]; then the next phase. Rb is float (b_i)
+// or float[C] (thread i's entries of its chunk of B); Inv is float (1/d of
+// the pivot thread i took) for single steps, float2 (its row of its pivot
+// block's inverse) for pair steps; Buf is the pivot-row buffers' type.
+template <int KP, int PH, typename Rb, typename Inv, typename Buf>
+__device__ __forceinline__ void phase(float (&r)[KP], Rb& rb, Inv& inv,
+                                      Buf prow, int i, int k, int g) {
   constexpr int W = KP - PH * (KP / kPhases);
   constexpr int g_end = (PH + 1) * (KP / kGroup / kPhases);
 #pragma unroll 1
@@ -406,6 +519,32 @@ __device__ __forceinline__ void load_row_aug(float (&r)[KP], float* tile,
   }
 }
 
+// X's rows from the registers: thread i's first kc entries of rb, times
+// inv, to row i at xs + i * ldx (zero past k rows: nothing written). Each
+// warp's 32 rows go through its load tile 32 columns at a time, so that
+// each row goes out as one coalesced store of 32 columns.
+template <int C>
+__device__ __forceinline__ void store_rows(float* xs, int64_t ldx,
+                                           const float (&rb)[C], float inv,
+                                           float* tile, int i, int k,
+                                           int kc) {
+  const int lane = i % 32;
+  const int row0 = i - lane;
+#pragma unroll
+  for (int q = 0; q < C / 32; ++q) {
+#pragma unroll
+    for (int j = 0; j < 32; ++j) tile[lane * kTile + j] = rb[q * 32 + j] * inv;
+    __syncwarp();
+#pragma unroll
+    for (int rr = 0; rr < 32; ++rr) {
+      const int row = row0 + rr;
+      const int c = q * 32 + lane;
+      if (row < k && c < kc) xs[row * ldx + c] = tile[rr * kTile + lane];
+    }
+    __syncwarp();  // the next chunk overwrites the tile
+  }
+}
+
 template <int KP, int kLayout>
 __global__ void __launch_bounds__(KP)
 gj_cta_kernel(const float* __restrict__ a, int64_t sa0, int64_t sa1,
@@ -442,6 +581,38 @@ gj_cta_kernel(const float* __restrict__ a, int64_t sa0, int64_t sa1,
 
     if (i < k) x[sys * k + i] = rb * inv_own;
   }
+}
+
+// X = A^-1 B for one (system, chunk of B's columns) a block: block
+// sys * nq + q takes chunk q of nq near-equal chunks (the first m % nq one
+// column wider), KP threads, k <= KP, a chunk of at most C columns.
+template <int KP, int C>
+__global__ void __launch_bounds__(KP)
+gj_multi_cta_kernel(const float* __restrict__ a, int64_t sa0, int64_t sa1,
+                    int64_t sa2, const float* __restrict__ b, int64_t sb0,
+                    int64_t sb1, int64_t sb2, float* __restrict__ x, int k,
+                    int m, int nq) {
+  __shared__ float4 prow[2][KP / 4 + C / 4 + 1];  // double-buffered
+  __shared__ float tile[KP / 32][32 * kTile];
+
+  const int i = threadIdx.x;
+  const int64_t g = blockIdx.x;
+  const int64_t sys = g / nq;
+  const int q = (int)(g - sys * nq);
+  const int base = m / nq, extra = m % nq;
+  const int width = base + (q < extra ? 1 : 0);
+  const int c0 = q * base + (q < extra ? q : extra);
+  float r[KP];   // row i of A, zero past K
+  float rb[C];   // row i of the chunk of B, zero past its width
+  load_row_aug<KP>(r, tile[i / 32], a + sys * sa0, sa1, sa2, i, k, k);
+  load_row_aug<C>(rb, tile[i / 32], b + sys * sb0 + c0 * sb2, sb1, sb2, i,
+                  k, width);
+  float inv_own = 1.0f;
+
+  phase<KP, 0>(r, rb, inv_own, prow, i, k, 0);
+
+  store_rows<C>(x + sys * k * m + c0, m, rb, inv_own, tile[i / 32], i, k,
+                width);
 }
 
 // Steps 0 .. l-1 of a split row: columns 0 .. l-1 in shared memory (own
@@ -690,6 +861,37 @@ int launch_split(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
   return (int)cudaGetLastError();
 }
 
+// The widest chunk of B's columns a block of KP threads takes (Cmax in
+// the note above): wider chunks spill.
+constexpr int multi_cols(int kp) { return kp == 64 ? 64 : 32; }
+
+// The chunk's C: the least multiple of 32 that holds `widest` columns.
+template <int KP, int C>
+int launch_chunks(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
+                  const float* b, int64_t sb0, int64_t sb1, int64_t sb2,
+                  float* x, int64_t r, int k, int m, int nq, int widest,
+                  cudaStream_t stream) {
+  if constexpr (C < multi_cols(KP)) {
+    if (widest > C)
+      return launch_chunks<KP, C + 32>(a, sa0, sa1, sa2, b, sb0, sb1, sb2, x,
+                                       r, k, m, nq, widest, stream);
+  }
+  gj_multi_cta_kernel<KP, C><<<(unsigned)(r * nq), KP, 0, stream>>>(
+      a, sa0, sa1, sa2, b, sb0, sb1, sb2, x, k, m, nq);
+  return (int)cudaGetLastError();
+}
+
+template <int KP>
+int launch_multi(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
+                 const float* b, int64_t sb0, int64_t sb1, int64_t sb2,
+                 float* x, int64_t r, int k, int m, cudaStream_t stream) {
+  const int nq = (m + multi_cols(KP) - 1) / multi_cols(KP);
+  const int widest = (m + nq - 1) / nq;
+  if (r * nq > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  return launch_chunks<KP, 32>(a, sa0, sa1, sa2, b, sb0, sb1, sb2, x, r, k,
+                               m, nq, widest, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -745,6 +947,23 @@ int gj_blocked2_split(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
                       int64_t r, int k, void* stream) {
   if (k % 2) return (int)cudaErrorInvalidValue;
   return launch_split<kPair>(a, sa0, sa1, sa2, b, sb0, sb1, x, r, k, stream);
+}
+
+// X [r, k, m] = A^-1 B for A [r, k, k] (strides sa*) and B [r, k, m]
+// (strides sb*), 1 <= k <= 128 (the routing sends it 32 < k with m > 1),
+// m >= 1; X contiguous. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a k or m out of range.
+int gj_aug_multi_cta(const float* a, int64_t sa0, int64_t sa1, int64_t sa2,
+                     const float* b, int64_t sb0, int64_t sb1, int64_t sb2,
+                     float* x, int64_t r, int k, int m, void* stream) {
+  if (k < 1 || k > 128 || m < 1) return (int)cudaErrorInvalidValue;
+  if (r <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k <= 64)
+    return launch_multi<64>(a, sa0, sa1, sa2, b, sb0, sb1, sb2, x, r, k, m, s);
+  if (k <= 96)
+    return launch_multi<96>(a, sa0, sa1, sa2, b, sb0, sb1, sb2, x, r, k, m, s);
+  return launch_multi<128>(a, sa0, sa1, sa2, b, sb0, sb1, sb2, x, r, k, m, s);
 }
 
 // The split kernels' dynamic shared bytes a block at rank k, and in

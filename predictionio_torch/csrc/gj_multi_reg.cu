@@ -4,11 +4,14 @@
 //
 // Replaces the TPU kernel _build_solver_aug_multi of
 // predictionio_tpu/ops/pallas_solve.py:296 (reached through gj_solve_multi
-// :341) where the Schur recursion ends: the base calls of every rank from
-// 96 to 256 have K <= 32 (rank 128: [R, 32, M], M in {97, 65, 33, 1};
-// rank 96: K = 24; rank 200: K = 25; rank 256: M up to 225). Above K = 32
-// (an odd split such as rank 98 -> 49) gj_solve.cu's gj_aug_multi still
-// runs; ops/spd_solve.py routes.
+// :341) where the Schur recursion ends at K <= 32: every base call of the
+// 25 ranks from 96 to 256 whose halving stays even down to K <= 32 (96,
+// 100, ..., 128 and the multiples of 8 from 136; rank 128: [R, 32, M],
+// M in {97, 65, 33, 1}; rank 96: K = 24; rank 200: K = 25; rank 256: M up
+// to 225). The recursion stops at every odd K too, so the other 136 of
+// those 161 ranks end above K = 32 (rank 98 -> [R, 49, 50] and
+// [R, 49, 1]): the aug kernels take those calls with one right-hand side,
+// gj_cta.cu's gj_aug_multi_cta those with more; ops/spd_solve.py routes.
 //
 // What holds gj_aug_multi back: one thread block per system keeps the
 // [K][K+M] working copy in shared memory and rewrites every element in

@@ -5,7 +5,10 @@
 //   - _build_solver_aug       (one right-hand side; entry point gj_aug)
 //   - _build_solver_aug_multi (M right-hand sides; entry point gj_aug_multi)
 // Both are the same row elimination on the augmented block [A | B]; here
-// they are one kernel with two entry points.
+// they are one kernel with two entry points. The register and block
+// kernels of gj_reg.cu, gj_cta.cu and gj_multi_reg.cu took every rank a
+// route reaches over; ops/spd_solve.py leaves this kernel gj_aug above
+// K = 256 and gj_aug_multi above K = 128 with M > 1, where no route goes.
 //
 // Arithmetic, kept from the reference: K steps, no pivoting (A is SPD).
 // Step p reads the pivot d = W[p][p], guards |d| < 1e-30 -> 1 (so an

@@ -18,10 +18,18 @@ Layouts:
   route reaches it, since `gj_applicable` stops at 256).
 - ``schur``: recursive Schur complements; the eliminations become f32
   `torch.bmm` products and the base systems (K ≤ 32, or odd K) go to
-  `gj_solve_multi`; `auto` picks it at rank ≥ 96. At K ≤ 32
-  (`multi_kernel`) the base runs the register kernel ``gj_aug_multi_reg``
-  (one warp per system and right-hand-side chunk, columns in registers),
-  above that ``gj_aug_multi`` (working copy in shared or device memory).
+  `gj_solve_multi`; `auto` picks it at rank ≥ 96. Every rank from 96 to
+  256 but the 25 whose halving stays even down to K ≤ 32 (96, 100, ...,
+  128 and the multiples of 8 from 136) has base calls above K = 32: odd
+  ranks one [R, K, 1] at the full rank, ranks 2·odd and 4·odd also
+  [R, K, M] with odd K from 33 to 127 and M from 34 to 190.
+  `multi_kernel(k, m)` names the base's kernel: ``gj_aug_multi_reg`` at
+  K ≤ 32 (one warp per system and right-hand-side chunk, columns in
+  registers), the ``aug`` kernel of K (`aug_kernel`) at K > 32 with one
+  right-hand side, ``gj_aug_multi_cta`` at 32 < K ≤ 128 with M > 1 (the
+  block kernel with a chunk of B's columns beside each row), and
+  ``gj_aug_multi`` (working copy in shared or device memory) at K > 128
+  with M > 1, which no rank reaches.
 - ``packed``: column Gauss-Jordan on [[A], [bᵀ]] (the b row ends as xᵀ);
   forced only. It is the row elimination of [Aᵀ | b], transposed, so
   `packed_kernel` routes it to the ``aug`` kernels' bodies with A read
@@ -42,12 +50,13 @@ Dispatch: a tensor on the CPU runs the kernel's plain PyTorch version
 `gj_solve_multi_plain`, `gj_solve_packed_plain`,
 `gj_solve_blocked2_plain`); a CUDA tensor launches the hand-written
 kernel from ``csrc/gj_reg.cu`` (aug, packed and blocked2 at K ≤ 64),
-``csrc/gj_cta.cu`` (the three at 64 < K ≤ 256), ``csrc/gj_multi_reg.cu``
-(aug_multi at K ≤ 32), ``csrc/gj_solve.cu`` (aug above K = 256,
-aug_multi above K = 32) or ``csrc/gj_layouts.cu`` (packed and blocked2
-above K = 256), or raises. One plain version, `gj_solve_cta_plain`,
-serves the four aug and packed block kernels, and `gj_solve_pair_plain`
-the three pair kernels. `launches` counts kernel launches per wrapper.
+``csrc/gj_cta.cu`` (the three at 64 < K ≤ 256, aug_multi at
+32 < K ≤ 128), ``csrc/gj_multi_reg.cu`` (aug_multi at K ≤ 32),
+``csrc/gj_solve.cu`` (aug above K = 256, aug_multi above K = 128) or
+``csrc/gj_layouts.cu`` (packed and blocked2 above K = 256), or raises.
+One plain version, `gj_solve_cta_plain`, serves the five aug, packed and
+aug_multi block kernels, and `gj_solve_pair_plain` the three pair
+kernels. `launches` counts kernel launches per wrapper.
 
 No pivoting: A = YᵀWY + λ(n)I is SPD. All-zero systems (bucket padding)
 solve to exactly 0 through the pivot guard |d| < 1e-30 → 1.
@@ -76,7 +85,8 @@ _SCRATCH_SLOTS = 1024
 
 # kernel launches per wrapper (plain ints; the plain versions never count)
 launches = {"gj_aug_reg": 0, "gj_aug_cta": 0, "gj_aug_split": 0,
-            "gj_aug": 0, "gj_aug_multi_reg": 0, "gj_aug_multi": 0,
+            "gj_aug": 0, "gj_aug_multi_reg": 0, "gj_aug_multi_cta": 0,
+            "gj_aug_multi": 0,
             "gj_packed_reg": 0, "gj_packed_cta": 0, "gj_packed_split": 0,
             "gj_packed": 0, "gj_blocked2_reg": 0, "gj_blocked2_cta": 0,
             "gj_blocked2_split": 0, "gj_blocked2": 0}
@@ -121,10 +131,16 @@ def blocked2_kernel(k: int) -> str:
     return _by_rank(k, "gj_blocked2")
 
 
-def multi_kernel(k: int) -> str:
-    """The kernel `gj_solve_multi` runs at rank `k`: the register kernel
-    up to K = 32, the shared/device-memory one above."""
-    return "gj_aug_multi_reg" if k <= _MULTI_REG_MAX_RANK else "gj_aug_multi"
+def multi_kernel(k: int, m: int) -> str:
+    """The kernel `gj_solve_multi` runs at rank `k` with `m` right-hand
+    sides: the multi-RHS register kernel up to K = 32; above, the ``aug``
+    kernel of K for one right-hand side, the multi-RHS block kernel up to
+    K = 128 and the shared/device-memory one (no route) for more."""
+    if k <= _MULTI_REG_MAX_RANK:
+        return "gj_aug_multi_reg"
+    if m == 1:
+        return aug_kernel(k)
+    return "gj_aug_multi_cta" if k <= _CTA_MAX_RANK else "gj_aug_multi"
 
 
 def reg_padded_rank(k: int) -> int:
@@ -198,21 +214,26 @@ def gj_solve_packed_reg_plain(a: torch.Tensor,
 
 def gj_solve_cta_plain(a: torch.Tensor, b: torch.Tensor,
                        transpose: bool = False) -> torch.Tensor:
-    """x [R, K] for a [R, K, K], b [R, K], K ≤ 256 (plain PyTorch), the
-    arithmetic of the four block kernels: ``gj_aug_cta`` (K ≤ 128) and
-    ``gj_aug_split`` (128 < K ≤ 256), and with `transpose`, which
-    eliminates [Aᵀ | b] and so solves Aᵀx = b, ``gj_packed_cta`` and
-    ``gj_packed_split``. Step for step: the pivot row is not scaled; every
-    other row subtracts m·(pivot row) right of the pivot with
-    m = c · (1/d), and x_i = b_i · (1/d_i) at the end. Where a row lies
-    (registers, or split with shared memory) changes none of it."""
+    """x [R, K] for a [R, K, K], b [R, K], or X [R, K, M] = A⁻¹B for
+    b [R, K, M], K ≤ 256 (plain PyTorch), the arithmetic of the five block
+    kernels: ``gj_aug_cta`` (K ≤ 128) and ``gj_aug_split``
+    (128 < K ≤ 256), ``gj_aug_multi_cta`` (b [R, K, M], K ≤ 128), and with
+    `transpose`, which eliminates [Aᵀ | b] and so solves Aᵀx = b,
+    ``gj_packed_cta`` and ``gj_packed_split``. Step for step: the pivot
+    row is not scaled; every other row subtracts m·(pivot row) right of
+    the pivot with m = c · (1/d), and X_ij = B_ij · (1/d_i) at the end.
+    Where a row lies (registers, or split with shared memory) and how B's
+    columns are chunked change none of it: each column of X depends on A
+    and its own column of B alone."""
     k = a.shape[1]
     if k > _SPLIT_MAX_RANK:
         raise ValueError(f"the block kernels take K ≤ {_SPLIT_MAX_RANK}, "
                          f"got {k}")
     if transpose:
         a = a.transpose(1, 2)
-    work = torch.cat([a.float(), b.float()[..., None]], dim=-1)
+    single = b.dim() == 2
+    work = torch.cat([a.float(), (b[..., None] if single else b).float()],
+                     dim=-1)
     inv = torch.empty_like(work[:, :, 0])
     for p in range(k):
         d = work[:, p, p]
@@ -221,7 +242,8 @@ def gj_solve_cta_plain(a: torch.Tensor, b: torch.Tensor,
         m = work[:, :, p] * inv[:, p, None]
         m[:, p] = 0.0
         work[:, :, p + 1:] -= m[:, :, None] * work[:, p, None, p + 1:]
-    return work[:, :, k] * inv
+    x = work[:, :, k:] * inv[:, :, None]
+    return x[..., 0] if single else x
 
 
 def gj_solve_multi_reg_plain(a: torch.Tensor,
@@ -333,7 +355,8 @@ _SOURCE = {"gj_aug_reg": "gj_reg", "gj_packed_reg": "gj_reg",
            "gj_aug_cta": "gj_cta", "gj_packed_cta": "gj_cta",
            "gj_aug_split": "gj_cta", "gj_packed_split": "gj_cta",
            "gj_aug": "gj_solve", "gj_aug_multi_reg": "gj_multi_reg",
-           "gj_aug_multi": "gj_solve", "gj_packed": "gj_layouts",
+           "gj_aug_multi_cta": "gj_cta", "gj_aug_multi": "gj_solve",
+           "gj_packed": "gj_layouts",
            "gj_blocked2_reg": "gj_reg", "gj_blocked2_cta": "gj_cta",
            "gj_blocked2_split": "gj_cta", "gj_blocked2": "gj_layouts"}
 # the ranks (least, largest) each register or block kernel takes
@@ -346,7 +369,8 @@ _KERNEL_RANKS = {"gj_aug_reg": (1, _REG_MAX_RANK),
                  "gj_blocked2_reg": (1, _REG_MAX_RANK),
                  "gj_blocked2_cta": (1, _CTA_MAX_RANK),
                  "gj_blocked2_split": (_CTA_MAX_RANK + 1, _SPLIT_MAX_RANK),
-                 "gj_aug_multi_reg": (1, _MULTI_REG_MAX_RANK)}
+                 "gj_aug_multi_reg": (1, _MULTI_REG_MAX_RANK),
+                 "gj_aug_multi_cta": (1, _CTA_MAX_RANK)}
 # the kernels with one right-hand side and the signature of gj_aug_reg
 _ONE_RHS = ("gj_aug_reg", "gj_packed_reg", "gj_aug_cta", "gj_packed_cta",
             "gj_aug_split", "gj_packed_split", "gj_blocked2_reg",
@@ -376,8 +400,10 @@ def _bind(lib, source: str) -> None:
         for fn in fns:
             fn.argtypes = [p, i64, i64, i64, p, i64, i64, p, i64, i32, p]
         if source == "gj_cta":
+            lib.gj_aug_multi_cta.argtypes = [p, i64, i64, i64, p, i64, i64,
+                                             i64, p, i64, i32, i32, p]
             lib.gj_split_occupancy.argtypes = [i32, i32, p, p]
-            fns += (lib.gj_split_occupancy,)
+            fns += (lib.gj_aug_multi_cta, lib.gj_split_occupancy)
     elif source == "gj_multi_reg":
         lib.gj_aug_multi_reg.argtypes = [p, i64, i64, i64, p, i64, i64, i64,
                                          p, i64, i32, i32, i32, p]
@@ -479,6 +505,9 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
     elif name == "gj_aug_multi_reg":
         err = lib.gj_aug_multi_reg(*ab, *b.stride(), x.data_ptr(), r, k, m,
                                    chunk, stream)
+    elif name == "gj_aug_multi_cta":
+        err = lib.gj_aug_multi_cta(*ab, *b.stride(), x.data_ptr(), r, k, m,
+                                   stream)
     elif name == "gj_aug_multi":
         err = lib.gj_aug_multi(*ab, *b.stride(), x.data_ptr(), sp, r, k, m,
                                grid, stream)
@@ -504,17 +533,29 @@ def _solve_one(name: str, plain, a: torch.Tensor,
     return _launch(name, a.float(), b.float()[..., None])[..., 0]
 
 
+def _aug_plain(name: str):
+    """The plain version of the ``aug`` kernel `name` (x [R, K] from
+    a [R, K, K], b [R, K])."""
+    return {"gj_aug_reg": gj_solve_reg_plain,
+            "gj_aug_cta": gj_solve_cta_plain,
+            "gj_aug_split": gj_solve_cta_plain,
+            "gj_aug": gj_solve_plain}[name]
+
+
 def gj_solve_multi(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """X = A⁻¹ B for a batch of SPD systems with M right-hand sides.
 
     a: [R, K, K]; b: [R, K, M] → X: [R, K, M] f32. The base call of
     `schur_solve`'s recursion; `multi_kernel` names the kernel (on CPU
     tensors, its plain version)."""
-    name = multi_kernel(a.shape[1])
+    name = multi_kernel(a.shape[1], b.shape[2])
     if a.device.type == "cpu":
-        plain = (gj_solve_multi_reg_plain if name == "gj_aug_multi_reg"
-                 else gj_solve_multi_plain)
-        return plain(a, b)
+        multi = {"gj_aug_multi_reg": gj_solve_multi_reg_plain,
+                 "gj_aug_multi_cta": gj_solve_cta_plain,
+                 "gj_aug_multi": gj_solve_multi_plain}
+        if name in multi:
+            return multi[name](a, b)
+        return _aug_plain(name)(a, b[..., 0])[..., None]
     return _launch(name, a.float(), b.float())
 
 
@@ -582,8 +623,4 @@ def gj_solve(a: torch.Tensor, b: torch.Tensor, layout: str = "") -> torch.Tensor
         raise ValueError(f"unknown gj_solve layout {layout!r} "
                          "(want auto/aug/packed/blocked2/schur)")
     name = aug_kernel(k)
-    plain = {"gj_aug_reg": gj_solve_reg_plain,
-             "gj_aug_cta": gj_solve_cta_plain,
-             "gj_aug_split": gj_solve_cta_plain,
-             "gj_aug": gj_solve_plain}[name]
-    return _solve_one(name, plain, a, b)
+    return _solve_one(name, _aug_plain(name), a, b)

@@ -47,10 +47,12 @@ def test_kernel_matches_plain(dev, r, k, m):
     want = spd_solve.gj_solve_multi_plain(a, b)
     assert _rel(x, want) < 1e-4
     assert bool((x[1] == 0).all())
-    # K ≤ 32 (37, 10, 1), (64, 32, 97) run the register kernel; the rest
-    # the shared/device-memory one
-    assert spd_solve.launches[spd_solve.multi_kernel(k)] == 1
+    # K ≤ 32 (37, 10, 1), (64, 32, 97) run the multi-RHS register kernel,
+    # K > 32 with M = 1 the aug kernel of K, and (5, 250, 3) the
+    # shared/device-memory one
+    assert spd_solve.launches[spd_solve.multi_kernel(k, m)] == 1
     assert sum(spd_solve.launches.values()) == 1
+    spd_solve.reset_launches()
     x1 = spd_solve.gj_solve(a, b[..., 0], layout="aug")
     assert _rel(x1, spd_solve.gj_solve_plain(a, b[..., 0])) < 1e-4
     assert spd_solve.launches[spd_solve.aug_kernel(k)] == 1
@@ -561,7 +563,7 @@ def test_multi_reg_kernel_matches_plain(dev, r, m):
     gen = torch.Generator(device=dev).manual_seed(r * 1000 + m)
     a, b = _spd(gen, max(r, 2), 32, m, dev)
     a, b = a[:r], b[:r]
-    assert spd_solve.multi_kernel(32) == "gj_aug_multi_reg"
+    assert spd_solve.multi_kernel(32, m) == "gj_aug_multi_reg"
     x = spd_solve.gj_solve_multi(a, b)
     assert x.shape == (r, 32, m)
     assert spd_solve.launches["gj_aug_multi_reg"] == (1 if r else 0)
@@ -633,6 +635,147 @@ def test_kernel_takes_strided_blocks(dev):
     assert not sub_a.is_contiguous() and not sub_b.is_contiguous()
     x = spd_solve.gj_solve_multi(sub_a, sub_b)
     assert _rel(x, spd_solve.gj_solve_multi_plain(sub_a, sub_b)) < 1e-4
+
+
+# the multi-RHS block kernel (32 < K ≤ 128): the route's shapes (odd K
+# with M = K + 1, 2K + 1, 3K + 1), each padded size's ends, one and two
+# chunks of each width (C = 32, 64), and M = 1 and 2, which no route
+# sends it
+_MULTI_CTA_SHAPES = [(33, 34), (33, 100), (49, 50), (63, 64), (63, 190),
+                     (64, 7), (65, 66), (75, 76), (95, 96), (97, 98),
+                     (125, 126), (127, 128), (128, 33), (40, 1), (100, 2)]
+
+
+def _solve64_multi(a, b):
+    """A float64 solve of [R, K, K] against [R, K, M]; an all-zero system
+    becomes I X = 0."""
+    a64 = a.double()
+    zero = (a64 == 0).flatten(1).all(1)
+    a64[zero] = torch.eye(a.shape[1], dtype=torch.float64, device=a.device)
+    return torch.linalg.solve(a64, b.double())
+
+
+def _multi_cta(a, b):
+    """X through `gj_solve_multi` where (K, M) routes to the multi-RHS
+    block kernel, else straight through its wrapper."""
+    if spd_solve.multi_kernel(a.shape[1], b.shape[2]) == "gj_aug_multi_cta":
+        return spd_solve.gj_solve_multi(a, b)
+    return spd_solve._launch("gj_aug_multi_cta", a, b)
+
+
+@pytest.mark.parametrize("r", [1, 3])
+@pytest.mark.parametrize("k,m", _MULTI_CTA_SHAPES)
+def test_multi_cta_kernel_matches_plain(dev, k, m, r):
+    """One launch, against its plain version, the replaced kernel's plain
+    version and a float64 solve; R = 3 holds _spd's all-zero system."""
+    gen = torch.Generator(device=dev).manual_seed(k * 1000 + m * 10 + r)
+    a, b = _spd(gen, 3, k, m, dev)
+    a, b = a[:r], b[:r]
+    x = _multi_cta(a, b)
+    assert spd_solve.launches["gj_aug_multi_cta"] == 1
+    assert sum(spd_solve.launches.values()) == 1
+    assert x.shape == (r, k, m)
+    assert torch.isfinite(x).all()
+    assert _rel(x, spd_solve.gj_solve_cta_plain(a, b)) < 1e-4
+    assert _rel(x, spd_solve.gj_solve_multi_plain(a, b)) < 1e-4
+    assert _rel(x.double(), _solve64_multi(a, b)) < 1e-4
+    if r == 3:
+        assert bool((x[1] == 0).all())
+
+
+@pytest.mark.parametrize("k,m", [(33, 34), (63, 190), (125, 126)])
+def test_multi_cta_all_zero_systems_are_exactly_zero(dev, k, m):
+    a = torch.zeros(7, k, k, device=dev)
+    b = torch.zeros(7, k, m, device=dev)
+    x = spd_solve.gj_solve_multi(a, b)
+    assert bool((x == 0).all())
+    assert spd_solve.launches["gj_aug_multi_cta"] == 1
+
+
+@pytest.mark.parametrize("r,k,m", [(2_744, 125, 126), (2_744, 63, 190),
+                                   (13_850, 49, 50), (300, 75, 76)])
+def test_multi_cta_bitwise_across_r_and_launches(dev, r, k, m):
+    """One barrier a step with the pivot row (and its C entries of B)
+    double-buffered, A's elimination repeated in every chunk's block: X
+    is bitwise the same from launch to launch, for a leading part of the
+    batch solved alone, for single systems, and for B's columns solved in
+    other chunks (other widths and slot counts C)."""
+    gen = torch.Generator(device=dev).manual_seed(r + k + m)
+    a, b = _spd(gen, r, k, m, dev)
+    x = spd_solve.gj_solve_multi(a, b)
+    for _ in range(3):
+        assert torch.equal(spd_solve.gj_solve_multi(a, b), x)
+    assert torch.equal(spd_solve.gj_solve_multi(a[:37], b[:37]), x[:37])
+    for row in (0, 1, r - 1):
+        alone = spd_solve.gj_solve_multi(a[row:row + 1].clone(),
+                                         b[row:row + 1].clone())
+        assert torch.equal(alone[0], x[row])
+    for lo, hi in ((0, 20), (20, m), (m - 1, m)):
+        part = spd_solve._launch("gj_aug_multi_cta", a, b[:, :, lo:hi])
+        assert torch.equal(part, x[:, :, lo:hi])
+    assert _rel(x, spd_solve.gj_solve_cta_plain(a, b)) < 1e-4
+    assert spd_solve.launches["gj_aug_multi_cta"] == \
+        sum(spd_solve.launches.values())
+
+
+@pytest.mark.parametrize("h", [33, 49, 63, 75, 125])
+def test_multi_cta_kernel_takes_schur_views(dev, h):
+    """The recursion's operands as it passes them at rank 2h: A11 =
+    a[:, :h, :h] and B = torch.cat([A12, B1]); a transposed A; a column
+    slice of B; and A22 = a[:, h:, h:] against B2 twice over."""
+    gen = torch.Generator(device=dev).manual_seed(h)
+    a, b = _spd(gen, 40, 2 * h, 1, dev)
+    a11, a12 = a[:, :h, :h], a[:, :h, h:]
+    rhs = torch.cat([a12, b[:, :h]], dim=2)
+    assert not a11.is_contiguous()
+    for sub_a, sub_b in ((a11, rhs), (a11.transpose(1, 2), rhs),
+                         (a11, rhs[:, :, 5:40]),
+                         (a[:, h:, h:], torch.cat([b[:, h:], b[:, h:]],
+                                                  dim=2))):
+        x = spd_solve.gj_solve_multi(sub_a, sub_b)
+        assert _rel(x, spd_solve.gj_solve_cta_plain(sub_a, sub_b)) < 1e-4
+        assert bool((x[1] == 0).all())
+    assert spd_solve.launches["gj_aug_multi_cta"] == 4
+    assert sum(spd_solve.launches.values()) == 4
+
+
+def test_multi_cta_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    big = torch.eye(129, device=dev).expand(2, 129, 129)
+    with pytest.raises(ValueError, match="K ≤ 128"):
+        spd_solve._launch("gj_aug_multi_cta", big,
+                          torch.ones(2, 129, 4, device=dev))
+    a = torch.eye(40, device=dev).expand(2, 40, 40)
+    with pytest.raises(ValueError, match="CUDA"):
+        spd_solve._launch("gj_aug_multi_cta", a, torch.ones(2, 40, 4))
+    with pytest.raises(ValueError, match="float32"):
+        spd_solve._launch("gj_aug_multi_cta", a.double(),
+                          torch.ones(2, 40, 4, device=dev,
+                                     dtype=torch.float64))
+    assert not any(spd_solve.launches.values())
+
+
+@pytest.mark.parametrize("rank,kernels", [
+    (98, {"gj_aug_multi_cta", "gj_aug_reg"}),
+    (150, {"gj_aug_multi_cta", "gj_aug_cta"}),
+    (255, {"gj_aug_split"})])
+def test_als_auto_above_32_matches_chol_on_card(dev, rank, kernels,
+                                                monkeypatch):
+    """`auto` at ranks whose Schur base lies above K = 32: the routed
+    kernels launch, gj_aug_multi never does, and the RMSE trajectory
+    meets chol's."""
+    monkeypatch.delenv("PIO_GJ_LAYOUT", raising=False)
+    rng = np.random.default_rng(6)
+    ui = rng.integers(0, 300, 6000).astype(np.int32)
+    ii = rng.integers(0, 200, 6000).astype(np.int32)
+    r = rng.uniform(1, 5, 6000).astype(np.float32)
+    base = dict(rank=rank, iterations=4, reg=0.05, seed=0, split_cap=32)
+    gj = als.als_train(ui, ii, r, 300, 200, als.ALSConfig(solver="gj", **base),
+                       device=dev, compute_rmse=True)
+    assert {k for k, v in spd_solve.launches.items() if v} == kernels
+    ch = als.als_train(ui, ii, r, 300, 200,
+                       als.ALSConfig(solver="chol", **base), device=dev,
+                       compute_rmse=True)
+    np.testing.assert_allclose(gj.rmse_history, ch.rmse_history, rtol=2e-3)
 
 
 @pytest.mark.parametrize("k", [64, 96, 128, 200])

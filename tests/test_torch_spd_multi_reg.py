@@ -91,27 +91,36 @@ def test_multi_reg_plain_all_zero_system_is_exactly_zero(k, m):
     np.testing.assert_array_equal(x_multi, x)
 
 
-@pytest.mark.parametrize("k,kernel", [
-    (1, "gj_aug_multi_reg"), (16, "gj_aug_multi_reg"),
-    (17, "gj_aug_multi_reg"), (32, "gj_aug_multi_reg"),
-    (33, "gj_aug_multi"), (49, "gj_aug_multi"), (64, "gj_aug_multi")])
-def test_multi_routes_by_rank(k, kernel, monkeypatch):
-    """`multi_kernel` names the kernel; on the CPU `gj_solve_multi` runs
-    that kernel's plain version."""
-    assert spd_solve.multi_kernel(k) == kernel
+@pytest.mark.parametrize("k,m,kernel", [
+    (1, 7, "gj_aug_multi_reg"), (16, 7, "gj_aug_multi_reg"),
+    (17, 7, "gj_aug_multi_reg"), (32, 7, "gj_aug_multi_reg"),
+    (32, 1, "gj_aug_multi_reg"), (33, 7, "gj_aug_multi_cta"),
+    (49, 7, "gj_aug_multi_cta"), (64, 7, "gj_aug_multi_cta"),
+    (49, 50, "gj_aug_multi_cta"), (128, 2, "gj_aug_multi_cta"),
+    (33, 1, "gj_aug_reg"), (97, 1, "gj_aug_cta"), (129, 1, "gj_aug_split"),
+    (129, 2, "gj_aug_multi")])
+def test_multi_routes_by_rank(k, m, kernel, monkeypatch):
+    """`multi_kernel` names the kernel by (K, M); on the CPU
+    `gj_solve_multi` runs that kernel's plain version."""
+    assert spd_solve.multi_kernel(k, m) == kernel
     plain = {"gj_aug_multi_reg": "gj_solve_multi_reg_plain",
-             "gj_aug_multi": "gj_solve_multi_plain"}
+             "gj_aug_multi_cta": "gj_solve_cta_plain",
+             "gj_aug_multi": "gj_solve_multi_plain",
+             "gj_aug_reg": "gj_solve_reg_plain",
+             "gj_aug_cta": "gj_solve_cta_plain",
+             "gj_aug_split": "gj_solve_cta_plain"}
     called = []
-    for fn in plain.values():
+    for fn in set(plain.values()):
         real = getattr(spd_solve, fn)
         monkeypatch.setattr(
             spd_solve, fn,
             lambda *a, _fn=fn, _real=real, **kw: called.append(_fn)
             or _real(*a, **kw))
-    a, b = _spd_batch(300 + k, 3, k, 7)
+    a, b = _spd_batch(300 + k + m, 3, k, m)
     x = spd_solve.gj_solve_multi(torch.from_numpy(a),
                                  torch.from_numpy(b)).numpy()
     assert called == [plain[kernel]]
+    assert x.shape == (3, k, m)
     assert _rel(x, np.linalg.solve(a, b)) < 1e-4
 
 
