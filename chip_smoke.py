@@ -69,6 +69,8 @@ Phases (any failure exits non-zero and prints no result line):
              also against the plain version of `gj_blocked2`
              (gj_layouts.cu, shared or device memory), which keeps K > 256,
              where no route goes, and is timed beside them at every shape;
+             the fold's shapes (phase 6): `gj_aug_reg` at [8, 64, 1] and
+             [128, 64, 1], `gj_aug_multi_reg` at [128, 32, 97];
 3. train   — `als_train` on synth_explicit("2m") at rank 64 (`gj_aug_reg`
              alone), rank 80 (`gj_aug_cta` alone), rank 128 (Schur
              recursion over `gj_aug_multi_reg` alone), rank 250 (Schur
@@ -89,7 +91,13 @@ Phases (any failure exits non-zero and prints no result line):
              subprocess, POST /queries.json answers equal the in-process
              model's and exclude seen items; one 1,024-user batch_predict
              through the device branch of recommend_topk agrees with the
-             host branch wherever scores are not tied;
+             host branch wherever scores are not tied; then the store:
+             `console app new`, `console import` of the events file into
+             a pio.db under a fresh PIO_FS_BASEDIR, `console train` from
+             the store (an engine-instance row and a model blob) and
+             `console deploy` of the latest completed instance, whose
+             answers equal the events-file model's top-k ids wherever the
+             scores are not tied;
 5. eval    — (a) `als_train_grid` at `2m`, rank 64, λ ∈ {0.01, 0.1} with
              solver chol and with gj under the auto, packed and blocked2
              layouts: each gj grid's per-cell RMSE within rtol 2e-3 of the
@@ -102,14 +110,31 @@ Phases (any failure exits non-zero and prints no result line):
              per-cell MAP@10 within rel 2e-3 + abs 2e-5 of the auto run's;
              (c)
              `console batchpredict` of 1,024 queries on phase 4's model in
-             a subprocess equals the in-process batch_predict.
+             a subprocess equals the in-process batch_predict;
+6. fold    — on phase 3's `2m` rank-64 and rank-128 `auto` models (full
+             width): 1,000 existing users re-rating, 100 never-seen users
+             and 20 never-seen items written to a sqlite store beside the
+             re-raters' training ratings, collected by a batch-mode
+             StoreTailer, each dirty user's and new item's full history
+             gathered from the store, then `fold_model` on the card. Bars:
+             folded rows within rtol 1e-3 / atol 1e-4 of a float64 solve
+             of their weighted normal equations; eight users folded alone
+             bitwise equal to the eight folded together at their shared
+             tier; a replay bitwise idempotent; untouched rows bitwise
+             unchanged; cold rows appended with the BiMaps extended; a
+             folded user's recommendations exclude what it rated; the
+             solves launch the rank's kernel alone (`gj_aug_reg` at 64,
+             `gj_aug_multi_reg` under Schur at 128). Reported: fold wall
+             ms at 1, 8, 32 and 128 dirty users and for the backlog, the
+             backlog's host (bucketing, upload) and device (solve) ms,
+             launches by tier, and the difference between a user folded
+             alone and inside the backlog (another row tier; not gated).
 
 Launch counts are zeroed just before each path (phases 3-4: train →
-serve; phase 5: eval → batchpredict) and read just after; every kernel of
-a path must have launched there, and `gj_aug`, `gj_packed` and
-`gj_blocked2` (K > 256 only) and `gj_aug_multi` (K > 128 with M > 1 only)
-on neither.
-The eval path's counts add the console
+serve; phase 5: eval → batchpredict; phase 6: fold) and read just after;
+every kernel of a path must have launched there, and `gj_aug`, `gj_packed`
+and `gj_blocked2` (K > 256 only) and `gj_aug_multi` (K > 128 with M > 1
+only) on none. The eval path's counts add the console
 children's own to the grids'; the sequential trains phase 5a compares
 with run before its counts are zeroed. `--report PATH` also writes a JSON report
 with every number (the ptxas output, the profile's kernel table). The last
@@ -192,6 +217,14 @@ KERNEL_RANKS = {"gj_aug_reg": "aug, K ≤ 64; Schur base [R, K, 1] at odd "
                 "gj_blocked2_cta": "forced blocked2, even 64 < K ≤ 128",
                 "gj_blocked2_split": "forced blocked2, even 128 < K ≤ 256",
                 "gj_blocked2": "forced blocked2, K > 256 (no route)"}
+# phase 6: the ranks it folds at, the solve kernel each launches (the
+# aug kernel of rank 64, the Schur base kernel at 128), the batch sizes it
+# times, the new events of the backlog and when they start
+FOLD_RANKS = (64, 128)
+FOLD_KERNEL = {64: "gj_aug_reg", 128: "gj_aug_multi_reg"}
+FOLD_SIZES = (1, 8, 32, 128)
+FOLD_RERATERS, FOLD_NEW_USERS, FOLD_NEW_ITEMS = 1_000, 100, 20
+FOLD_T0 = datetime(2026, 2, 1, tzinfo=timezone.utc)
 # the kernels on no main path: gj_aug, gj_packed and gj_blocked2
 # (K > 256), gj_aug_multi (K > 128 with M > 1)
 OFF_PATH = ("gj_aug", "gj_packed", "gj_aug_multi", "gj_blocked2")
@@ -615,6 +648,13 @@ def phase_kernels(report: dict, device) -> dict:
         rows.append(_check_kernel("gj_aug_multi_cta", r, k, m, gen, device,
                                   20))
         rows.append(_check_kernel("gj_aug_multi", r, k, m, gen, device, 5))
+    # the fold's shapes (phase 6), after every other row as above: the
+    # rank-64 fold runs gj_aug_reg at its row tiers 8 and 128, the
+    # rank-128 fold's largest Schur base call is [128, 32, 97]
+    rows += [_check_kernel("gj_aug_reg", r, 64, 1, gen, device, 50)
+             for r in (8, 128)]
+    rows.append(_check_kernel("gj_aug_multi_reg", 128, 32, 97, gen, device,
+                              50))
     # each new kernel's time over the one it replaced, at the same shape
     for row in rows:
         old = REPLACED.get(row["name"])
@@ -705,15 +745,17 @@ def phase_train_reference(report: dict, data, device) -> dict:
     return out
 
 
-def phase_train(report: dict, data, device, chol: dict) -> dict:
+def phase_train(report: dict, data, device, chol: dict) -> tuple:
     """solver='gj' at rank 64, 80, 128, 250 and 255 under the auto layout,
     at rank 64 under each forced layout, at rank 128 and 256 under the
     packed and the blocked2 one and at rank 192 under the aug one; every
     run's RMSE trajectory against the chol run's of its rank, and its
-    kernels launched alone."""
+    kernels launched alone. Returns the runs' rows and the rank-64 and
+    rank-128 auto trains' results, which phase 6 folds into."""
     from predictionio_torch.ops import spd_solve
 
     runs = {}
+    trained = {}
     for rank, layout, kernels in (
             (64, "auto", ("gj_aug_reg",)), (80, "auto", ("gj_aug_cta",)),
             (128, "auto", ("gj_aug_multi_reg",)),
@@ -752,9 +794,11 @@ def phase_train(report: dict, data, device, chol: dict) -> dict:
             raise AssertionError(f"rank {rank} {layout}: want {kernels} "
                                  f"alone, launched {launched}")
         runs[(rank, layout)] = row
+        if layout == "auto" and rank in FOLD_RANKS:
+            trained[rank] = res
     report["train"] = {f"{rank}-{layout}": row
                        for (rank, layout), row in runs.items()}
-    return runs
+    return runs, trained
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -810,8 +854,9 @@ def _post(url: str, query: dict) -> dict:
 
 
 def phase_serve(report: dict, device, tmp: str) -> dict:
-    """The train → deploy → query path; returns the paths phase 5 reuses
-    (events file, engine.json, model file)."""
+    """The train → deploy → query path, from an events file and a model
+    file, then through the store (`_serve_from_store`); returns the paths
+    phase 5 reuses (events file, engine.json, model file)."""
     import numpy as np
 
     from predictionio_torch.ops import ranking
@@ -913,10 +958,99 @@ def phase_serve(report: dict, device, tmp: str) -> dict:
            "queries": len(queries), "query_ms_mean": query_ms,
            "batch_users": len(users), "batch_predict_ms": batch_ms,
            "topk_positions_compared": compared}
+    row.update(_serve_from_store(device, tmp, events, engine_json, model,
+                                 queries))
     emit(dict(phase="serve", **row))
     report["serve"] = row
     return {"events": events, "engine_json": engine_json,
             "model": model_path, "n_users": data.n_users}
+
+
+def _serve_from_store(device, tmp: str, events: str, engine_json: str,
+                      model, queries: list) -> dict:
+    """`console app new` → `console import` of the events file into a
+    pio.db under a fresh PIO_FS_BASEDIR → `console train` from the store
+    → `console deploy` of the latest completed instance; its answers
+    against the events-file model's: top-k ids identical wherever the
+    scores are not tied."""
+    import numpy as np
+
+    from predictionio_torch.storage.registry import Storage
+    from predictionio_torch.tools import console
+    from predictionio_torch.workflow.workflow_utils import read_engine_json
+
+    base = os.path.join(tmp, "pio_base")
+    old = os.environ.get("PIO_FS_BASEDIR")
+    os.environ["PIO_FS_BASEDIR"] = base
+    try:
+        t0 = time.perf_counter()
+        for argv in (["app", "new", "MyApp1"],
+                     ["import", "--appname", "MyApp1", "--input", events]):
+            if console.main(argv) != 0:
+                raise AssertionError(f"console {argv[0]} exited non-zero")
+        import_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if console.main(["train", "--engine-json", engine_json,
+                         "--device", str(device)]) != 0:
+            raise AssertionError("console train from the store failed")
+        train_s = time.perf_counter() - t0
+        variant = read_engine_json(engine_json)
+        storage = Storage.get()
+        try:
+            instance = storage.meta_engine_instances().get_latest_completed(
+                variant.id, "1", variant.variant)
+            blob = (None if instance is None else
+                    storage.model_data_models().get(instance.id))
+        finally:
+            storage.close()
+            Storage.reset(None)
+        if instance is None or blob is None:
+            raise AssertionError("the store holds no completed instance "
+                                 "with its model blob")
+    finally:
+        os.environ.pop("PIO_FS_BASEDIR")
+        if old is not None:
+            os.environ["PIO_FS_BASEDIR"] = old
+    env = dict(os.environ, PYTHONPATH=HERE, PIO_FS_BASEDIR=base)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "predictionio_torch.tools.console", "deploy",
+         "--engine-json", engine_json, "--ip", "127.0.0.1", "--port", "0",
+         "--device", str(device)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=HERE, env=env)
+    compared = 0
+    try:
+        line = _read_deployed_line(proc, 300.0)
+        if instance.id not in line:
+            raise AssertionError(f"deployed {line!r}, not {instance.id}")
+        url = f"http://127.0.0.1:{int(line.rsplit(':', 1)[1])}"
+        for q in queries:
+            got = [s["item"] for s in _post(url, q)["itemScores"]]
+            want = model.recommend_products(q["user"], q["num"])
+            if len(got) != len(want):
+                raise AssertionError(f"store deploy answered {got} for {q}, "
+                                     f"the events-file model {want}")
+            scores = np.asarray([sc for _, sc in want])
+            gaps = np.abs(np.diff(scores)) < 1e-5
+            tied = np.zeros(len(want), bool)
+            tied[:-1] |= gaps
+            tied[1:] |= gaps
+            for pos in np.nonzero(~tied)[0]:
+                if got[pos] != want[pos][0]:
+                    raise AssertionError(f"store deploy differs from the "
+                                         f"events-file model for {q} at "
+                                         f"{pos}: {got} vs {want}")
+                compared += 1
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    return {"store_import_s": import_s, "store_train_s": train_s,
+            "store_instance": instance.id,
+            "store_topk_positions_compared": compared}
 
 
 # -- phase 5 -----------------------------------------------------------------
@@ -1101,6 +1235,386 @@ def phase_batchpredict(report: dict, device, tmp: str, served: dict) -> dict:
     return row
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+def _fold_events(data, seed: int = 6):
+    """The new rating events phase 6 folds: FOLD_RERATERS existing users
+    rating 1-5 items each (items they rated before among them), then
+    FOLD_NEW_USERS never-seen users rating 5-40 items each, and
+    FOLD_NEW_ITEMS never-seen items rated by some of both; one event a
+    second from FOLD_T0."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rerate = rng.choice(data.n_users, FOLD_RERATERS, replace=False)
+    new_items = [f"newi{j}" for j in range(FOLD_NEW_ITEMS)]
+    rows = []
+    for u in rerate:
+        for i in rng.choice(data.n_items, rng.integers(1, 6),
+                            replace=False):
+            rows.append((f"u{u}", f"i{i}"))
+    for j in range(FOLD_NEW_USERS):
+        for i in rng.choice(data.n_items, rng.integers(5, 41),
+                            replace=False):
+            rows.append((f"newu{j}", f"i{i}"))
+    raters = [f"u{u}" for u in rerate[:60]] + [
+        f"newu{j}" for j in range(FOLD_NEW_USERS)][:40]
+    for n, item in enumerate(new_items):
+        for u in rng.choice(raters, 5, replace=False):
+            rows.append((str(u), item))
+    order = rng.permutation(len(rows))
+    return [(rows[k][0], rows[k][1], float(rng.integers(1, 11)) / 2,
+             FOLD_T0 + timedelta(seconds=int(n)))
+            for n, k in enumerate(order)]
+
+
+def _fold_store(tmp: str, data, new_events):
+    """A sqlite store holding the dirty users' training ratings (at
+    2026-01-01 + one second each) and the new events; returns (storage,
+    app id)."""
+    import numpy as np
+
+    from predictionio_torch.data.datamap import DataMap
+    from predictionio_torch.data.events import Event
+    from predictionio_torch.storage.base import App
+    from predictionio_torch.storage.registry import (
+        SourceConfig,
+        Storage,
+        StorageConfig,
+    )
+
+    src = SourceConfig(name="FOLD", type="sqlite",
+                       path=os.path.join(tmp, "fold", "pio.db"))
+    storage = Storage(StorageConfig(metadata=src, modeldata=src,
+                                    eventdata=src))
+    app_id = storage.meta_apps().insert(App(id=0, name="FoldApp"))
+    dirty = {u for u, _, _, _ in new_events if u.startswith("u")}
+    codes = np.asarray([int(u[1:]) for u in dirty])
+    sel = np.nonzero(np.isin(data.train_u, codes))[0]
+    t0 = datetime(2026, 1, 1, tzinfo=timezone.utc)
+
+    def rate(u, i, r, t):
+        return Event(event="rate", entity_type="user", entity_id=u,
+                     target_entity_type="item", target_entity_id=i,
+                     properties=DataMap({"rating": r}), event_time=t)
+
+    base = [rate(f"u{data.train_u[n]}", f"i{data.train_i[n]}",
+                 float(data.train_r[n]), t0 + timedelta(seconds=int(n)))
+            for n in sel]
+    le = storage.l_events()
+    for lo in range(0, len(base), 20_000):
+        le.insert_batch(base[lo:lo + 20_000], app_id)
+    le.insert_batch([rate(*e) for e in new_events], app_id)
+    return storage, app_id, len(base)
+
+
+def _histories(storage, app_id, users, items):
+    """Each dirty user's and new item's full keep-last history out of the
+    store, [(opposing id, rating)] in event-time order."""
+    def keep_last(events, key, other):
+        hist: dict = {}
+        for e in events:  # (event_time, creation_time, id) order
+            hist.setdefault(key(e), {})[other(e)] = float(
+                e.properties["rating"])
+        return {k: list(v.items()) for k, v in hist.items()}
+
+    le = storage.l_events()
+    user_hist = keep_last(
+        le.find(app_id, entity_id=sorted(users), event_names=["rate"]),
+        lambda e: e.entity_id, lambda e: e.target_entity_id)
+    item_hist = keep_last(
+        le.find(app_id, target_entity_id=sorted(items),
+                event_names=["rate"]),
+        lambda e: e.target_entity_id, lambda e: e.entity_id)
+    return user_hist, item_hist
+
+
+def _entries(hist: dict, ids) -> list:
+    import numpy as np
+
+    return [(np.asarray([ids[o] for o, _ in pairs], np.int32),
+             np.asarray([v for _, v in pairs], np.float32))
+            for _, pairs in sorted(hist.items())]
+
+
+def _normal_equations_rel(factors, rows: dict, opposing, ids, reg: float):
+    """Largest violation, over the folded rows, of rtol 1e-3 / atol 1e-4
+    against a float64 solve of each row's weighted normal equations;
+    ≤ 1 passes (the reference's bar, tests/test_online.py)."""
+    import numpy as np
+
+    worst = 0.0
+    opp = np.asarray(opposing, np.float64)
+    k = opp.shape[1]
+    for row, pairs in rows.items():
+        y = opp[[ids[o] for o, _ in pairs]]
+        v = np.asarray([r for _, r in pairs])
+        want = np.linalg.solve(y.T @ y + reg * len(pairs) * np.eye(k),
+                               y.T @ v)
+        err = np.abs(factors[row] - want) / (1e-4 + 1e-3 * np.abs(want))
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def _launch_delta(before: dict) -> dict:
+    from predictionio_torch.ops import spd_solve
+
+    return {k: v - before.get(k, 0)
+            for k, v in spd_solve.launches_by_rank.items()
+            if v != before.get(k, 0)}
+
+
+# the functions of a fold whose cumulative host ms phase 6 reports, as
+# (module file, function): id growth, history coding, the seen sets, the
+# solve's bucketing, upload and device half
+FOLD_HOST_FUNCS = (
+    ("foldin.py", "fold_model"), ("foldin.py", "extend_bimap"),
+    ("foldin.py", "entries"), ("foldin.py", "rows_of"),
+    ("foldin.py", "solve_rows"), ("foldin.py", "fold_bucket"),
+    ("als.py", "bucket_ragged"), ("als.py", "_put_buckets"),
+    ("als.py", "_solve_buckets_device"), ("bimap.py", "__init__"),
+    ("bimap.py", "__getitem__"), ("arraysetops", "unique"))
+
+
+def _fold_profile(model, cfg, user_hist, item_hist) -> dict:
+    """Where one backlog `fold_model` call spends its time: its wall
+    (median of three, synchronised), the device's busy ms in the same
+    call under `torch.profiler` (kernels, copies and sets), and the host
+    ms by function under cProfile: cumulative for FOLD_HOST_FUNCS, and
+    the ten largest self times (`fold_model`'s own is its id-set and
+    seen-set loops, comprehensions included)."""
+    import cProfile
+    import pstats
+
+    import torch
+
+    from predictionio_torch.online import fold_model
+    from predictionio_torch.tools.profile_train import device_time_by_kernel
+
+    def fold():
+        fold_model(model, cfg, user_hist, item_hist)
+        torch.cuda.synchronize()
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fold()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fold()
+    by_kernel = device_time_by_kernel(prof)
+    busy = sum(r["device_ms"] for r in by_kernel)
+    host = cProfile.Profile()
+    host.enable()
+    fold()
+    host.disable()
+    stats = pstats.Stats(host).stats
+    cum, own = {}, []
+    for (path, _, func), (_, _, self_s, cum_s, _) in stats.items():
+        base = os.path.basename(path)
+        if "arraysetops" in base:  # numpy's module, by its version
+            base = "arraysetops"
+        if (base, func) in FOLD_HOST_FUNCS:
+            cum[f"{base}:{func}"] = cum.get(f"{base}:{func}", 0.0) + cum_s * 1e3
+        own.append((self_s * 1e3, f"{base}:{func}"))
+    wall = sorted(walls)[1]
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "host_share": 1.0 - busy / wall, "device_top": by_kernel[:6],
+            "cprofile_wall_ms": cum.get("foldin.py:fold_model", 0.0),
+            "host_cum_ms": cum,
+            "host_self_ms_top": [{"name": n, "ms": ms}
+                                 for ms, n in sorted(own, reverse=True)[:10]]}
+
+
+def _fold_rank(rank: int, res, data, device, storage, app_id, new_events):
+    """Phase 6 at one rank; returns its row."""
+    import numpy as np
+    import torch
+
+    from predictionio_torch.data.bimap import BiMap
+    from predictionio_torch.ingest.tailer import StoreTailer
+    from predictionio_torch.models.als_model import ALSModel, SeenItems
+    from predictionio_torch.online import fold_model, solve_rows
+    from predictionio_torch.online.foldin import fold_bucket
+    from predictionio_torch.ops import spd_solve
+    from predictionio_torch.ops.als import ALSConfig
+
+    class Backlog(StoreTailer):
+        """Batch mode: the whole fresh batch, marked once collected."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.batch = []
+
+        def _process(self, fresh):
+            self.batch.extend(fresh)
+            for e in fresh:
+                self._mark(e)
+            return len(fresh)
+
+    model = ALSModel(
+        user_factors=res.user_factors, item_factors=res.item_factors,
+        user_ids=BiMap.string_int([f"u{n}" for n in range(data.n_users)]),
+        item_ids=BiMap.string_int([f"i{n}" for n in range(data.n_items)]),
+        seen=SeenItems(data.train_u, data.train_i, data.n_users),
+        device=str(device))
+    cfg = ALSConfig(rank=rank, reg=0.01)  # the train's λ, solver auto
+    kernel = FOLD_KERNEL[rank]
+    tailer = Backlog(storage, app_id=app_id, event_names=["rate"],
+                     since=FOLD_T0)
+    t0 = time.perf_counter()
+    collected = tailer.poll_once()
+    poll_ms = (time.perf_counter() - t0) * 1e3
+    if collected != len(new_events) or tailer.poll_once() != 0:
+        raise AssertionError(f"the tailer collected {collected} of "
+                             f"{len(new_events)} new events")
+    dirty = {e.entity_id for e in tailer.batch}
+    new_items = sorted({e.target_entity_id for e in tailer.batch}
+                       - set(model.item_ids.keys()))
+    t0 = time.perf_counter()
+    user_hist, item_hist = _histories(storage, app_id, dirty, new_items)
+    gather_ms = (time.perf_counter() - t0) * 1e3
+
+    # the whole backlog, users then the new items, on the card
+    before = dict(spd_solve.launches_by_rank)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    folded, stats = fold_model(model, cfg, user_hist, item_hist)
+    backlog_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"backlog": _launch_delta(before)}
+    n_users, n_items = len(model.user_ids), len(model.item_ids)
+    new_users = sorted(u for u in dirty if u not in model.user_ids)
+    if (stats.folded_users, stats.new_users, stats.folded_items,
+            stats.new_items) != (len(user_hist), len(new_users),
+                                 len(new_items), len(new_items)):
+        raise AssertionError(f"rank {rank}: fold stats {stats}")
+    if ([folded.user_ids[u] for u in new_users]
+            != list(range(n_users, n_users + len(new_users)))
+            or [folded.item_ids[i] for i in new_items]
+            != list(range(n_items, n_items + len(new_items)))
+            or folded.user_factors.shape != (n_users + len(new_users), rank)
+            or folded.item_factors.shape != (n_items + len(new_items), rank)):
+        raise AssertionError(f"rank {rank}: cold rows not appended")
+    touched_u = np.zeros(len(folded.user_ids), bool)
+    touched_u[[folded.user_ids[u] for u in user_hist]] = True
+    untouched = (np.array_equal(folded.user_factors[:n_users][
+        ~touched_u[:n_users]], model.user_factors[~touched_u[:n_users]])
+        and np.array_equal(folded.item_factors[:n_items],
+                           model.item_factors))
+    # users solve against the item factors they were given, the new
+    # items against the folded users
+    rel_users = _normal_equations_rel(
+        folded.user_factors,
+        {folded.user_ids[u]: p for u, p in user_hist.items()},
+        np.concatenate([model.item_factors,
+                        np.zeros((len(new_items), rank), np.float32)]),
+        folded.item_ids, cfg.reg)
+    rel_items = _normal_equations_rel(
+        folded.item_factors,
+        {folded.item_ids[i]: p for i, p in item_hist.items()},
+        folded.user_factors, folded.user_ids, cfg.reg)
+    # a folded user's recommendations exclude what it rated
+    excluded = True
+    for u in sorted(user_hist)[:50]:
+        recs = {i for i, _ in folded.recommend_products(u, 10)}
+        excluded &= not recs & {i for i, _ in user_hist[u]}
+
+    # replay (users only: with items on, a replay is one more
+    # alternation half-step) is bitwise idempotent
+    once, _ = fold_model(model, cfg, user_hist)
+    twice, _ = fold_model(once, cfg, user_hist)
+    replay_equal = (np.array_equal(once.user_factors, twice.user_factors)
+                    and np.array_equal(once.item_factors,
+                                       twice.item_factors))
+
+    # single ≡ batched at a matched tier: eight users whose lone folds
+    # share one capacity tier, folded together and alone
+    entries = _entries(user_hist, folded.item_ids)
+    names = sorted(user_hist)
+    caps = [fold_bucket([e], rank, cfg.cap_growth)[0].cols.shape[1]
+            for e in entries]
+    common = max(set(caps), key=caps.count)
+    eight = [n for n, c in enumerate(caps) if c == common][:8]
+    opp_all = torch.as_tensor(np.concatenate([
+        model.item_factors, np.zeros((len(new_items), rank), np.float32)]),
+        device=device)
+    batched = solve_rows(opp_all, [entries[n] for n in eight], cfg)
+    alone = torch.cat([solve_rows(opp_all, [entries[n]], cfg)
+                       for n in eight])
+    matched_equal = bool(torch.equal(batched, alone))
+    # ... and across tiers: alone (tier 8) against inside the backlog
+    in_backlog = torch.as_tensor(once.user_factors[
+        [once.user_ids[names[n]] for n in eight]], device=device)
+    cross_tier = float((alone - in_backlog).abs().max())
+
+    # wall by batch size, the backlog's host/device split, launches by tier
+    sizes = {}
+    for size in FOLD_SIZES:
+        part = {u: user_hist[u] for u in names[:size]}
+        fold_model(model, cfg, part)  # warm
+        walls = []
+        before = dict(spd_solve.launches_by_rank)
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fold_model(model, cfg, part)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        launches[str(size)] = {k: v // 5 for k, v in
+                               _launch_delta(before).items()}
+        sizes[str(size)] = sorted(walls)[2]
+    profile = _fold_profile(model, cfg, user_hist, item_hist)
+
+    row = {"rank": rank, "kernel": kernel,
+           "new_events": len(new_events), "collected": collected,
+           "poll_ms": poll_ms, "history_gather_ms": gather_ms,
+           "dirty_users": len(user_hist), "new_users": len(new_users),
+           "new_items": len(new_items),
+           "history_entries": sum(len(p) for p in user_hist.values()),
+           "fold_ms_by_users": sizes, "fold_ms_backlog": backlog_ms,
+           "backlog_profile": profile,
+           "launches_by_tier": launches,
+           "normal_equations_worst": max(rel_users, rel_items),
+           "single_equals_batched_matched_tier": matched_equal,
+           "matched_cap_tier": common,
+           "cross_tier_max_abs_diff": cross_tier,
+           "replay_bitwise_equal": replay_equal,
+           "untouched_bitwise_equal": untouched,
+           "recommendations_exclude_rated": excluded}
+    emit(dict(phase="fold", **row))
+    # every tier's solves on the rank's kernel, and on nothing else
+    wrong = {tier: by_rank for tier, by_rank in launches.items()
+             if not by_rank or any(not k.startswith(kernel + "/")
+                                   for k in by_rank)}
+    if (row["normal_equations_worst"] > 1.0 or not matched_equal
+            or not replay_equal or not untouched or not excluded
+            or wrong):
+        raise AssertionError(f"rank {rank} fold failed a bar: {row}")
+    return row
+
+
+def phase_fold(report: dict, data, device, trained: dict, tmp: str) -> dict:
+    """New ratings written to a sqlite store, collected by a batch-mode
+    StoreTailer, each dirty user's full history gathered from the store,
+    then `fold_model` on the card at rank 64 and 128."""
+    new_events = _fold_events(data)
+    t0 = time.perf_counter()
+    storage, app_id, n_base = _fold_store(tmp, data, new_events)
+    store_s = time.perf_counter() - t0
+    try:
+        rows = {rank: _fold_rank(rank, trained[rank], data, device, storage,
+                                 app_id, new_events)
+                for rank in FOLD_RANKS}
+    finally:
+        storage.close()
+    report["fold"] = {"store_events": n_base + len(new_events),
+                      "store_write_s": store_s, **{
+                          str(rank): row for rank, row in rows.items()}}
+    return rows
+
+
 def _require_launches(path: str, launches: dict, kernels) -> None:
     """Every kernel in `kernels` launched on the path, and no kernel of
     OFF_PATH."""
@@ -1142,7 +1656,7 @@ def main(argv=None) -> int:
     chol = phase_train_reference(report, data, device)
 
     spd_solve.reset_launches()  # the train → serve path starts here
-    train_runs = phase_train(report, data, device, chol)
+    train_runs, trained = phase_train(report, data, device, chol)
     with tempfile.TemporaryDirectory() as tmp:
         served = phase_serve(report, device, tmp)
         serve_launches = dict(spd_solve.launches)  # ... and ends here
@@ -1154,6 +1668,10 @@ def main(argv=None) -> int:
         eval_runs = phase_eval(report, device, tmp, served)
         batch = phase_batchpredict(report, device, tmp, served)
         grid_launches = dict(spd_solve.launches)  # ... and ends here
+        spd_solve.reset_launches()  # the fold path starts here
+        phase_fold(report, data, device, trained, tmp)
+        fold_launches = dict(spd_solve.launches)  # ... and ends here
+    _require_launches("fold", fold_launches, FOLD_KERNEL.values())
     # the path's launches: the grids in this process and the console
     # children's (each child's counts start at 0 with the process)
     children = [run["launches"] for run in eval_runs.values()]
@@ -1162,7 +1680,8 @@ def main(argv=None) -> int:
                      for k, v in grid_launches.items()}
     _require_launches("eval", eval_launches, LAYOUT_KERNEL.values())
     report["launches"] = {"train_serve": serve_launches,
-                          "eval": eval_launches, "eval_grid": grid_launches}
+                          "eval": eval_launches, "eval_grid": grid_launches,
+                          "fold": fold_launches}
 
     kernels = []
     for name, (replaces, source) in KERNELS.items():
@@ -1173,7 +1692,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": f"predictionio_torch/csrc/{source}",
             "replaces": replaces, "ranks": KERNEL_RANKS[name],
-            "launches": serve_launches[name] + eval_launches[name],
+            "launches": (serve_launches[name] + eval_launches[name]
+                         + fold_launches[name]),
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -1181,6 +1701,7 @@ def main(argv=None) -> int:
             "launches_train_serve": serve_launches[name],
             "launches_eval": eval_launches[name],
             "launches_eval_grid": grid_launches[name],
+            "launches_fold": fold_launches[name],
             "launches_per_epoch_2m": per_epoch,
             "launches_console_eval": {layout: run["launches"][name]
                                       for layout, run in eval_runs.items()},

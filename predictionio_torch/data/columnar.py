@@ -1,6 +1,7 @@
 """Columnar event batches — own copy of the reference's
-``predictionio_tpu/data/columnar.py::EventColumns``, built from event
-JSON objects (the wire shape of the event API and of `pio export` files).
+``predictionio_tpu/data/columnar.py``: `EventColumns` built from event
+JSON objects (the wire shape of the event API and of `pio export` files),
+from `Event`s, or from the rows the storage backends code in SQL.
 
 Contract kept from the reference: BiMap codes follow the **sorted** order
 of the distinct id strings, and rows keep (event_time, creation_time,
@@ -12,11 +13,13 @@ from __future__ import annotations
 
 import dataclasses
 from datetime import datetime, timezone
-from typing import Any, Iterable, Optional
+from itertools import chain
+from typing import Iterable, Optional, Sequence
 
 import numpy as np
 
 from predictionio_torch.data.bimap import BiMap
+from predictionio_torch.data.events import parse_time
 
 SPECIAL_EVENTS = ("$set", "$unset", "$delete")
 
@@ -41,15 +44,39 @@ class EventColumns:
         return int(self.entity_ids.shape[0])
 
 
-def parse_time(value: Any) -> datetime:
-    """ISO-8601 ('Z' suffix allowed) → aware datetime (UTC when naive)."""
-    s = str(value).strip()
-    if s.endswith("Z"):
-        s = s[:-1] + "+00:00"
-    dt = datetime.fromisoformat(s)
-    if dt.tzinfo is None:
-        dt = dt.replace(tzinfo=timezone.utc)
-    return dt
+def columns_from_numeric_rows(
+    rows: Sequence[tuple],
+    entity_uniques: Iterable[str],
+    target_uniques: Iterable[str],
+    event_names: Sequence[str],
+) -> EventColumns:
+    """Assemble `EventColumns` from already-coded numeric rows.
+
+    `rows` are `(entity_code, target_code, event_code, value, time)`
+    tuples where a missing value is encoded as +inf (JSON cannot encode
+    infinity, so the sentinel cannot collide with real property values)
+    and a missing target is −1. One flat `np.fromiter` pass keeps the
+    Python-per-row cost to tuple iteration only.
+    """
+    n = len(rows)
+    if n:
+        flat = np.fromiter(
+            chain.from_iterable(rows), dtype=np.float64, count=5 * n
+        ).reshape(n, 5)
+    else:
+        flat = np.empty((0, 5), dtype=np.float64)
+    values = flat[:, 3].astype(np.float32)
+    values[np.isinf(values)] = np.nan
+    return EventColumns(
+        entity_ids=flat[:, 0].astype(np.int32),
+        target_ids=flat[:, 1].astype(np.int32),
+        event_codes=flat[:, 2].astype(np.int32),
+        values=values,
+        times=flat[:, 4].copy(),
+        entity_bimap=BiMap.string_int(entity_uniques),
+        target_bimap=BiMap.string_int(target_uniques),
+        event_names=list(event_names),
+    )
 
 
 def numeric_or_none(v) -> Optional[float]:
@@ -129,3 +156,48 @@ def columns_from_event_dicts(
         target_bimap=BiMap.string_int(target_uniques),
         event_names=list(event_names),
     )
+
+
+def columns_from_events(
+    events,
+    event_names: Optional[list] = None,
+    value_key: Optional[str] = None,
+    ordered: bool = True,
+) -> EventColumns:
+    """Fold already-materialized `Event` objects into `EventColumns` —
+    the generic tier every storage backend shares. Output contract
+    matches the pushed-down scans: sorted BiMap codes, (event_time,
+    creation_time, id) row order when `ordered`."""
+    events = list(events)
+    if ordered:
+        events.sort(key=lambda e: (e.event_time, e.creation_time,
+                                   e.event_id or ""))
+    if event_names is None:
+        event_names = sorted(
+            {e.event for e in events if e.event not in SPECIAL_EVENTS})
+    if not event_names:
+        return columns_from_numeric_rows([], [], [], [])
+    wanted = set(event_names)
+    events = [e for e in events if e.event in wanted]
+    code_of = {name: i for i, name in enumerate(event_names)}
+    entity_uniques = sorted({e.entity_id for e in events})
+    target_uniques = sorted(
+        {e.target_entity_id for e in events
+         if e.target_entity_id is not None})
+    e_code = {s: i for i, s in enumerate(entity_uniques)}
+    t_code = {s: i for i, s in enumerate(target_uniques)}
+    inf = float("inf")
+    rows = []
+    for e in events:
+        v = (numeric_or_none(e.properties.get_opt(value_key))
+             if value_key else None)
+        rows.append((
+            e_code[e.entity_id],
+            (t_code[e.target_entity_id]
+             if e.target_entity_id is not None else -1),
+            code_of[e.event],
+            inf if v is None else v,
+            e.event_time.timestamp(),
+        ))
+    return columns_from_numeric_rows(
+        rows, entity_uniques, target_uniques, event_names)

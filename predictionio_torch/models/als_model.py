@@ -1,12 +1,14 @@
 """ALSModel — trained factor matrices + id mappings, with serving helpers:
 the port of ``predictionio_tpu/models/als_model.py``.
 
-Factors are numpy arrays on the host, so models pickle as plain arrays and
-single queries score without touching the device; bulk scoring goes
-through `ops.ranking.recommend_topk`'s device branch on `device`. Models of
-the grid evaluation hold their factors as tensors on the device instead
-(`ops.als_grid.als_train_grid(host_factors=False)`): every read path
-scores them where they lie. Such models are not written to model files.
+Factors are numpy arrays on the host, so single queries score without
+touching the device; bulk scoring goes through
+`ops.ranking.recommend_topk`'s device branch on `device`. Models of the
+grid evaluation hold their factors as tensors on the device instead
+(`ops.als_grid.als_train_grid(host_factors=False)`), and so does a model
+folded from one (`online.foldin.fold_model`): every read path scores them
+where they lie. A model always pickles with host factors, so a model blob
+loads on a machine without a card.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 from predictionio_torch.data.bimap import BiMap
 from predictionio_torch.ops import ranking
@@ -51,11 +54,19 @@ class ALSModel:
     item_factors: ranking.Factors  # [n_items, K]
     user_ids: BiMap  # user id string → row
     item_ids: BiMap  # item id string → row
-    seen: Optional[SeenItems] = None  # user row → seen item rows
+    # user row → seen item rows (a SeenItems, or a fold's SeenOverlay)
+    seen: Optional[SeenItems] = None
     rmse_history: list = dataclasses.field(default_factory=list)
     # where batches past ranking.SERVE_HOST_MAX_BATCH users score (None:
     # device.resolve_device's default); the prediction server sets it
     device: Optional[str] = None
+
+    def __getstate__(self) -> dict:
+        state = dict(self.__dict__)
+        for name in ("user_factors", "item_factors"):
+            if isinstance(state[name], torch.Tensor):
+                state[name] = state[name].cpu().numpy()
+        return state
 
     def recommend_products(
         self, user: str, num: int, exclude_seen: bool = True

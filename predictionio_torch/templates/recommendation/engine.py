@@ -30,7 +30,7 @@ from predictionio_torch.controller import (
     WorkflowContext,
 )
 from predictionio_torch.data.bimap import BiMap, compress_codes
-from predictionio_torch.data.store import PEventStore
+from predictionio_torch.data.store import EventFileStore, PEventStore
 from predictionio_torch.models.als_model import ALSModel, SeenItems
 from predictionio_torch.ops.als import ALSConfig, als_train
 
@@ -72,13 +72,13 @@ class DataSource(BaseDataSource):
         self.params = params
 
     def _read_events(self, ctx: WorkflowContext) -> TrainingData:
-        """Columnar read of rate/buy events. Rows come in event-time
-        order: the Preparator's re-rating dedup keeps the LAST
+        """Columnar read of rate/buy events, from the context's events
+        file when it has one, else from the event store. Rows come in
+        event-time order: the Preparator's re-rating dedup keeps the LAST
         occurrence, which must mean the latest event."""
-        if not ctx.events_path:
-            raise ValueError("the recommendation DataSource needs an events "
-                             "file (WorkflowContext.events_path)")
-        cols = PEventStore(ctx.events_path).find_columnar(
+        store = (EventFileStore(ctx.events_path) if ctx.events_path
+                 else PEventStore(ctx.storage))
+        cols = store.find_columnar(
             app_name=self.params.appName,
             entity_type="user",
             target_entity_type="item",

@@ -1,20 +1,30 @@
-"""The port's console — `train`, `deploy`, `eval` and `batchpredict`, the
-port of ``predictionio_tpu/tools/console.py``'s ``cmd_train``,
-``cmd_deploy``, ``cmd_eval`` and ``cmd_batchpredict``.
+"""The port's console — `app`, `import`, `export`, `train`, `deploy`,
+`eval` and `batchpredict`, the port of ``predictionio_tpu/tools/
+console.py``'s ``cmd_app`` (new, list), ``cmd_import``, ``cmd_export``,
+``cmd_train``, ``cmd_deploy``, ``cmd_eval`` and ``cmd_batchpredict``.
 
-    python -m predictionio_torch.tools.console train \\
-        --engine-json E --events F --model-out M [--device cuda|cpu]
-    python -m predictionio_torch.tools.console deploy \\
-        --engine-json E --model M [--port 0] [--device cuda|cpu]
+    python -m predictionio_torch.tools.console app new NAME
+    python -m predictionio_torch.tools.console import --appname A --input F
+    python -m predictionio_torch.tools.console train --engine-json E \\
+        [--events F] [--model-out M] [--device cuda|cpu]
+    python -m predictionio_torch.tools.console deploy --engine-json E \\
+        [--model M] [--port 0] [--device cuda|cpu]
     python -m predictionio_torch.tools.console eval EVALUATION_CLASS \\
-        [GENERATOR_CLASS] --events F [--out R] [--device cuda|cpu]
+        [GENERATOR_CLASS] [--events F] [--out R] [--device cuda|cpu]
     python -m predictionio_torch.tools.console batchpredict \\
-        --engine-json E --model M --input Q --output O [--device cuda|cpu]
+        --engine-json E [--model M] --input Q --output O [--device cuda|cpu]
 
-`--events` is a JSON-lines events file (the `pio export` format); `eval
---out` writes the evaluation instance as JSON (the record the reference
-keeps in storage). Without `--device` the commands run on CUDA (or
-``$PIO_TORCH_DEVICE``).
+As in the reference, the verbs work against the storage that
+``PIO_STORAGE_*`` configures (by default ``pio.db`` and ``models/``
+under ``$PIO_FS_BASEDIR``, ``~/.pio_tpu``): training reads the app that
+engine.json's ``appName`` names and records an engine instance with its
+model blob; deploy and batchpredict load the latest completed instance
+of engine.json's engine id and variant; eval records an evaluation
+instance. `--events` (a JSON-lines events file, the `pio export` format)
+reads events from a file instead; `--model-out`/`--model` write and read
+a model file instead of the model repository; `eval --out` also writes
+the evaluation instance as JSON. Without `--device` the commands run on
+CUDA (or ``$PIO_TORCH_DEVICE``).
 """
 
 from __future__ import annotations
@@ -25,6 +35,57 @@ import sys
 import threading
 
 import predictionio_torch
+from predictionio_torch.storage.registry import Storage
+
+
+def cmd_app(args) -> int:
+    from predictionio_torch.storage.base import AccessKey, App
+
+    storage = Storage.get()
+    if args.app_command == "new":
+        app_id = storage.meta_apps().insert(
+            App(id=0, name=args.name, description=args.description or ""))
+        if app_id is None:
+            print(f"App {args.name!r} already exists.", file=sys.stderr)
+            return 1
+        key = AccessKey.generate(app_id)
+        storage.meta_access_keys().insert(key)
+        print("Created a new app:")
+        print(f"      Name: {args.name}")
+        print(f"        ID: {app_id}")
+        print(f"Access Key: {key.key}")
+        return 0
+    keys = storage.meta_access_keys()
+    for app in storage.meta_apps().get_all():
+        app_keys = [k.key for k in keys.get_by_app_id(app.id)]
+        print(f"  {app.id} {app.name} key={app_keys[0] if app_keys else '(none)'}")
+    return 0
+
+
+def cmd_import(args) -> int:
+    from predictionio_torch.tools.transfer import file_to_events
+
+    try:
+        imported, skipped = file_to_events(args.input, args.appname,
+                                           args.channel)
+    except (ValueError, OSError, RuntimeError) as e:
+        print(f"Import failed: {e}", file=sys.stderr)
+        return 1
+    print(f"Imported {imported} events"
+          + (f" ({skipped} invalid lines skipped)" if skipped else "") + ".")
+    return 0
+
+
+def cmd_export(args) -> int:
+    from predictionio_torch.tools.transfer import events_to_file
+
+    try:
+        n = events_to_file(args.output, args.appname, args.channel)
+    except (ValueError, OSError) as e:
+        print(f"Export failed: {e}", file=sys.stderr)
+        return 1
+    print(f"Exported {n} events to {args.output}.")
+    return 0
 
 
 def cmd_train(args) -> int:
@@ -43,7 +104,8 @@ def cmd_train(args) -> int:
         ctx = WorkflowContext(device=args.device, seed=args.seed,
                               events_path=args.events)
         instance = CoreWorkflow.run_train(engine, engine_params, variant,
-                                          ctx, args.model_out)
+                                          ctx, args.model_out,
+                                          args.engine_version)
     except FileNotFoundError as e:
         print(f"Cannot read input: {e}", file=sys.stderr)
         return 1
@@ -98,7 +160,8 @@ def cmd_batchpredict(args) -> int:
 
     try:
         n = run_batch_predict(args.input, args.output, args.engine_json,
-                              args.model, device=args.device)
+                              args.model, device=args.device,
+                              engine_version=args.engine_version)
     except (RuntimeError, FileNotFoundError, ValueError, TypeError, KeyError,
             ImportError, AttributeError) as e:
         print(f"Batch predict failed: {e}", file=sys.stderr)
@@ -112,7 +175,8 @@ def cmd_deploy(args) -> int:
 
     try:
         server = PredictionServer(args.engine_json, args.model, ip=args.ip,
-                                  port=args.port, device=args.device)
+                                  port=args.port, device=args.device,
+                                  engine_version=args.engine_version)
     except FileNotFoundError as e:
         print(f"Deploy failed: {e}", file=sys.stderr)
         return 1
@@ -161,47 +225,78 @@ def build_parser() -> argparse.ArgumentParser:
                    version=predictionio_torch.__version__)
     sub = p.add_subparsers(dest="command", required=True)
 
-    t = sub.add_parser("train", help="train an engine from an events file")
+    a = sub.add_parser("app", help="manage apps in the metadata store")
+    a_sub = a.add_subparsers(dest="app_command", required=True)
+    a_new = a_sub.add_parser("new", help="create an app and its access key")
+    a_new.add_argument("name")
+    a_new.add_argument("--description", default="")
+    a_sub.add_parser("list", help="list the apps and their first key")
+    a.set_defaults(fn=cmd_app)
+
+    i = sub.add_parser("import", help="import a JSON-lines events file "
+                                      "into an app's event store")
+    i.add_argument("--appname", required=True)
+    i.add_argument("--input", required=True)
+    i.add_argument("--channel", default=None)
+    i.set_defaults(fn=cmd_import)
+
+    x = sub.add_parser("export", help="export an app's events as JSON "
+                                      "lines")
+    x.add_argument("--appname", required=True)
+    x.add_argument("--output", required=True)
+    x.add_argument("--channel", default=None)
+    x.set_defaults(fn=cmd_export)
+
+    def add_device(sp):
+        sp.add_argument("--device", default=None,
+                        help="cuda (default), cuda:N or cpu")
+
+    t = sub.add_parser("train", help="train an engine")
     t.add_argument("--engine-json", default="engine.json")
-    t.add_argument("--events", required=True,
-                   help="JSON-lines events file (pio export format)")
-    t.add_argument("--model-out", required=True,
-                   help="where the trained model file is written")
-    t.add_argument("--device", default=None,
-                   help="cuda (default), cuda:N or cpu")
+    t.add_argument("--engine-version", default="1")
+    t.add_argument("--events", default=None,
+                   help="read this JSON-lines events file (pio export "
+                        "format) instead of the event store")
+    t.add_argument("--model-out", default=None,
+                   help="write the trained models to this model file "
+                        "instead of the model repository")
+    add_device(t)
     t.add_argument("--seed", type=int, default=0)
     t.set_defaults(fn=cmd_train)
 
-    d = sub.add_parser("deploy", help="serve a trained model file")
+    d = sub.add_parser("deploy", help="serve a trained engine")
     d.add_argument("--engine-json", default="engine.json")
-    d.add_argument("--model", required=True)
+    d.add_argument("--engine-version", default="1")
+    d.add_argument("--model", default=None,
+                   help="serve this model file instead of the latest "
+                        "completed instance in storage")
     d.add_argument("--ip", default="0.0.0.0")
     d.add_argument("--port", type=int, default=8000)
-    d.add_argument("--device", default=None,
-                   help="cuda (default), cuda:N or cpu")
+    add_device(d)
     d.set_defaults(fn=cmd_deploy)
 
-    e = sub.add_parser("eval", help="evaluate a params grid on an events "
-                                    "file")
+    e = sub.add_parser("eval", help="evaluate a params grid")
     e.add_argument("evaluation_class")
     e.add_argument("generator_class", nargs="?", default=None)
-    e.add_argument("--events", required=True,
-                   help="JSON-lines events file (pio export format)")
+    e.add_argument("--events", default=None,
+                   help="read this JSON-lines events file (pio export "
+                        "format) instead of the event store")
     e.add_argument("--out", default=None,
-                   help="write the evaluation instance here as JSON")
-    e.add_argument("--device", default=None,
-                   help="cuda (default), cuda:N or cpu")
+                   help="also write the evaluation instance here as JSON")
+    add_device(e)
     e.add_argument("--seed", type=int, default=0)
     e.set_defaults(fn=cmd_eval)
 
     b = sub.add_parser("batchpredict",
                        help="score a JSON-lines queries file")
     b.add_argument("--engine-json", default="engine.json")
-    b.add_argument("--model", required=True)
+    b.add_argument("--engine-version", default="1")
+    b.add_argument("--model", default=None,
+                   help="score with this model file instead of the latest "
+                        "completed instance in storage")
     b.add_argument("--input", required=True)
     b.add_argument("--output", required=True)
-    b.add_argument("--device", default=None,
-                   help="cuda (default), cuda:N or cpu")
+    add_device(b)
     b.set_defaults(fn=cmd_batchpredict)
     return p
 
@@ -213,7 +308,16 @@ def main(argv=None) -> int:
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    opened_here = Storage._instance is None
+    try:
+        return args.fn(args)
+    finally:
+        # the process storage this command opened goes with it: a later
+        # command in the same process (a script, a test) reads the
+        # environment afresh
+        if opened_here and Storage._instance is not None:
+            Storage._instance.close()
+            Storage.reset(None)
 
 
 if __name__ == "__main__":

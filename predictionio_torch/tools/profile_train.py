@@ -21,6 +21,24 @@ import subprocess
 import time
 
 
+def device_time_by_kernel(prof) -> list:
+    """The device's rows of a finished `torch.profiler` trace (kernels,
+    copies, sets), each with its device ms and count, longest first."""
+    import torch
+
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # host-side ops: their kernels are counted here
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        rows.append({"name": ev.key[:90], "device_ms": dev_us / 1e3,
+                     "calls": ev.count})
+    rows.sort(key=lambda r: -r["device_ms"])
+    return rows
+
+
 def profile_train(data, device, rank: int, iterations: int = 3) -> dict:
     """Device time by kernel over one `als_train` call at `rank` (bucket
     upload + `iterations` epochs), and the device's busy share of it."""
@@ -38,16 +56,7 @@ def profile_train(data, device, rank: int, iterations: int = 3) -> dict:
                   data.n_items, cfg, device=device)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # host-side ops: their kernels are counted below
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        rows.append({"name": ev.key[:90], "device_ms": dev_us / 1e3,
-                     "calls": ev.count})
-    rows.sort(key=lambda r: -r["device_ms"])
+    rows = device_time_by_kernel(prof)
     busy = sum(r["device_ms"] for r in rows)
     return {"rank": rank, "wall_ms": wall_ms, "device_ms": busy,
             "busy_share": busy / wall_ms, "top": rows[:12],

@@ -5,25 +5,31 @@ Reads JSON-lines queries, scores them all through the engine's
 `predict_batch` (each algorithm's vectorized `batch_predict`, then Serving
 per query) on the run's device, and writes JSON-lines
 {"query": ..., "prediction": ...} results in input order. The model comes
-from a model file, as `console deploy` serves it.
+from the model repository or a model file, as `console deploy` serves it.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+from typing import Optional
 
 from predictionio_torch.device import DeviceLike, resolve_device
-from predictionio_torch.workflow.create_server import load_served_state
+from predictionio_torch.storage.registry import Storage
+from predictionio_torch.workflow.create_server import load_engine_state
 
 log = logging.getLogger(__name__)
 
 
 def run_batch_predict(input_path: str, output_path: str, engine_json: str,
-                      model_path: str, device: DeviceLike = None) -> int:
-    """Score every query of `input_path` into `output_path`; returns the
-    number of queries scored."""
-    state = load_served_state(engine_json, model_path, resolve_device(device))
+                      model_path: Optional[str] = None,
+                      device: DeviceLike = None, engine_version: str = "1",
+                      storage: Optional[Storage] = None) -> int:
+    """Score every query of `input_path` into `output_path` with the model
+    `load_engine_state` finds; returns the number of queries scored."""
+    state = load_engine_state(engine_json, model_path,
+                              resolve_device(device), engine_version,
+                              storage)
     queries = []
     with open(input_path) as f:
         for line in f:

@@ -1,24 +1,27 @@
 """CoreWorkflow — the `pio train` and `pio eval` bodies: the port of
-``predictionio_tpu/workflow/core_workflow.py::CoreWorkflow.run_train`` and
-``run_evaluation``.
+``predictionio_tpu/workflow/core_workflow.py``.
 
-Train: read → prepare → train on the context's device, then pickle the
-models into a model file (the engine instance's id and variant ride
-along). Eval: run the MetricEvaluator over the generator's grid and write
-the evaluation instance — the fields of the reference's
-`EvaluationInstance` row, results included — to a JSON file. Engine- and
-evaluation-instance rows and the model repository in storage come in a
-later slice.
+Train: read → prepare → train on the context's device, then persist the
+models as the reference does: one engine-instance row per train (RUNNING
+→ COMPLETED/FAILED, holding the engine params JSON) in the metadata
+repository and the model blob, keyed by the instance id, in the model
+repository; `pio deploy` loads the latest completed instance. A model
+file (a pickle holding the same engine-instance row with the models)
+may take the storage's place. Eval: run the MetricEvaluator over the
+generator's grid and record one evaluation-instance row, or write the
+same record to a JSON file.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
 import os
 import pickle
 import tempfile
+import traceback
 import uuid
 from datetime import datetime, timezone
 from typing import Any, Optional, Sequence
@@ -31,45 +34,54 @@ from predictionio_torch.controller.evaluation import (
     EvaluationResult,
     MetricEvaluator,
 )
-from predictionio_torch.workflow.workflow_utils import EngineVariant
+from predictionio_torch.data.events import format_time
+from predictionio_torch.storage import base as storage_base
+from predictionio_torch.workflow.workflow_utils import (
+    EngineVariant,
+    engine_params_to_json,
+)
 
 log = logging.getLogger(__name__)
 
-MODEL_FILE_FORMAT = 1
+# 2: the instance is the storage's engine-instance row
+# (`storage.base.EngineInstance`), the same record a train into the
+# model repository writes
+MODEL_FILE_FORMAT = 2
 
 
-@dataclasses.dataclass
-class EngineInstance:
-    """What one train produced: its id, engine and the time it ran."""
-
-    id: str
-    engine_id: str
-    engine_variant: str
-    engine_factory: str
-    start_time: str
-    end_time: str
+def _now() -> datetime:
+    return datetime.now(timezone.utc)
 
 
-@dataclasses.dataclass
-class EvaluationInstance:
-    """What one evaluation ran and found: the reference's
-    `EvaluationInstance` fields."""
-
-    id: str
-    status: str  # EVALRUNNING → EVALCOMPLETED or EVALFAILED
-    start_time: str
-    end_time: str
-    evaluation_class: str
-    engine_params_generator_class: str
-    batch: str = ""
-    env: dict = dataclasses.field(default_factory=dict)
-    evaluator_results: str = ""  # human-readable summary
-    evaluator_results_html: str = ""
-    evaluator_results_json: str = ""
-
-
-def _now() -> str:
-    return datetime.now(timezone.utc).isoformat()
+@contextlib.contextmanager
+def tracked_instance(instances, instance, completed: str = "COMPLETED",
+                     failed: str = "FAILED", label: str = "workflow"):
+    """Instance-row lifecycle shared by train and eval: insert as-is (the
+    caller sets the RUNNING-style status), mark `completed` after the
+    block, mark `failed` + log + re-raise on exception. Fields the block
+    sets on the instance (e.g. evaluator results) persist in the final
+    update. With `instances` None the record gets an id and its statuses
+    but is stored nowhere (the caller writes it out)."""
+    if instances is None:
+        instance.id = uuid.uuid4().hex
+    else:
+        instance.id = instances.insert(instance)
+    log.info("%s: instance %s %s", label, instance.id, instance.status)
+    try:
+        yield instance
+    except Exception:
+        instance.status = failed
+        instance.end_time = _now()
+        if instances is not None:
+            instances.update(instance)
+        log.error("%s: instance %s %s\n%s", label, instance.id, failed,
+                  traceback.format_exc())
+        raise
+    instance.status = completed
+    instance.end_time = _now()
+    if instances is not None:
+        instances.update(instance)
+    log.info("%s: instance %s %s", label, instance.id, completed)
 
 
 def _write_atomic(path: str, data: bytes) -> None:
@@ -87,7 +99,7 @@ def _write_atomic(path: str, data: bytes) -> None:
         raise
 
 
-def write_model_file(path: str, instance: EngineInstance,
+def write_model_file(path: str, instance: storage_base.EngineInstance,
                      models: Sequence[Any]) -> None:
     """Pickle the instance record and the models to `path` atomically."""
     _write_atomic(path, pickle.dumps({
@@ -96,7 +108,8 @@ def write_model_file(path: str, instance: EngineInstance,
         "models": Engine.serialize_models(models)}))
 
 
-def read_model_file(path: str) -> tuple[EngineInstance, list[Any]]:
+def read_model_file(
+        path: str) -> tuple[storage_base.EngineInstance, list[Any]]:
     """(instance, models) of a model file `write_model_file` wrote (pickle
     runs code: load only model files you trust)."""
     with open(path, "rb") as f:
@@ -104,8 +117,16 @@ def read_model_file(path: str) -> tuple[EngineInstance, list[Any]]:
     if payload.get("format") != MODEL_FILE_FORMAT:
         raise ValueError(f"{path}: unknown model file format "
                          f"{payload.get('format')!r}")
-    return (EngineInstance(**payload["instance"]),
+    return (storage_base.EngineInstance(**payload["instance"]),
             Engine.deserialize_models(payload["models"]))
+
+
+def _evaluation_record(instance: storage_base.EvaluationInstance) -> bytes:
+    """The evaluation instance as the JSON an `eval --out` file holds."""
+    record = dataclasses.asdict(instance)
+    record["start_time"] = format_time(instance.start_time)
+    record["end_time"] = format_time(instance.end_time)
+    return json.dumps(record, indent=1).encode()
 
 
 class CoreWorkflow:
@@ -115,23 +136,43 @@ class CoreWorkflow:
         engine_params: EngineParams,
         variant: EngineVariant,
         ctx: WorkflowContext,
-        model_out: str,
-    ) -> EngineInstance:
+        model_out: Optional[str] = None,
+        engine_version: str = "1",
+    ):
         """Train every algorithm of `engine_params` (with the sanity checks
-        after each stage) and persist the models to `model_out`."""
-        start = _now()
-        models = engine.train(ctx, engine_params, sanity_check=True)
-        instance = EngineInstance(
-            id=uuid.uuid4().hex,
+        after each stage) and persist the models: to the context's
+        storage (an engine-instance row and the model blob), or, with
+        `model_out`, to that model file. Returns the instance record."""
+        instance = storage_base.EngineInstance(
+            id="",
+            status="RUNNING",
+            start_time=_now(),
+            end_time=_now(),
             engine_id=variant.id,
+            engine_version=engine_version,
             engine_variant=variant.variant,
             engine_factory=variant.engine_factory,
-            start_time=start,
-            end_time=_now(),
+            env={},
+            **engine_params_to_json(engine_params),
         )
-        write_model_file(model_out, instance, models)
-        log.info("CoreWorkflow.run_train: instance %s trained %d model(s) "
-                 "→ %s", instance.id, len(models), model_out)
+        if model_out:
+            with tracked_instance(None, instance,
+                                  label="CoreWorkflow.run_train"):
+                models = engine.train(ctx, engine_params, sanity_check=True)
+            write_model_file(model_out, instance, models)
+            log.info("CoreWorkflow.run_train: instance %s trained %d "
+                     "model(s) → %s", instance.id, len(models), model_out)
+            return instance
+        storage = ctx.storage
+        with tracked_instance(storage.meta_engine_instances(), instance,
+                              label="CoreWorkflow.run_train"):
+            models = engine.train(ctx, engine_params, sanity_check=True)
+            blob = engine.serialize_models(models)
+            storage.model_data_models().insert(
+                storage_base.Model(id=instance.id, models=blob))
+            log.info("CoreWorkflow.run_train: instance %s trained %d "
+                     "model(s), %d byte blob", instance.id, len(models),
+                     len(blob))
         return instance
 
     @staticmethod
@@ -142,34 +183,34 @@ class CoreWorkflow:
         evaluation_class: str = "",
         generator_class: str = "",
         out_path: Optional[str] = None,
-    ) -> tuple[EvaluationInstance, EvaluationResult]:
+    ) -> tuple[storage_base.EvaluationInstance, EvaluationResult]:
         """Evaluate every engine params of `generator` and return the
-        instance record with the result. With `out_path`, the record is
-        written there as JSON when the evaluation ends, with status
-        EVALFAILED when it raised."""
-        instance = EvaluationInstance(
-            id=uuid.uuid4().hex,
+        instance record with the result. A run over the event store
+        records the instance in the context's storage (EVALRUNNING →
+        EVALCOMPLETED or EVALFAILED); a run over an events file records
+        it nowhere. With `out_path` the record is also written there as
+        JSON when the evaluation ends, whether it completed or failed."""
+        instance = storage_base.EvaluationInstance(
+            id="",
             status="EVALRUNNING",
             start_time=_now(),
-            end_time="",
+            end_time=_now(),
             evaluation_class=evaluation_class or type(evaluation).__name__,
             engine_params_generator_class=(generator_class
                                            or type(generator).__name__),
         )
+        instances = (None if ctx.events_path
+                     else ctx.storage.meta_evaluation_instances())
         try:
-            result = MetricEvaluator.evaluate(
-                ctx, evaluation, list(generator.engine_params_list))
-            instance.evaluator_results = result.summary()
-            instance.evaluator_results_json = result.to_json()
-            instance.status = "EVALCOMPLETED"
-        except Exception:
-            instance.status = "EVALFAILED"
-            raise
+            with tracked_instance(instances, instance,
+                                  completed="EVALCOMPLETED",
+                                  failed="EVALFAILED",
+                                  label="CoreWorkflow.run_evaluation"):
+                result = MetricEvaluator.evaluate(
+                    ctx, evaluation, list(generator.engine_params_list))
+                instance.evaluator_results = result.summary()
+                instance.evaluator_results_json = result.to_json()
         finally:
-            instance.end_time = _now()
             if out_path:
-                _write_atomic(out_path, json.dumps(
-                    dataclasses.asdict(instance), indent=1).encode())
-            log.info("CoreWorkflow.run_evaluation: instance %s %s",
-                     instance.id, instance.status)
+                _write_atomic(out_path, _evaluation_record(instance))
         return instance, result

@@ -26,7 +26,11 @@ from predictionio_torch.controller.engine import (
     EngineParams,
     resolve_component,
 )
-from predictionio_torch.controller.params import Params, params_from_dict
+from predictionio_torch.controller.params import (
+    Params,
+    params_from_dict,
+    params_to_dict,
+)
 
 
 @dataclasses.dataclass
@@ -153,3 +157,30 @@ def extract_engine_params(engine: Engine, variant: EngineVariant) -> EngineParam
         serving_params=_component_params(serv_cls, variant.serving,
                                          "serving"),
     )
+
+
+def engine_params_to_json(engine_params: EngineParams) -> dict[str, str]:
+    """EngineParams blocks as the JSON columns of an engine-instance row.
+
+    Every block stores `{"name": ..., "params": {...}}`: the component
+    name must survive the row round trip, or a deploy that rebuilds the
+    variant from the stored instance would resolve multi-entry class maps
+    to the wrong component (a weighted-serving train deployed as
+    FirstServing)."""
+
+    def block(name, p):
+        return json.dumps(
+            {"name": name, "params": params_to_dict(p) if p else {}})
+
+    return {
+        "data_source_params": block(engine_params.data_source_name,
+                                    engine_params.data_source_params),
+        "preparator_params": block(engine_params.preparator_name,
+                                   engine_params.preparator_params),
+        "algorithms_params": json.dumps([
+            {"name": name, "params": params_to_dict(p) if p else {}}
+            for name, p in engine_params.algorithm_params_list
+        ]),
+        "serving_params": block(engine_params.serving_name,
+                                engine_params.serving_params),
+    }

@@ -7,6 +7,8 @@ where JAX is not installed (tests/conftest.py imports JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -846,3 +848,81 @@ def test_device_topk_matches_host_on_card(dev):
     tied[:, :-1] |= gaps
     tied[:, 1:] |= gaps
     np.testing.assert_array_equal(i_dev[~tied], i_host[~tied])
+
+
+def _fold_model_and_hist(rank, n_users=300, n_items=200, n_dirty=40, seed=0):
+    """A random model and full histories for `n_dirty` users, every one
+    with 40-96 ratings (the fold's capacity tier 128)."""
+    from predictionio_torch.data.bimap import BiMap
+    from predictionio_torch.models.als_model import ALSModel
+
+    rng = np.random.default_rng(seed)
+    model = ALSModel(
+        user_factors=rng.normal(size=(n_users, rank)).astype(np.float32),
+        item_factors=(rng.normal(size=(n_items, rank)) / np.sqrt(rank))
+        .astype(np.float32),
+        user_ids=BiMap.string_int([f"u{i}" for i in range(n_users)]),
+        item_ids=BiMap.string_int([f"i{i}" for i in range(n_items)]),
+        device="cuda")
+    hist = {}
+    for u in range(n_dirty):
+        items = rng.choice(n_items, rng.integers(40, 97), replace=False)
+        hist[f"u{u}"] = [(f"i{i}", float(rng.integers(1, 6))) for i in items]
+    return model, hist
+
+
+@pytest.mark.parametrize("rank,kernel", [(64, "gj_aug_reg"),
+                                         (128, "gj_aug_multi_reg")])
+def test_fold_on_card_launches_the_kernel_of_its_rank(dev, rank, kernel):
+    """A fold under `auto` launches the aug kernel of its rank (rank 64)
+    or the Schur base kernel (rank 128) and no other; its rows solve the
+    weighted normal equations (float64 bar of the reference's tests)."""
+    from predictionio_torch.online import fold_model
+
+    model, hist = _fold_model_and_hist(rank)
+    cfg = als.ALSConfig(rank=rank, reg=0.05)
+    folded, stats = fold_model(model, cfg, hist)
+    assert stats.folded_users == len(hist)
+    assert isinstance(folded.user_factors, np.ndarray)
+    launched = {k: v for k, v in spd_solve.launches.items() if v}
+    assert list(launched) == [kernel] and launched[kernel] > 0
+    itf = model.item_factors.astype(np.float64)
+    for u, pairs in hist.items():
+        cols = np.asarray([model.item_ids[i] for i, _ in pairs])
+        vals = np.asarray([v for _, v in pairs])
+        y = itf[cols]
+        want = np.linalg.solve(y.T @ y + 0.05 * len(cols) * np.eye(rank),
+                               y.T @ vals)
+        np.testing.assert_allclose(folded.user_factors[model.user_ids[u]],
+                                   want, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("rank", [64, 128])
+def test_fold_on_card_single_equals_batched_at_matched_tier(dev, rank):
+    """Eight users folded together equal each folded alone (both tier 8,
+    capacity tier 128), a replay is bitwise idempotent, and device-
+    resident factors come back on the device, equal to the host fold."""
+    from predictionio_torch.online import fold_model, solve_rows
+    from predictionio_torch.online.foldin import fold_bucket
+
+    model, hist = _fold_model_and_hist(rank, n_dirty=8, seed=rank)
+    cfg = als.ALSConfig(rank=rank, reg=0.05)
+    entries = [(np.asarray([model.item_ids[i] for i, _ in pairs], np.int32),
+                np.asarray([v for _, v in pairs], np.float32))
+               for _, pairs in sorted(hist.items())]
+    assert {fold_bucket([e], rank, 1.5)[0].cols.shape[1]
+            for e in entries} == {128}
+    opposing = torch.as_tensor(model.item_factors, device=dev)
+    batched = solve_rows(opposing, entries, cfg)
+    for n, e in enumerate(entries):
+        assert torch.equal(solve_rows(opposing, [e], cfg)[0], batched[n])
+    once, _ = fold_model(model, cfg, hist)
+    twice, _ = fold_model(once, cfg, hist)
+    assert np.array_equal(once.user_factors, twice.user_factors)
+    on_dev = dataclasses.replace(
+        model, user_factors=torch.as_tensor(model.user_factors, device=dev),
+        item_factors=opposing)
+    folded, _ = fold_model(on_dev, cfg, hist)
+    assert folded.user_factors.device.type == "cuda"
+    assert np.array_equal(folded.user_factors.cpu().numpy(),
+                          once.user_factors)

@@ -29,12 +29,15 @@ from predictionio_torch.templates.recommendation.evaluation import (
 )
 from predictionio_torch.tools import console
 from predictionio_torch.workflow.core_workflow import (
-    EngineInstance,
     read_model_file,
     write_model_file,
 )
 from predictionio_torch.workflow.create_server import load_served_state
-from tests.test_torch_recommendation import ENGINE_JSON, _write_events
+from tests.test_torch_recommendation import (
+    ENGINE_JSON,
+    _instance,
+    _write_events,
+)
 
 EVAL_CLASS = ("predictionio_torch.templates.recommendation.evaluation."
               "RecommendationEvaluation")
@@ -343,9 +346,7 @@ def test_console_batchpredict_on_cpu(tmp_path, capsys):
 
 def test_console_batchpredict_reports_failures(tmp_path, capsys):
     model_path = str(tmp_path / "model.pio")
-    write_model_file(model_path, EngineInstance(
-        id="x", engine_id="default", engine_variant="default",
-        engine_factory="some.other.Engine", start_time="", end_time=""), [])
+    write_model_file(model_path, _instance("x", "some.other.Engine"), [])
     q_path = tmp_path / "q.jsonl"
     q_path.write_text('{"user": "u1", "num": 2}\n')
     rc = console.main(["batchpredict", "--engine-json", ENGINE_JSON,

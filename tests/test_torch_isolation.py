@@ -76,6 +76,38 @@ _BLOCKED_RUN = textwrap.dedent("""
                          predictions, "--device", "cpu"]) == 0
     with open(predictions) as f:
         assert len(f.readlines()) == 80
+
+    # the storage slice: the event store and model repository, the
+    # store tailer, and a fold of the trained model on the CPU
+    import predictionio_torch.storage
+    from predictionio_torch.ingest.tailer import StoreTailer
+    from predictionio_torch.online import foldin
+    from predictionio_torch.ops.als import ALSConfig
+    from predictionio_torch.workflow.core_workflow import read_model_file
+
+    os.environ["PIO_FS_BASEDIR"] = os.path.join(tmp, "base")
+    assert console.main(["app", "new", "MyApp1"]) == 0
+    assert console.main(["import", "--appname", "MyApp1", "--input",
+                         events]) == 0
+    assert console.main(["train", "--engine-json", engine_json,
+                         "--device", "cpu"]) == 0
+    storage = predictionio_torch.storage.Storage.get()
+    pulled = []
+
+    class Pull(StoreTailer):
+        def _apply(self, e):
+            pulled.append(e)
+            return True
+
+    assert Pull(storage).poll_once() == 120
+    storage.close()
+    _, (als_model, _popular) = read_model_file(model)
+    folded, stats = foldin.fold_model(
+        als_model, ALSConfig(rank=10, reg=0.01),
+        {{"u1": [("i0", 5.0), ("i3", 1.0)], "new": [("i2", 4.0)]}},
+        device="cpu")
+    assert (stats.folded_users, stats.new_users) == (2, 1), stats
+    assert folded.user_factors.shape[0] == als_model.user_factors.shape[0] + 1
     after = {{m for m in sys.modules if m.split(".")[0] in BLOCKED}}
     assert after == before, sorted(after - before)
     print("ISOLATED-OK")
