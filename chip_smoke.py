@@ -129,9 +129,34 @@ Phases (any failure exits non-zero and prints no result line):
              backlog's host (bucketing, upload) and device (solve) ms,
              launches by tier, and the difference between a user folded
              alone and inside the backlog (another row tier; not gated).
+7. online  — the online plane (`online/plane.py`) in a deployed server:
+             (a) `console deploy` of phase 4's pio.db with PIO_ONLINE=1
+             in a child process; 20 rounds written into that pio.db with
+             the storage API (one never-seen user rating 3 items, 4
+             existing users re-rating one item each), each polled with
+             POST /queries.json until the new user is served without
+             what it rated (30 s a round). Bars: 20 of 20 rounds
+             servable, GET /'s `online.eventsFolded` equal to the events
+             written, the child's launches `gj_aug_reg` alone. Reported:
+             event → servable ms (write commit → first answer that
+             reflects it), /metrics' `online_event_to_servable_seconds`,
+             `online_foldin_seconds` and `storage_op_seconds`, query ms
+             before and after the first fold. (b) In process on a copy of
+             that pio.db (fold_items=False): the crash drill at
+             `online.pre_watermark` (the fold lands, the replay is bitwise
+             equal, the next poll folds nothing), a second train and POST
+             /reload (a new user then folds into the new instance), and
+             `parity_check` (rel_max ≤ 0.05). (c) Phase 3's `2m` rank-64
+             and rank-128 models as completed instances in phase 6's
+             store, each served with the plane (fold_items=False): one
+             poll of phase 6's backlog with a cold history cache, one
+             after each of its 1,100 users re-rates an item (warm);
+             history gather and fold ms of both, launches `gj_aug_reg`
+             alone at rank 64 and `gj_aug_multi_reg` alone at 128.
 
 Launch counts are zeroed just before each path (phases 3-4: train →
-serve; phase 5: eval → batchpredict; phase 6: fold) and read just after;
+serve; phase 5: eval → batchpredict; phase 6: fold; phase 7: online,
+with the deployed child's counts added) and read just after;
 every kernel of a path must have launched there, and `gj_aug`, `gj_packed`
 and `gj_blocked2` (K > 256 only) and `gj_aug_multi` (K > 128 with M > 1
 only) on none. The eval path's counts add the console
@@ -259,6 +284,28 @@ REPLACED = {"gj_aug_cta": "gj_aug", "gj_packed_cta": "gj_packed",
             "gj_blocked2_cta": "gj_blocked2",
             "gj_blocked2_split": "gj_blocked2",
             "gj_aug_multi_cta": "gj_aug_multi"}
+# phase 4's store: the PIO_FS_BASEDIR its pio.db lies under (phase 7
+# deploys it with the online plane)
+STORE_BASE = "pio_base"
+# phase 7: the rounds written into the deployed store (each one
+# never-seen user rating ONLINE_NEW_RATINGS items and ONLINE_RERATERS
+# existing users re-rating one item), the seconds a round may take to
+# become servable, and the queries timed before and after the first fold
+ONLINE_ROUNDS, ONLINE_NEW_RATINGS, ONLINE_RERATERS = 20, 3, 4
+ONLINE_ROUND_TIMEOUT_S = 30.0
+ONLINE_TIMED_QUERIES = 50
+ONLINE_PARITY_BAR = 0.05
+# deploys the console in a child process and writes, when it exits, its
+# launch counts to the file named by its first argument
+_DEPLOY_CHILD = (
+    "import json, sys\n"
+    "from predictionio_torch.ops import spd_solve\n"
+    "from predictionio_torch.tools import console\n"
+    "rc = console.main(sys.argv[2:])\n"
+    "with open(sys.argv[1], 'w') as f:\n"
+    "    json.dump({'launches': spd_solve.launches,\n"
+    "               'by_rank': spd_solve.launches_by_rank}, f)\n"
+    "sys.exit(rc)\n")
 # runs the console in a child process and prints, as its last line, its
 # launch counts and its grid trains (als_grid.grid_log)
 _CONSOLE_CHILD = (
@@ -963,7 +1010,10 @@ def phase_serve(report: dict, device, tmp: str) -> dict:
     emit(dict(phase="serve", **row))
     report["serve"] = row
     return {"events": events, "engine_json": engine_json,
-            "model": model_path, "n_users": data.n_users}
+            "model": model_path, "n_users": data.n_users,
+            "store_base": os.path.join(tmp, STORE_BASE),
+            "users": sorted({f"u{u}" for u in data.train_u}),
+            "items": sorted({f"i{i}" for i in data.train_i})}
 
 
 def _serve_from_store(device, tmp: str, events: str, engine_json: str,
@@ -979,7 +1029,7 @@ def _serve_from_store(device, tmp: str, events: str, engine_json: str,
     from predictionio_torch.tools import console
     from predictionio_torch.workflow.workflow_utils import read_engine_json
 
-    base = os.path.join(tmp, "pio_base")
+    base = os.path.join(tmp, STORE_BASE)
     old = os.environ.get("PIO_FS_BASEDIR")
     os.environ["PIO_FS_BASEDIR"] = base
     try:
@@ -1429,14 +1479,25 @@ def _fold_profile(model, cfg, user_hist, item_hist) -> dict:
                                  for ms, n in sorted(own, reverse=True)[:10]]}
 
 
+def _full_width_model(res, data, device):
+    """Phase 3's `2m` train result as the template's ALSModel."""
+    from predictionio_torch.data.bimap import BiMap
+    from predictionio_torch.models.als_model import ALSModel, SeenItems
+
+    return ALSModel(
+        user_factors=res.user_factors, item_factors=res.item_factors,
+        user_ids=BiMap.string_int([f"u{n}" for n in range(data.n_users)]),
+        item_ids=BiMap.string_int([f"i{n}" for n in range(data.n_items)]),
+        seen=SeenItems(data.train_u, data.train_i, data.n_users),
+        device=str(device))
+
+
 def _fold_rank(rank: int, res, data, device, storage, app_id, new_events):
     """Phase 6 at one rank; returns its row."""
     import numpy as np
     import torch
 
-    from predictionio_torch.data.bimap import BiMap
     from predictionio_torch.ingest.tailer import StoreTailer
-    from predictionio_torch.models.als_model import ALSModel, SeenItems
     from predictionio_torch.online import fold_model, solve_rows
     from predictionio_torch.online.foldin import fold_bucket
     from predictionio_torch.ops import spd_solve
@@ -1455,12 +1516,7 @@ def _fold_rank(rank: int, res, data, device, storage, app_id, new_events):
                 self._mark(e)
             return len(fresh)
 
-    model = ALSModel(
-        user_factors=res.user_factors, item_factors=res.item_factors,
-        user_ids=BiMap.string_int([f"u{n}" for n in range(data.n_users)]),
-        item_ids=BiMap.string_int([f"i{n}" for n in range(data.n_items)]),
-        seen=SeenItems(data.train_u, data.train_i, data.n_users),
-        device=str(device))
+    model = _full_width_model(res, data, device)
     cfg = ALSConfig(rank=rank, reg=0.01)  # the train's λ, solver auto
     kernel = FOLD_KERNEL[rank]
     tailer = Backlog(storage, app_id=app_id, event_names=["rate"],
@@ -1615,6 +1671,465 @@ def phase_fold(report: dict, data, device, trained: dict, tmp: str) -> dict:
     return rows
 
 
+# -- phase 7 -----------------------------------------------------------------
+
+def _metric_totals(text: str, families) -> dict:
+    """Count and sum of each histogram family in a `/metrics` exposition,
+    by label set ("" for a family without labels)."""
+    out: dict = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        series, value = line.rsplit(" ", 1)
+        name, _, labels = series.partition("{")
+        for family in families:
+            for part in ("count", "sum"):
+                if name == f"{family}_{part}":
+                    out.setdefault(family, {}).setdefault(
+                        labels.rstrip("}"), {})[part] = float(value)
+    return out
+
+
+def _get(url: str):
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return resp.read()
+
+
+def _where(factors) -> str:
+    """Where a served model holds its factors."""
+    import torch
+
+    if isinstance(factors, torch.Tensor):
+        return f"{factors.device} tensor"
+    return "host numpy"
+
+
+def _timed_queries(url: str, users) -> float:
+    """Mean ms of one POST /queries.json over `users`."""
+    t0 = time.perf_counter()
+    for u in users:
+        _post(url, {"user": u, "num": 10})
+    return (time.perf_counter() - t0) / len(users) * 1e3
+
+
+def _online_http(device, tmp: str, served: dict) -> tuple[dict, dict]:
+    """(a) `console deploy` of phase 4's store with PIO_ONLINE=1 in a
+    child process; ONLINE_ROUNDS rounds written into the same pio.db with
+    the storage API, each one polled over HTTP until its never-seen user
+    is served with what it rated excluded. Returns its row and the
+    child's launch counts."""
+    import numpy as np
+
+    from predictionio_torch.data.datamap import DataMap
+    from predictionio_torch.data.events import Event
+    from predictionio_torch.storage.registry import Storage, StorageConfig
+
+    base = served["store_base"]
+    launches_path = os.path.join(tmp, "online-child-launches.json")
+    env = dict(os.environ, PYTHONPATH=HERE, PIO_FS_BASEDIR=base,
+               PIO_ONLINE="1")
+    for knob in ("PIO_ONLINE_INTERVAL_S", "PIO_ONLINE_FOLD_ITEMS",
+                 "PIO_ONLINE_MAX_BATCH", "PIO_ONLINE_APP_ID"):
+        env.pop(knob, None)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _DEPLOY_CHILD, launches_path, "deploy",
+         "--engine-json", served["engine_json"], "--ip", "127.0.0.1",
+         "--port", "0", "--device", str(device)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=HERE, env=env)
+    storage = Storage(StorageConfig.from_env({"PIO_FS_BASEDIR": base}))
+    rng = np.random.default_rng(7)
+    users, items = served["users"], served["items"]
+    rounds = []
+    try:
+        line = _read_deployed_line(proc, 300.0)
+        url = f"http://127.0.0.1:{int(line.rsplit(':', 1)[1])}"
+        status = json.loads(_get(url + "/"))
+        if "online" not in status:
+            raise AssertionError(f"the deployed server runs no online "
+                                 f"plane: {status}")
+        app_id = storage.meta_apps().get_by_name("MyApp1").id
+        le = storage.l_events()
+        timed_users = users[:ONLINE_TIMED_QUERIES]
+        query_ms = {"before_first_fold": _timed_queries(url, timed_users)}
+        written = 0
+        for r in range(ONLINE_ROUNDS):
+            new_user = f"online-u{r}"
+            rated = [str(i) for i in rng.choice(items, ONLINE_NEW_RATINGS,
+                                                replace=False)]
+            rows = [(new_user, i, 5.0) for i in rated]
+            rows += [(str(u), str(rng.choice(items)),
+                      float(rng.integers(1, 11)) / 2)
+                     for u in rng.choice(users, ONLINE_RERATERS,
+                                         replace=False)]
+            for u, i, rating in rows:
+                le.insert(Event(event="rate", entity_type="user",
+                                entity_id=u, target_entity_type="item",
+                                target_entity_id=i,
+                                properties=DataMap({"rating": rating})),
+                          app_id)
+            committed = time.perf_counter()
+            written += len(rows)
+            queries = 0
+            servable_ms = None
+            while time.perf_counter() - committed < ONLINE_ROUND_TIMEOUT_S:
+                got = [s["item"] for s in _post(
+                    url, {"user": new_user, "num": 10})["itemScores"]]
+                queries += 1
+                if got and not set(got) & set(rated):
+                    servable_ms = (time.perf_counter() - committed) * 1e3
+                    break
+                time.sleep(0.002)
+            rounds.append({"round": r, "servable_ms": servable_ms,
+                           "queries": queries})
+            if r == 0:
+                query_ms["after_first_fold"] = _timed_queries(
+                    url, timed_users)
+        query_ms["after_last_round"] = _timed_queries(url, timed_users)
+        status = json.loads(_get(url + "/"))
+        metrics = _metric_totals(_get(url + "/metrics").decode(), (
+            "online_event_to_servable_seconds", "online_foldin_seconds",
+            "storage_op_seconds"))
+    finally:
+        storage.close()
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    with open(launches_path) as f:
+        child = json.load(f)
+    servable = [r["servable_ms"] for r in rounds
+                if r["servable_ms"] is not None]
+    row = {"rounds": len(rounds), "rounds_servable": len(servable),
+           "events_written": written,
+           "events_folded": status["online"]["eventsFolded"],
+           "watermark": status["online"]["watermark"],
+           "event_to_servable_ms_median": (float(np.median(servable))
+                                           if servable else None),
+           "event_to_servable_ms_max": max(servable, default=None),
+           "event_to_servable_ms": [r["servable_ms"] for r in rounds],
+           "queries_until_servable": [r["queries"] for r in rounds],
+           "query_ms": query_ms, "metrics": metrics,
+           "child_launches": {k: v for k, v in child["launches"].items()
+                              if v},
+           "child_launches_by_rank": child["by_rank"]}
+    other = {k: v for k, v in child["launches"].items()
+             if v and k != "gj_aug_reg"}
+    if (len(servable) != ONLINE_ROUNDS or written != row["events_folded"]
+            or child["launches"]["gj_aug_reg"] <= 0 or other):
+        raise AssertionError(f"online over HTTP failed a bar: {row}")
+    return row, child["launches"]
+
+
+def _hand_polled_server(engine_json: str, device, storage, config):
+    """A PredictionServer over `storage` whose online plane polls only when
+    called: a deployed plane starts its tailer thread at once, and its
+    first pass would fold a backlog already in the store on that thread."""
+    from predictionio_torch.online import OnlinePlane
+    from predictionio_torch.workflow.create_server import PredictionServer
+
+    server = PredictionServer(engine_json, ip="127.0.0.1", port=0,
+                              device=device, storage=storage)
+    server.online = OnlinePlane(server, config)
+    return server
+
+
+def _online_in_process(device, tmp: str, served: dict) -> dict:
+    """(b) A PredictionServer with the plane (fold_items=False) over a
+    copy of (a)'s pio.db: the crash drill at `online.pre_watermark`, a
+    second train and POST /reload, then `parity_check`."""
+    import shutil
+
+    import numpy as np
+
+    from predictionio_torch.controller import WorkflowContext
+    from predictionio_torch.data.datamap import DataMap
+    from predictionio_torch.data.events import Event
+    from predictionio_torch.online import OnlineConfig
+    from predictionio_torch.storage.registry import Storage, StorageConfig
+    from predictionio_torch.utils.faults import FaultInjected
+    from predictionio_torch.workflow.core_workflow import CoreWorkflow
+    from predictionio_torch.workflow.workflow_utils import (
+        extract_engine_params,
+        get_engine,
+        read_engine_json,
+    )
+
+    base = os.path.join(tmp, "online-copy")
+    shutil.copytree(served["store_base"], base)
+    storage = Storage(StorageConfig.from_env({"PIO_FS_BASEDIR": base}))
+    server = _hand_polled_server(served["engine_json"], device, storage,
+                                 OnlineConfig(fold_items=False))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    items = served["items"]
+    app_id = storage.meta_apps().get_by_name("MyApp1").id
+
+    def rate(rows):
+        for u, i, rating in rows:
+            storage.l_events().insert(Event(
+                event="rate", entity_type="user", entity_id=u,
+                target_entity_type="item", target_entity_id=i,
+                properties=DataMap({"rating": rating})), app_id)
+
+    def recommended(user):
+        return [s["item"] for s in server.predict(
+            {"user": user, "num": 10})["itemScores"]]
+
+    try:
+        first = server.state.instance.id
+        t0 = time.perf_counter()
+        caught_up = server.online.poll_once()  # (a)'s rounds, replayed
+        catch_up_ms = (time.perf_counter() - t0) * 1e3
+        factors = server.state.models[0].user_factors
+        where = _where(factors)
+
+        # the crash drill: the fold lands, the watermark does not
+        drill = [("drill-u", items[3], 5.0), ("drill-u", items[30], 4.0),
+                 ("drill-u", items[300], 5.0), (served["users"][5],
+                                                items[7], 1.0)]
+        rate(drill)
+        os.environ["PIO_FAULTS"] = "online.pre_watermark=error"
+        try:
+            try:
+                server.online.poll_once()
+                raised = False
+            except FaultInjected:
+                raised = True
+        finally:
+            os.environ.pop("PIO_FAULTS")
+        model = server.state.models[0]
+        rows = [model.user_ids.get(u) for u in ("drill-u",
+                                                served["users"][5])]
+        pre = (np.array(np.asarray(model.user_factors)[rows], copy=True)
+               if None not in rows else None)
+        replayed = server.online.poll_once()
+        model = server.state.models[0]
+        replay_equal = pre is not None and np.array_equal(
+            np.asarray(model.user_factors)[rows], pre)
+        settled = server.online.poll_once()
+
+        # a second train into the store, then POST /reload
+        variant = read_engine_json(served["engine_json"])
+        engine = get_engine(variant.engine_factory)
+        second = CoreWorkflow.run_train(
+            engine, extract_engine_params(engine, variant), variant,
+            WorkflowContext(device=device, storage=storage, seed=2)).id
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/reload", data=b"")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            reloaded = json.loads(resp.read())
+        after = [("reload-u", items[11], 5.0), ("reload-u", items[12], 5.0),
+                 ("reload-u", items[13], 4.5)]
+        rate(after)
+        after_reload = server.online.poll_once()
+        recs = recommended("reload-u")
+        folded_on_new = (server.state.instance.id == second
+                         and server.state.models[0].user_ids.get("reload-u")
+                         is not None)
+        t0 = time.perf_counter()
+        parity = server.online.parity_check()[variant.variant]
+        parity["ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        storage.close()
+    row = {"catch_up_events": caught_up, "catch_up_ms": catch_up_ms,
+           "factors_after_fold": where,
+           "drill_raised": raised, "drill_replayed": replayed,
+           "replay_bitwise_equal": bool(replay_equal),
+           "drill_settled": settled, "first_instance": first,
+           "second_instance": second, "reload": reloaded,
+           "after_reload_events": after_reload,
+           "after_reload_servable": bool(recs) and not (
+               set(recs) & {i for _, i, _ in after}),
+           "folded_on_new_instance": folded_on_new, "parity": parity}
+    if (not raised or replayed != len(drill) or not replay_equal
+            or settled != 0 or reloaded.get("engineInstanceId") != second
+            or second == first or after_reload < len(after)
+            or not row["after_reload_servable"] or not folded_on_new
+            or parity["rel_max"] > ONLINE_PARITY_BAR):
+        raise AssertionError(f"online in process failed a bar: {row}")
+    return row
+
+
+def _persist_instance(storage, engine_json: str, model, start_time):
+    """A completed engine instance of `engine_json`'s engine holding
+    `model`, as `CoreWorkflow.run_train` persists one, begun at
+    `start_time` (where the plane's watermark starts)."""
+    from predictionio_torch.storage.base import EngineInstance, Model
+    from predictionio_torch.workflow.workflow_utils import (
+        engine_params_to_json,
+        extract_engine_params,
+        get_engine,
+        read_engine_json,
+    )
+
+    variant = read_engine_json(engine_json)
+    engine = get_engine(variant.engine_factory)
+    instance = EngineInstance(
+        id="", status="COMPLETED", start_time=start_time,
+        end_time=start_time, engine_id=variant.id, engine_version="1",
+        engine_variant=variant.variant,
+        engine_factory=variant.engine_factory,
+        **engine_params_to_json(extract_engine_params(engine, variant)))
+    instance.id = storage.meta_engine_instances().insert(instance)
+    storage.model_data_models().insert(
+        Model(id=instance.id, models=engine.serialize_models([model])))
+    return instance.id
+
+
+def _timed_plane(plane) -> dict:
+    """Time every `_gather_histories` and `_fold_batch` call of `plane`;
+    returns the dict of lists the calls append their ms to."""
+    log = {"gather": [], "fold_pass": []}
+    for name, key in (("_gather_histories", "gather"),
+                      ("_fold_batch", "fold_pass")):
+        inner = getattr(plane, name)
+
+        def timed(*args, _inner=inner, _key=key):
+            t0 = time.perf_counter()
+            try:
+                return _inner(*args)
+            finally:
+                log[_key].append((time.perf_counter() - t0) * 1e3)
+
+        setattr(plane, name, timed)
+    return log
+
+
+def _online_full_width(device, tmp: str, data, trained: dict,
+                       fold_rows: dict) -> dict:
+    """(c) Phase 3's `2m` rank-64 and rank-128 models as completed
+    instances in phase 6's store, each served by a PredictionServer with
+    the plane (fold_items=False): one poll of phase 6's backlog with a
+    cold history cache, then one after each of its users re-rates one
+    item (warm)."""
+    import numpy as np
+
+    from predictionio_torch.data.datamap import DataMap
+    from predictionio_torch.data.events import Event
+    from predictionio_torch.ops import spd_solve
+    from predictionio_torch.online import OnlineConfig
+    from predictionio_torch.storage.registry import (
+        SourceConfig,
+        Storage,
+        StorageConfig,
+    )
+
+    src = SourceConfig(name="FOLD", type="sqlite",
+                       path=os.path.join(tmp, "fold", "pio.db"))
+    storage = Storage(StorageConfig(metadata=src, modeldata=src,
+                                    eventdata=src))
+    app_id = storage.meta_apps().get_by_name("FoldApp").id
+    backlog_events = storage.l_events().find(app_id, start_time=FOLD_T0)
+    backlog = len(backlog_events)
+    dirty = sorted({e.entity_id for e in backlog_events})
+    servers, timers = {}, {}
+    rows = {}
+    try:
+        for rank in FOLD_RANKS:
+            engine_json = os.path.join(tmp, f"engine-fold{rank}.json")
+            with open(engine_json, "w") as f:
+                json.dump({
+                    "id": f"fold{rank}", "engineFactory": "predictionio_"
+                    "torch.templates.recommendation.RecommendationEngine",
+                    "datasource": {"params": {"appName": "FoldApp",
+                                              "eventNames": ["rate"]}},
+                    "algorithms": [{"name": "als", "params": {
+                        "rank": rank, "lambda": 0.01}}],
+                    "serving": {"name": "first"}}, f)
+            t0 = time.perf_counter()
+            _persist_instance(storage, engine_json,
+                              _full_width_model(trained[rank], data, device),
+                              FOLD_T0)
+            persist_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            server = _hand_polled_server(
+                engine_json, device, storage,
+                OnlineConfig(fold_items=False,
+                             max_batch=max(4096, 2 * backlog)))
+            servers[rank] = server
+            timers[rank] = _timed_plane(server.online)
+            rows[rank] = {"rank": rank, "kernel": FOLD_KERNEL[rank],
+                          "persist_ms": persist_ms,
+                          "load_ms": (time.perf_counter() - t0) * 1e3}
+        polls = {}
+        for phase in ("cold", "warm"):
+            if phase == "warm":
+                # every user of the backlog re-rates one item, after it
+                rng = np.random.default_rng(8)
+                start = FOLD_T0 + timedelta(seconds=2 * backlog)
+                storage.l_events().insert_batch([Event(
+                    event="rate", entity_type="user", entity_id=u,
+                    target_entity_type="item",
+                    target_entity_id=f"i{rng.integers(data.n_items)}",
+                    properties=DataMap({"rating": float(
+                        rng.integers(1, 11)) / 2}),
+                    event_time=start + timedelta(seconds=n))
+                    for n, u in enumerate(dirty)], app_id)
+            for rank, server in servers.items():
+                before = dict(spd_solve.launches_by_rank)
+                t0 = time.perf_counter()
+                events = server.online.poll_once()
+                poll_ms = (time.perf_counter() - t0) * 1e3
+                timer = timers[rank]
+                polls[(rank, phase)] = {
+                    "events": events, "poll_ms": poll_ms,
+                    "history_gather_ms": timer["gather"][-1],
+                    "fold_pass_ms": timer["fold_pass"][-1],
+                    "fold_ms": timer["fold_pass"][-1] - timer["gather"][-1],
+                    "launches": _launch_delta(before)}
+        for rank, server in servers.items():
+            model = server.state.models[0]
+            factors = model.user_factors
+            rows[rank].update({
+                "backlog_events": backlog,
+                "cold": polls[(rank, "cold")], "warm": polls[(rank, "warm")],
+                "phase6_history_gather_ms": fold_rows[rank][
+                    "history_gather_ms"],
+                "factors_after_fold": _where(factors),
+                "users_served": len(model.user_ids),
+                "rerating_users": len(dirty)})
+    finally:
+        for server in servers.values():
+            server.server_close()
+        storage.close()
+    for rank, row in rows.items():
+        kernel = FOLD_KERNEL[rank]
+        emit(dict(phase="online_full_width", **row))
+        wrong = [p for p in ("cold", "warm")
+                 if not row[p]["launches"] or any(
+                     not k.startswith(kernel + "/")
+                     for k in row[p]["launches"])]
+        if (row["cold"]["events"] != backlog
+                or row["warm"]["events"] != len(dirty)
+                or len(dirty) != FOLD_RERATERS + FOLD_NEW_USERS or wrong):
+            raise AssertionError(f"rank {rank} online at full width failed "
+                                 f"a bar: {row}")
+    return rows
+
+
+def phase_online(report: dict, device, tmp: str, served: dict, data,
+                 trained: dict, fold_rows: dict) -> dict:
+    """Phase 7: (a) over HTTP in a child process, (b) in process on a copy
+    of (a)'s store, (c) at full width on phase 6's store. Returns the
+    child's launch counts (the in-process ones are the caller's)."""
+    t0 = time.perf_counter()
+    http, child_launches = _online_http(device, tmp, served)
+    emit(dict(phase="online_http", **http))
+    in_process = _online_in_process(device, tmp, served)
+    emit(dict(phase="online_in_process", **in_process))
+    full = _online_full_width(device, tmp, data, trained, fold_rows)
+    report["online"] = {"http": http, "in_process": in_process,
+                        "full_width": {str(k): v for k, v in full.items()},
+                        "wall_s": time.perf_counter() - t0}
+    return child_launches
+
+
 def _require_launches(path: str, launches: dict, kernels) -> None:
     """Every kernel in `kernels` launched on the path, and no kernel of
     OFF_PATH."""
@@ -1669,9 +2184,17 @@ def main(argv=None) -> int:
         batch = phase_batchpredict(report, device, tmp, served)
         grid_launches = dict(spd_solve.launches)  # ... and ends here
         spd_solve.reset_launches()  # the fold path starts here
-        phase_fold(report, data, device, trained, tmp)
+        fold_rows = phase_fold(report, data, device, trained, tmp)
         fold_launches = dict(spd_solve.launches)  # ... and ends here
+        spd_solve.reset_launches()  # the online path starts here
+        child = phase_online(report, device, tmp, served, data, trained,
+                             fold_rows)
+        # ... and ends here: this process's launches and the deployed
+        # child's (its counts start at 0 with the process)
+        online_launches = {k: v + child[k]
+                           for k, v in spd_solve.launches.items()}
     _require_launches("fold", fold_launches, FOLD_KERNEL.values())
+    _require_launches("online", online_launches, FOLD_KERNEL.values())
     # the path's launches: the grids in this process and the console
     # children's (each child's counts start at 0 with the process)
     children = [run["launches"] for run in eval_runs.values()]
@@ -1681,7 +2204,7 @@ def main(argv=None) -> int:
     _require_launches("eval", eval_launches, LAYOUT_KERNEL.values())
     report["launches"] = {"train_serve": serve_launches,
                           "eval": eval_launches, "eval_grid": grid_launches,
-                          "fold": fold_launches}
+                          "fold": fold_launches, "online": online_launches}
 
     kernels = []
     for name, (replaces, source) in KERNELS.items():
@@ -1693,7 +2216,7 @@ def main(argv=None) -> int:
             "source": f"predictionio_torch/csrc/{source}",
             "replaces": replaces, "ranks": KERNEL_RANKS[name],
             "launches": (serve_launches[name] + eval_launches[name]
-                         + fold_launches[name]),
+                         + fold_launches[name] + online_launches[name]),
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -1702,6 +2225,7 @@ def main(argv=None) -> int:
             "launches_eval": eval_launches[name],
             "launches_eval_grid": grid_launches[name],
             "launches_fold": fold_launches[name],
+            "launches_online": online_launches[name],
             "launches_per_epoch_2m": per_epoch,
             "launches_console_eval": {layout: run["launches"][name]
                                       for layout, run in eval_runs.items()},

@@ -1,9 +1,10 @@
 """Online learning — the port of ``predictionio_tpu/online``: ALS fold-in
 (`foldin.py`), which re-solves the dirty rows of a trained model against
-fixed opposing factors, with cold-start rows appended for never-seen ids,
-and the plane's telemetry families (`metrics.py`). The plane that tails
-the event store and swaps folded models into serving comes in a later
-slice.
+fixed opposing factors, with cold-start rows appended for never-seen ids;
+the plane (`plane.py`) that tails the event store, folds each fresh batch
+on the server's device and hot-swaps the folded models into what a
+deployed `PredictionServer` serves (`swap.py`); and the plane's telemetry
+families (`metrics.py`).
 """
 
 from predictionio_torch.online.foldin import (  # noqa: F401
@@ -14,8 +15,10 @@ from predictionio_torch.online.foldin import (  # noqa: F401
     fold_model,
     solve_rows,
 )
+from predictionio_torch.online.plane import OnlineConfig, OnlinePlane  # noqa: F401
+from predictionio_torch.online.swap import DeltaSwapper, StaleState  # noqa: F401
 
 __all__ = [
-    "ALSFold", "FoldModel", "FoldStats", "SeenOverlay", "fold_model",
-    "solve_rows",
+    "ALSFold", "DeltaSwapper", "FoldModel", "FoldStats", "OnlineConfig",
+    "OnlinePlane", "SeenOverlay", "StaleState", "fold_model", "solve_rows",
 ]

@@ -1,0 +1,520 @@
+"""OnlinePlane: event → served model in seconds, no retrain — own copy of
+the reference's ``predictionio_tpu/online/plane.py``.
+
+The loop: an `ingest.tailer.StoreTailer` (batch mode) polls rating
+events out of the durable store; each fresh batch names the dirty
+users/items; each variant's fold handles (`foldin.FoldModel` — `ALSFold`
+re-solving exactly the dirty factor rows against the fixed opposite
+side on the server's device) produce updated models; `swap.DeltaSwapper`
+publishes them into the server's served-state table and announces the
+touched users on the invalidation bus. Freshness is observed per event
+on the north-star histogram `online_event_to_servable_seconds` and
+sliced per model family on `online_family_event_to_servable_seconds`.
+
+Crash safety is the tailer's at-least-once contract: the watermark
+advances only after fold+swap complete, and a fold re-solves each dirty
+row from its FULL history, so replaying a batch lands on bit-identical
+factors (at the row and capacity tiers the batch first ran at, which a
+replay of the same batch reproduces). The `online.pre_watermark` fault
+site sits exactly in that window for the crash drill.
+
+The parity check bounds drift against a full retrain: it re-reads the
+training data through the variant's own DataSource/Preparator and
+re-solves every common user row one half-epoch against the served item
+factors. Untouched rows show the ALS convergence residual; folded rows
+re-solve from the same inputs (at other row tiers, so to the last bits);
+the gauge `online_parity_drift` carries the max element delta.
+
+The reference also feeds its SLO tracker, per-tenant freshness and
+usage, trace exemplars and lineage completion from `_fold_batch`; the
+port has none of those modules yet, so those calls are left out. Every
+`online_*` family and the lineage stage records are kept.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import threading
+import time
+from datetime import datetime, timedelta, timezone
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from predictionio_torch.controller.context import WorkflowContext
+from predictionio_torch.ingest.tailer import OVERLAP, StoreTailer
+from predictionio_torch.models.als_model import ALSModel
+from predictionio_torch.online import foldin
+from predictionio_torch.online.foldin import ALSFold, FoldModel
+from predictionio_torch.online.metrics import (
+    ONLINE_EVENTS_FOLDED,
+    ONLINE_EVENT_TO_SERVABLE,
+    ONLINE_FAMILY_FRESHNESS,
+    ONLINE_FOLD_ERRORS,
+    ONLINE_FOLDIN_SECONDS,
+    ONLINE_LAG,
+    ONLINE_PARITY_CHECKS,
+    ONLINE_PARITY_DRIFT,
+)
+from predictionio_torch.online.swap import DeltaSwapper, StaleState
+from predictionio_torch.ops.als import ALSConfig
+from predictionio_torch.telemetry.lineage import LINEAGE, context_of
+from predictionio_torch.utils import faults
+
+log = logging.getLogger(__name__)
+
+
+def _truthy(v: str) -> bool:
+    return v.strip().lower() in ("1", "true", "on", "yes")
+
+
+def _aware(dt: Optional[datetime]) -> Optional[datetime]:
+    """Storage round trips may drop tzinfo; event times are UTC."""
+    if dt is not None and dt.tzinfo is None:
+        return dt.replace(tzinfo=timezone.utc)
+    return dt
+
+
+def _host(factors) -> np.ndarray:
+    """Factors as a host array, wherever the model holds them."""
+    if isinstance(factors, torch.Tensor):
+        return factors.cpu().numpy()
+    return np.asarray(factors)
+
+
+@dataclasses.dataclass
+class OnlineConfig:
+    """PIO_ONLINE_* posture (env-resolved, as the reference's)."""
+
+    interval_s: float = 0.25
+    overlap_s: float = OVERLAP.total_seconds()
+    max_batch: int = 4096
+    fold_items: bool = True
+    parity_every_s: float = 0.0  # 0 = manual/gate-driven only
+    app_id: Optional[int] = None  # override DataSource appName resolution
+
+    @classmethod
+    def from_env(cls) -> Optional["OnlineConfig"]:
+        if not _truthy(os.environ.get("PIO_ONLINE", "")):
+            return None
+        e = os.environ.get
+        app_id = e("PIO_ONLINE_APP_ID", "")
+        return cls(
+            interval_s=float(e("PIO_ONLINE_INTERVAL_S", "0.25")),
+            overlap_s=float(e("PIO_ONLINE_OVERLAP_S",
+                              str(OVERLAP.total_seconds()))),
+            max_batch=int(e("PIO_ONLINE_MAX_BATCH", "4096")),
+            fold_items=_truthy(e("PIO_ONLINE_FOLD_ITEMS", "1")),
+            parity_every_s=float(e("PIO_ONLINE_PARITY_EVERY_S", "0")),
+            app_id=int(app_id) if app_id else None,
+        )
+
+
+@dataclasses.dataclass
+class _VariantCtx:
+    variant: str
+    app_id: int
+    event_names: List[str]
+    buy_rating: float
+    # (position in state.models, fold handle) per foldable model — one
+    # handle per model FAMILY the variant serves (foldin.FoldModel)
+    folds: List[Tuple[int, FoldModel]]
+
+    @property
+    def als(self) -> List[Tuple[int, ALSConfig]]:
+        """The ALS slice of the fold handles as (idx, config) pairs —
+        the parity check re-solves against the config directly."""
+        return [(idx, h.cfg) for idx, h in self.folds
+                if isinstance(h, ALSFold)]
+
+
+class _FoldTailer(StoreTailer):
+    """Batch-mode tailer: the whole batch folds and swaps BEFORE any
+    watermark/seen state advances (at-least-once; fold-in idempotence
+    makes replay free — see ingest/tailer.py)."""
+
+    def __init__(self, plane: "OnlinePlane", app_id: int, **kw):
+        super().__init__(plane.storage, app_id=app_id, **kw)
+        self._plane = plane
+
+    def _process(self, fresh: list) -> int:
+        applied = self._plane._fold_batch(self.app_id, fresh)
+        # the crash window: events folded and served, watermark not yet
+        # advanced — a kill here must lose nothing (crash drill)
+        faults.inject("online.pre_watermark")
+        for e in fresh:
+            self._mark(e)
+        if self._since is not None:
+            lag = (datetime.now(timezone.utc)
+                   - _aware(self._since)).total_seconds()
+            ONLINE_LAG.set(max(0.0, lag))
+        return applied
+
+
+class OnlinePlane:
+    """Owns the fold tailers (one per event-store app) and the parity
+    loop for one PredictionServer: reads `server.storage`,
+    `server._states` and `server._state_lock`, and folds on
+    `server.device`."""
+
+    def __init__(self, server, config: Optional[OnlineConfig] = None):
+        self.config = config or OnlineConfig()
+        self._server = server
+        self.storage = server.storage
+        self._fold_lock = threading.Lock()
+        self._parity_thread: Optional[threading.Thread] = None
+        self._parity_stop = threading.Event()
+        self._swapper = DeltaSwapper(server._states, server._state_lock)
+        self.events_folded = 0
+        # per-(app, event_names, buy_rating) keep-last history cache —
+        # see _gather_histories for the contract
+        self._hist_cache: Dict[tuple, Dict[str, dict]] = {}
+        self._contexts: List[_VariantCtx] = []
+        self._tailers: List[_FoldTailer] = []
+        self.rebase()
+
+    # -- context resolution --------------------------------------------------
+    def _resolve_contexts(self) -> List[_VariantCtx]:
+        out = []
+        for variant, state in self._server._states.items():
+            dsp = state.engine_params.data_source_params
+            app_id = self.config.app_id
+            if app_id is None:
+                app_name = getattr(dsp, "appName", None)
+                if not app_name:
+                    log.warning("online: variant %r has no appName; skipped",
+                                variant)
+                    continue
+                app = self.storage.meta_apps().get_by_name(app_name)
+                if app is None:
+                    log.warning("online: app %r not found; variant %r "
+                                "skipped", app_name, variant)
+                    continue
+                app_id = app.id
+            folds: List[Tuple[int, FoldModel]] = []
+            for idx, (_, params) in enumerate(
+                    state.engine_params.algorithm_params_list):
+                model = state.models[idx]
+                if isinstance(model, ALSModel):
+                    folds.append((idx, ALSFold(ALSConfig(
+                        rank=getattr(params, "rank", 10),
+                        reg=getattr(params, "lambda_", 0.01),
+                        implicit=getattr(params, "implicitPrefs", False),
+                        alpha=getattr(params, "alpha", 1.0),
+                        seed=getattr(params, "seed", None) or 0,
+                        split_cap=getattr(params, "splitCap", 32768),
+                    ))))
+            if not folds:
+                log.info("online: variant %r serves no foldable model; "
+                         "skipped", variant)
+                continue
+            out.append(_VariantCtx(
+                variant=variant, app_id=app_id,
+                event_names=list(getattr(dsp, "eventNames", ["rate", "buy"])),
+                buy_rating=float(getattr(dsp, "buyRating", 4.0)),
+                folds=folds))
+        return out
+
+    def rebase(self) -> None:
+        """(Re)derive variant contexts and tailers from the CURRENT served
+        states — called at construction and after a full /reload. The
+        watermark restarts at the oldest served instance's train start
+        minus the overlap, so events that landed during/after training
+        fold in (idempotently, even if the new instance already saw
+        them)."""
+        with self._fold_lock:
+            self._contexts = self._resolve_contexts()
+            starts = [
+                _aware(self._server._states[c.variant].instance.start_time)
+                for c in self._contexts
+                if self._server._states[c.variant].instance.start_time]
+            since = min(starts) if starts else None
+            overlap = timedelta(seconds=self.config.overlap_s)
+            by_app: Dict[int, List[str]] = {}
+            for c in self._contexts:
+                by_app.setdefault(c.app_id, []).extend(c.event_names)
+            running = bool(self._tailers) and any(
+                t._thread is not None for t in self._tailers)
+            for t in self._tailers:
+                t.stop()
+            self._tailers = [
+                _FoldTailer(self, app_id,
+                            interval_s=self.config.interval_s,
+                            event_names=sorted(set(names)),
+                            overlap=overlap, name=f"online-fold-{app_id}",
+                            since=since, max_batch=self.config.max_batch)
+                for app_id, names in sorted(by_app.items())]
+            if running:
+                for t in self._tailers:
+                    t.start()
+
+    # -- lifecycle ------------------------------------------------------------
+    def start(self) -> None:
+        for t in self._tailers:
+            t.start()
+        if self.config.parity_every_s > 0 and self._parity_thread is None:
+            self._parity_stop.clear()
+            self._parity_thread = threading.Thread(
+                target=self._parity_run, name="online-parity", daemon=True)
+            self._parity_thread.start()
+
+    def stop(self) -> None:
+        for t in self._tailers:
+            t.stop()
+        self._parity_stop.set()
+        t = self._parity_thread
+        if t is not None:
+            t.join(timeout=5.0)
+            self._parity_thread = None
+
+    def poll_once(self) -> int:
+        """One synchronous tail pass over every app (tests, drills)."""
+        return sum(t.poll_once() for t in self._tailers)
+
+    def snapshot(self) -> dict:
+        marks = [t._since for t in self._tailers if t._since is not None]
+        return {
+            "variants": [c.variant for c in self._contexts],
+            "eventsFolded": self.events_folded,
+            "watermark": (min(_aware(m) for m in marks).isoformat()
+                          if marks else None),
+        }
+
+    # -- fold pass ------------------------------------------------------------
+    def _value(self, e, ctx: _VariantCtx) -> Optional[float]:
+        """The DataSource quickstart rule: explicit rating for "rate"
+        events, the configured implicit rating otherwise; malformed
+        ratings drop the event (same as the columnar NaN filter)."""
+        if e.event == "rate":
+            try:
+                v = float(e.properties.to_dict().get("rating"))
+            except (TypeError, ValueError):
+                return None
+            return None if np.isnan(v) else v
+        return ctx.buy_rating
+
+    def _fetch_histories(self, ctx: _VariantCtx, ids, side: str):
+        """FULL keep-last histories for a batch of same-side entities as
+        {id: {opposing_id: (event_time, value)}} — ONE indexed `find()`
+        (idx_events_entity / idx_events_target, IN-style id batch). One
+        call matters: each store round trip releases and re-queues for
+        the GIL, and under query load a fold pass doing hundreds of
+        point lookups convoys behind the serving threads."""
+        kw = dict(channel_id=None, entity_type="user",
+                  target_entity_type="item",
+                  event_names=ctx.event_names)
+        kw["entity_id" if side == "user" else "target_entity_id"] = \
+            sorted(ids)
+        out: Dict[str, dict] = {i: {} for i in ids}
+        events = self.storage.l_events().find(ctx.app_id, **kw)
+        for e in sorted(events, key=lambda e: e.event_time):
+            eid = e.entity_id if side == "user" else e.target_entity_id
+            other = e.target_entity_id if side == "user" else e.entity_id
+            if not other:
+                continue
+            v = self._value(e, ctx)
+            if v is not None:
+                out[str(eid)][str(other)] = (_aware(e.event_time), v)
+        return out
+
+    def _history(self, ctx: _VariantCtx, entity_id: str, side: str):
+        """One entity's FULL rating history as [(opposing_id, value)],
+        deduped keep-last in event-time order (the Preparator's rule).
+        Pure store read — parity/test entry point, never cached."""
+        pairs = self._fetch_histories(ctx, [entity_id], side)[entity_id]
+        return [(o, v) for o, (_, v) in pairs.items()]
+
+    def _gather_histories(self, ctx: _VariantCtx, users, items, events):
+        """Full keep-last histories for every dirty entity, O(batch)
+        steady state: a dirty entity's history is fetched ONCE through
+        the store's per-entity index and cached; from then on the tailed
+        batch itself keeps the cache current. Re-scanning the store per
+        poll would make the fold pass quadratic in total event count.
+
+        Safe under the tailer's at-least-once replay (keep-last re-apply
+        of the same event is a no-op) and across `rebase()` (the event
+        store is append-only, so cached histories never go stale — a
+        redelivered pre-watermark event just overwrites equal values).
+        Bounded by the same data the Preparator would hold: one (time,
+        value) pair per observed (entity, opposing) edge."""
+        cache = self._hist_cache.setdefault(
+            (ctx.app_id, tuple(ctx.event_names), ctx.buy_rating),
+            {"user": {}, "item": {}})
+        for side, ids in (("user", users), ("item", items)):
+            tracked = cache[side]
+            missing = [eid for eid in ids if eid not in tracked]
+            if missing:
+                tracked.update(self._fetch_histories(ctx, missing, side))
+        u_tracked, i_tracked = cache["user"], cache["item"]
+        for e in events:
+            # find() pre-filters names for the tailer; raw batches here
+            # may carry anything
+            if ctx.event_names and e.event not in ctx.event_names:
+                continue
+            v = self._value(e, ctx)
+            if v is None:
+                continue
+            u, it = str(e.entity_id), str(e.target_entity_id)
+            t = _aware(e.event_time)
+            for tracked, key, other in ((u_tracked, u, it),
+                                        (i_tracked, it, u)):
+                pairs = tracked.get(key)
+                if pairs is None:  # not a dirty-ever entity on this side
+                    continue
+                old = pairs.get(other)
+                if old is None or t >= old[0]:
+                    pairs[other] = (t, v)
+        # histories carry (opposing_id, value, event_time) triples: ALS
+        # folds consume the (id, value) pairs, a session fold would need
+        # (id, time) to rebuild windows — one gather serves every family
+        return ({u: [(o, v, t) for o, (t, v) in u_tracked[u].items()]
+                 for u in users if u_tracked[u]},
+                {i: [(o, v, t) for o, (t, v) in i_tracked[i].items()]
+                 for i in items if i_tracked[i]})
+
+    def _fold_batch(self, app_id: int, events: list) -> int:
+        if not events:
+            return 0
+        t0 = time.perf_counter()
+        with self._fold_lock:
+            model_events = [
+                e for e in events
+                if e.entity_id and e.target_entity_id
+                and e.entity_type == "user"
+                and (e.target_entity_type or "item") == "item"]
+            dirty_users = sorted({str(e.entity_id) for e in model_events})
+            dirty_items = (sorted({str(e.target_entity_id)
+                                   for e in model_events})
+                           if self.config.fold_items else [])
+            folded_any = False
+            folded_families: set = set()
+            for ctx in self._contexts:
+                if ctx.app_id != app_id or not dirty_users:
+                    continue
+                user_hist, item_hist = self._gather_histories(
+                    ctx, dirty_users, dirty_items, model_events)
+                if not user_hist and not item_hist:
+                    continue
+                state = self._server._states.get(ctx.variant)
+                if state is None:
+                    continue
+                try:
+                    models = list(state.models)
+                    t_fold = time.perf_counter()
+                    for idx, handle in ctx.folds:
+                        models[idx], _ = handle.fold(
+                            models[idx], user_hist, item_hist)
+                        folded_families.add(handle.family)
+                    fold_s = time.perf_counter() - t_fold
+                    t_swap = time.perf_counter()
+                    self._swapper.swap(ctx.variant, state, models,
+                                       sorted(user_hist))
+                    swap_s = time.perf_counter() - t_swap
+                    folded_any = True
+                    # the swap call also publishes the invalidations, so
+                    # the invalidate stage lands at the same instant; its
+                    # detail is the touched-user fan-out
+                    now_s = time.time()
+                    n_touched = str(len(user_hist))
+                    for e in model_events:
+                        lctx = context_of(e)
+                        LINEAGE.record_stage(lctx, "fold",
+                                             duration_s=fold_s, now=now_s)
+                        LINEAGE.record_stage(lctx, "swap",
+                                             duration_s=swap_s,
+                                             detail=ctx.variant, now=now_s)
+                        LINEAGE.record_stage(lctx, "invalidate",
+                                             detail=n_touched, now=now_s)
+                except StaleState:
+                    # a full /reload landed mid-fold; re-resolve and make
+                    # the tailer replay this batch against the new state
+                    raise
+                except Exception:
+                    ONLINE_FOLD_ERRORS.inc()
+                    for e in model_events:
+                        LINEAGE.record_stage(context_of(e), "fold",
+                                             error=True)
+                    log.exception("online: fold failed for variant %r; "
+                                  "batch will replay", ctx.variant)
+                    raise
+        if folded_any:
+            now = datetime.now(timezone.utc)
+            for e in model_events:
+                age = max(0.0,
+                          (now - _aware(e.event_time)).total_seconds())
+                ONLINE_EVENT_TO_SERVABLE.observe(age)
+                # per-family slice: one observation per family that
+                # actually folded this batch
+                for fam in sorted(folded_families):
+                    ONLINE_FAMILY_FRESHNESS.labels(family=fam).observe(age)
+            ONLINE_EVENTS_FOLDED.inc(len(model_events))
+            self.events_folded += len(model_events)
+        ONLINE_FOLDIN_SECONDS.observe(time.perf_counter() - t0)
+        return len(model_events) if folded_any else 0
+
+    # -- full-retrain parity ---------------------------------------------------
+    def parity_check(self, max_rows: int = 2048) -> Dict[str, dict]:
+        """Bound served-factor drift against a fresh half-epoch: re-read
+        the training data through each variant's own DataSource +
+        Preparator, re-solve every common user row against the SERVED
+        item factors on the server's device, and compare. Returns
+        per-variant stats and sets `online_parity_drift`."""
+        out: Dict[str, dict] = {}
+        device = self._server.device
+        for ctx in self._contexts:
+            state = self._server._states.get(ctx.variant)
+            if state is None:
+                continue
+            ds, prep, _algos, _serving = state.components
+            wctx = WorkflowContext(device=device, storage=self.storage)
+            pd = prep.prepare(wctx, ds.read_training(wctx))
+            for idx, cfg in ctx.als:
+                model = state.models[idx]
+                u_served = np.asarray(
+                    [model.user_ids.get(s, -1)
+                     for s in pd.user_ids.from_index(
+                         np.arange(len(pd.user_ids)))], np.int32)
+                i_served = np.asarray(
+                    [model.item_ids.get(s, -1)
+                     for s in pd.item_ids.from_index(
+                         np.arange(len(pd.item_ids)))], np.int32)
+                u = u_served[pd.user_idx]
+                i = i_served[pd.item_idx]
+                keep = (u >= 0) & (i >= 0)
+                u, i, r = u[keep], i[keep], pd.ratings[keep]
+                rows = np.unique(u)[:max_rows]
+                sel = np.isin(u, rows)
+                u, i, r = u[sel], i[sel], r[sel]
+                entries = []
+                for row in rows:
+                    m = u == row
+                    entries.append((i[m], r[m]))
+                resolved = foldin.solve_rows(
+                    model.item_factors, entries, cfg,
+                    device=device).cpu().numpy()
+                served = _host(model.user_factors)[rows]
+                delta = np.abs(resolved - served)
+                scale = float(np.max(np.abs(served), initial=1e-9))
+                stats = {
+                    "rows": int(len(rows)),
+                    "max_abs": float(delta.max(initial=0.0)),
+                    "rms": float(np.sqrt(np.mean(delta ** 2))
+                                 if delta.size else 0.0),
+                    "scale": scale,
+                }
+                stats["rel_max"] = stats["max_abs"] / scale
+                out[ctx.variant] = stats
+                ONLINE_PARITY_DRIFT.labels(variant=ctx.variant).set(
+                    stats["max_abs"])
+                ONLINE_PARITY_CHECKS.labels(variant=ctx.variant).inc()
+        return out
+
+    def _parity_run(self) -> None:
+        while not self._parity_stop.wait(self.config.parity_every_s):
+            try:
+                self.parity_check()
+            except Exception:  # noqa: BLE001 — the loop must survive
+                log.exception("online: parity check failed; retrying")

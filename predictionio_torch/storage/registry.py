@@ -11,9 +11,10 @@ custom types. The reference's ``postgres`` type (which needs a
 PostgreSQL client library the port does not depend on) and its ``s3``
 type are not ported. The repository split lets metadata/events/models live in
 different sources, exactly like the reference's HBase-events + ES-metadata
-+ localfs-models deployments. The reference's timing of every data-path
-call (`storage_op_seconds`, request-timeline spans) waits for the port's
-`/metrics` route, its only reader.
++ localfs-models deployments. The event and model repositories are timed
+into `storage_op_seconds{repo,op}` (`_TimedRepo`), which a deployed
+server's `/metrics` renders; the reference also attributes each call to
+the calling request's span timeline, which the port does not have.
 """
 
 from __future__ import annotations
@@ -22,14 +23,53 @@ import dataclasses
 import logging
 import os
 import threading
+import time
 from typing import Optional
 
 from predictionio_torch.storage import base
 from predictionio_torch.storage.sqlite import SQLiteBackend
+from predictionio_torch.telemetry.registry import REGISTRY
 
 log = logging.getLogger(__name__)
 
 _REPOSITORIES = ("METADATA", "MODELDATA", "EVENTDATA")
+
+STORAGE_OP_SECONDS = REGISTRY.histogram(
+    "storage_op_seconds", "Storage backend operation latency in seconds",
+    labelnames=("repo", "op"))
+
+
+class _TimedRepo:
+    """Transparent proxy timing a repo's data-path methods into
+    `storage_op_seconds{repo,op}`. Non-listed attributes (including
+    `integrity_errors`, used in `except` clauses) delegate untouched."""
+
+    _TIMED_OPS = frozenset({
+        "insert", "insert_batch", "insert_grouped", "get", "find", "delete",
+        "find_columnar", "aggregate_properties_columnar",
+        "get_latest_completed", "get_completed", "get_all", "update",
+    })
+
+    __slots__ = ("_repo", "_label")
+
+    def __init__(self, repo, label: str):
+        object.__setattr__(self, "_repo", repo)
+        object.__setattr__(self, "_label", label)
+
+    def __getattr__(self, name):
+        attr = getattr(self._repo, name)
+        if name not in self._TIMED_OPS or not callable(attr):
+            return attr
+        timer = STORAGE_OP_SECONDS.labels(repo=self._label, op=name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return attr(*args, **kwargs)
+            finally:
+                timer.observe(time.perf_counter() - t0)
+
+        return timed
 
 
 def _make_sqlite(source: "SourceConfig") -> base.StorageBackend:
@@ -170,11 +210,16 @@ class Storage:
         return self._backend(self.config.metadata).evaluation_instances()
 
     # -- model / event data ------------------------------------------------
+    # The hot data paths (event find/insert, model blob read/write) are
+    # served through _TimedRepo so every backend round trip lands in
+    # storage_op_seconds; metadata CRUD is cold-path and left bare.
     def model_data_models(self) -> base.Models:
-        return self._backend(self.config.modeldata).models()
+        return _TimedRepo(self._backend(self.config.modeldata).models(),
+                          "models")
 
     def l_events(self) -> base.LEvents:
-        return self._backend(self.config.eventdata).events()
+        return _TimedRepo(self._backend(self.config.eventdata).events(),
+                          "l_events")
 
     # -- health ------------------------------------------------------------
     def verify_all_data_objects(self) -> dict[str, bool]:

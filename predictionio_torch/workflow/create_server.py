@@ -1,14 +1,20 @@
 """The `pio deploy` prediction server — the port of the reference's
-``predictionio_tpu/workflow/create_server.py`` query route:
+``predictionio_tpu/workflow/create_server.py`` routes:
 
     POST /queries.json  {"user": "1", "num": 4}  → PredictedResult JSON
-    GET  /              → status (engine, instance id)
+    POST /reload        → swap in the store's latest completed instance
+    GET  /              → status (engine, instance id, the online block)
+    GET  /metrics       → the telemetry registry, Prometheus text
 
 It serves, on the standard library's `ThreadingHTTPServer`, either the
 latest completed engine instance of the model repository (as the
 reference does) or one model file; components are resolved once at load,
-not per query. The reference's serving plane (micro-batching,
-admission), reload and online planes come in later slices.
+not per query. The served state sits in a table keyed by engine variant,
+replaced whole under a lock by `/reload` and by the online plane
+(`online/plane.py`, `PIO_ONLINE=1`), which folds new events from the
+store into the served models. A deploy from a model file has no store:
+it can neither reload nor run the plane. The reference's serving plane
+(micro-batching, admission, result cache) comes in a later slice.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional
 
@@ -24,8 +31,10 @@ import torch
 from predictionio_torch.controller.engine import Engine, EngineParams
 from predictionio_torch.data.events import format_time
 from predictionio_torch.device import DeviceLike, resolve_device
+from predictionio_torch.online.plane import OnlineConfig, OnlinePlane
 from predictionio_torch.storage import base as storage_base
 from predictionio_torch.storage.registry import Storage
+from predictionio_torch.telemetry.registry import REGISTRY
 from predictionio_torch.workflow.core_workflow import read_model_file
 from predictionio_torch.workflow.workflow_utils import (
     EngineVariant,
@@ -35,6 +44,9 @@ from predictionio_torch.workflow.workflow_utils import (
 )
 
 log = logging.getLogger(__name__)
+
+# the Prometheus text exposition format the reference serves
+METRICS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
 
 @dataclasses.dataclass
@@ -131,9 +143,9 @@ def load_served_state_from_store(
 def load_engine_state(engine_json: str, model_path: Optional[str],
                       device: torch.device, engine_version: str = "1",
                       storage: Optional[Storage] = None) -> ServedState:
-    """The served state of a deploy or a batch predict: the model file
-    `model_path` when given, else the latest completed instance of the
-    engine engine.json names (its id and variant) in `storage` (None:
+    """The served state of a batch predict: the model file `model_path`
+    when given, else the latest completed instance of the engine
+    engine.json names (its id and variant) in `storage` (None:
     `Storage.get()`)."""
     if model_path:
         return load_served_state(engine_json, model_path, device)
@@ -149,28 +161,96 @@ class PredictionServer(ThreadingHTTPServer):
     def __init__(self, engine_json: str, model_path: Optional[str] = None,
                  ip: str = "0.0.0.0", port: int = 8000,
                  device: DeviceLike = None, engine_version: str = "1",
-                 storage: Optional[Storage] = None):
+                 storage: Optional[Storage] = None,
+                 online: Optional[OnlineConfig] = None):
         """Serve the model file `model_path`, or without one the latest
-        completed instance in `storage` (see `load_engine_state`)."""
+        completed instance of engine.json's engine id and variant in
+        `storage` (None: `Storage.get()`). `online` (None:
+        `OnlineConfig.from_env()`, i.e. `PIO_ONLINE=1`) runs the online
+        plane over that storage; asking for it with a model file raises.
+        A plane that fails to start is logged and the server serves on
+        without it, as the reference's does."""
         self.device = resolve_device(device)
-        self.state = load_engine_state(engine_json, model_path, self.device,
-                                       engine_version, storage)
+        self.engine_version = engine_version
+        online_cfg = online if online is not None else OnlineConfig.from_env()
+        if model_path:
+            if online_cfg is not None:
+                raise ValueError(
+                    "the online plane tails the event store, and a deploy "
+                    "from a model file has none: deploy from the store or "
+                    "unset PIO_ONLINE")
+            self.storage: Optional[Storage] = None
+            self._variant = None
+            state = load_served_state(engine_json, model_path, self.device)
+        else:
+            self.storage = storage or Storage.get()
+            self._variant = read_engine_json(engine_json)
+            state = self._load_from_store()
+        # the served-state table: variant → ServedState, each entry
+        # replaced whole under the lock (/reload, the plane's swaps) and
+        # read once per query
+        self._primary_variant = state.instance.engine_variant
+        self._states = {self._primary_variant: state}
+        self._state_lock = threading.Lock()
+        # set before binding: a failed bind calls server_close
+        self.online: Optional[OnlinePlane] = None
         super().__init__((ip, port), _Handler)
-        log.info("Deployed engine instance %s on %s", self.state.instance.id,
+        log.info("Deployed engine instance %s on %s", state.instance.id,
                  self.device)
+        if online_cfg is not None:
+            try:
+                self.online = OnlinePlane(self, online_cfg)
+                self.online.start()
+            except Exception:  # noqa: BLE001 — serving must not go down
+                log.exception("online plane failed to start; serving "
+                              "continues without fold-in")
+                self.online = None
+
+    def _load_from_store(self) -> ServedState:
+        return load_served_state_from_store(
+            self.storage, self._variant.id, self.engine_version,
+            self._variant.variant, self.device)
 
     @property
     def port(self) -> int:
         return self.server_address[1]
+
+    @property
+    def state(self) -> ServedState:
+        """The primary variant's served state (the only one served)."""
+        return self._states[self._primary_variant]
 
     def predict(self, query: Any) -> Any:
         st = self.state
         return st.engine.predict(st.engine_params, st.models, query,
                                  components=st.components)
 
+    def reload(self) -> None:
+        """Swap in the newest COMPLETED instance from the store. A failed
+        load raises and keeps the current state."""
+        if self.storage is None:
+            raise RuntimeError("deployed from a model file: there is no "
+                               "store to reload from")
+        with self._state_lock:
+            try:
+                state = self._load_from_store()
+            except Exception:
+                log.exception("Reload failed; keeping instance %s",
+                              self.state.instance.id)
+                raise
+            self._states[self._primary_variant] = state
+        log.info("Reloaded engine instance %s", state.instance.id)
+        if self.online is not None:
+            # outside the state lock: a fold pass holds its own lock
+            # while swapping (which takes the state lock), so rebasing
+            # under the state lock would deadlock against it. A fold
+            # racing this reload is refused by the swapper's stale-state
+            # check and replays against the new instance.
+            self.online.rebase()
+
     def status(self) -> dict:
         instance = self.state.instance
-        return {
+        payload = {
             "status": "alive",
             "engineId": instance.engine_id,
             "engineVariant": instance.engine_variant,
@@ -179,29 +259,62 @@ class PredictionServer(ThreadingHTTPServer):
             "startTime": format_time(instance.start_time),
             "device": str(self.device),
         }
+        if self.online is not None:
+            payload["online"] = self.online.snapshot()
+        return payload
+
+    def shutdown(self) -> None:
+        """Stop serving (blocks until `serve_forever` returns), then the
+        online plane."""
+        super().shutdown()
+        if self.online is not None:
+            self.online.stop()
+
+    def server_close(self) -> None:
+        """Close the socket and stop the online plane, also for a server
+        that never served (`shutdown` waits for `serve_forever`)."""
+        if self.online is not None:
+            self.online.stop()
+        super().server_close()
 
 
 class _Handler(BaseHTTPRequestHandler):
     server: PredictionServer
     protocol_version = "HTTP/1.1"
 
-    def _reply(self, code: int, payload: Any) -> None:
-        body = json.dumps(payload).encode()
+    def _send(self, code: int, body: bytes, content_type: str) -> None:
         self.send_response(code)
-        self.send_header("Content-Type", "application/json; charset=UTF-8")
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
 
+    def _reply(self, code: int, payload: Any) -> None:
+        self._send(code, json.dumps(payload).encode(),
+                   "application/json; charset=UTF-8")
+
     def do_GET(self) -> None:  # noqa: N802 — http.server's spelling
         if self.path == "/":
             self._reply(200, self.server.status())
+        elif self.path == "/metrics":
+            self._send(200, REGISTRY.render().encode(),
+                       METRICS_CONTENT_TYPE)
         else:
             self._reply(404, {"message": f"no route {self.path}"})
 
     def do_POST(self) -> None:  # noqa: N802
         length = int(self.headers.get("Content-Length") or 0)
         body = self.rfile.read(length) if length else b""
+        if self.path == "/reload":
+            try:
+                self.server.reload()
+            except Exception as e:  # noqa: BLE001 — reported, state kept
+                self._reply(500, {"message": str(e)})
+                return
+            self._reply(200, {
+                "message": "Reloaded",
+                "engineInstanceId": self.server.state.instance.id})
+            return
         if self.path != "/queries.json":
             self._reply(404, {"message": f"no route {self.path}"})
             return

@@ -926,3 +926,94 @@ def test_fold_on_card_single_equals_batched_at_matched_tier(dev, rank):
     assert folded.user_factors.device.type == "cuda"
     assert np.array_equal(folded.user_factors.cpu().numpy(),
                           once.user_factors)
+
+
+def test_online_plane_poll_on_card_launches_its_kernel_and_replays_bitwise(
+        dev, tmp_path, monkeypatch):
+    """A store-deployed server on the card with the online plane: one poll
+    folds a never-seen user and two re-raters on `gj_aug_reg` alone (rank
+    64), the user is served at once, and a batch crashed before its
+    watermark replays to bitwise the same factors."""
+    import json
+    from datetime import datetime, timedelta, timezone
+
+    from predictionio_torch.controller import WorkflowContext
+    from predictionio_torch.data.datamap import DataMap
+    from predictionio_torch.data.events import Event
+    from predictionio_torch.online import OnlineConfig
+    from predictionio_torch.storage.base import App
+    from predictionio_torch.storage.registry import (
+        SourceConfig,
+        Storage,
+        StorageConfig,
+    )
+    from predictionio_torch.utils.faults import FaultInjected
+    from predictionio_torch.workflow.core_workflow import CoreWorkflow
+    from predictionio_torch.workflow.create_server import PredictionServer
+    from predictionio_torch.workflow.workflow_utils import (
+        EngineVariant,
+        extract_engine_params,
+        get_engine,
+    )
+
+    src = SourceConfig(name="CARD", type="memory")
+    storage = Storage(StorageConfig(metadata=src, modeldata=src,
+                                    eventdata=src))
+    app_id = storage.meta_apps().insert(App(id=0, name="CardApp"))
+    rng = np.random.default_rng(0)
+    t0 = datetime(2026, 1, 1, tzinfo=timezone.utc)
+
+    def rate(u, i, r, when=None):
+        e = Event(event="rate", entity_type="user", entity_id=u,
+                  target_entity_type="item", target_entity_id=i,
+                  properties=DataMap({"rating": r}))
+        if when is not None:
+            e.event_time = when
+        storage.l_events().insert(e, app_id)
+
+    for n in range(2_000):
+        rate(f"u{rng.integers(120)}", f"i{rng.integers(150)}",
+             float(rng.integers(1, 11)) / 2, t0 + timedelta(seconds=n))
+    d = {"id": "card", "engineFactory": "predictionio_torch.templates."
+         "recommendation.RecommendationEngine",
+         "datasource": {"params": {"appName": "CardApp"}},
+         "algorithms": [{"name": "als", "params": {
+             "rank": 64, "numIterations": 3, "lambda": 0.05, "seed": 1}}]}
+    engine_json = tmp_path / "engine.json"
+    engine_json.write_text(json.dumps(d))
+    variant = EngineVariant.from_dict(d)
+    engine = get_engine(variant.engine_factory)
+    CoreWorkflow.run_train(engine, extract_engine_params(engine, variant),
+                           variant, WorkflowContext(device=dev,
+                                                    storage=storage))
+    server = PredictionServer(str(engine_json), ip="127.0.0.1", port=0,
+                              device=dev, storage=storage,
+                              online=OnlineConfig(fold_items=False))
+    try:
+        server.online.stop()
+        for i in (3, 5, 7):
+            rate("fresh", f"i{i}", 5.0)
+        rate("u1", "i9", 1.0)
+        rate("u2", "i9", 4.5)
+        spd_solve.reset_launches()
+        monkeypatch.setenv("PIO_FAULTS", "online.pre_watermark=error")
+        with pytest.raises(FaultInjected):
+            server.online.poll_once()
+        launched = {k: v for k, v in spd_solve.launches.items() if v}
+        assert list(launched) == ["gj_aug_reg"] and launched["gj_aug_reg"] > 0
+        model = server.state.models[0]
+        rows = [model.user_ids[u] for u in ("fresh", "u1", "u2")]
+        pre = np.array(model.user_factors[rows], copy=True)
+        monkeypatch.setenv("PIO_FAULTS", "")
+        assert server.online.poll_once() == 5
+        again = server.state.models[0]
+        assert np.array_equal(
+            again.user_factors[[again.user_ids[u]
+                                for u in ("fresh", "u1", "u2")]], pre)
+        assert server.online.poll_once() == 0
+        items = [s["item"] for s in server.predict(
+            {"user": "fresh", "num": 5})["itemScores"]]
+        assert len(items) == 5 and not {"i3", "i5", "i7"} & set(items)
+    finally:
+        server.server_close()
+        storage.close()

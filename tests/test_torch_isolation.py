@@ -100,6 +100,24 @@ _BLOCKED_RUN = textwrap.dedent("""
             return True
 
     assert Pull(storage).poll_once() == 120
+
+    # the online plane on that store: one poll folds a new rating
+    from predictionio_torch.data.datamap import DataMap
+    from predictionio_torch.data.events import Event
+    from predictionio_torch.online import OnlineConfig
+
+    server = PredictionServer(engine_json, ip="127.0.0.1", port=0,
+                              device="cpu", storage=storage,
+                              online=OnlineConfig())
+    server.online.stop()
+    storage.l_events().insert(Event(
+        event="rate", entity_type="user", entity_id="fresh",
+        target_entity_type="item", target_entity_id="i1",
+        properties=DataMap({{"rating": 4.0}})),
+        storage.meta_apps().get_by_name("MyApp1").id)
+    assert server.online.poll_once() == 1
+    assert server.predict({{"user": "fresh", "num": 2}})["itemScores"]
+    server.server_close()
     storage.close()
     _, (als_model, _popular) = read_model_file(model)
     folded, stats = foldin.fold_model(
