@@ -153,11 +153,43 @@ Phases (any failure exits non-zero and prints no result line):
              after each of its 1,100 users re-rates an item (warm);
              history gather and fold ms of both, launches `gj_aug_reg`
              alone at rank 64 and `gj_aug_multi_reg` alone at 128.
+8. serving — the serving plane (`serving/`) behind /queries.json. Four
+             `console deploy` children start together. (a) Phase 6's
+             store's `2m` rank-64 instance (13 850 users × 2 700 items)
+             with the default PIO_SERVING_* and with
+             PIO_SERVING_BATCHING=0: 2,000 seeded {"user", "num": 10}
+             queries from 1, 8 and 32 keep-alive clients (`http.client`,
+             a thread and a connection each); qps, p50 and p99 ms, and
+             from /metrics the dispatches, mean batch size and padded
+             rows. Bar: every answer equals, byte for byte, the
+             one-client batching-on answer to the same query. (b) The same
+             instance with PIO_SERVING_MAX_BATCH=128 and
+             PIO_SERVING_MAX_QUEUE=256 under 128 clients, twice (cold:
+             the child's first device dispatch; warm): the batches
+             above 64 (`recommend_topk`'s device branch) and their
+             share; bars: at least one such batch a run, and every
+             answer's item ids equal (a)'s wherever the scores are not
+             tied (the max abs score difference is reported). (c) In process: phase 4's
+             model and an als + popular model trained from phase 4's
+             events file (in phase 4, on the train → serve path);
+             X-PIO-Deadline-Ms: 0.0001 → 503, a shed
+             (max_queue 0) → 200 + X-PIO-Degraded: 1 with the
+             popularity answer, and 429 without the popularity algorithm,
+             each with Retry-After, counted on /metrics. (d) Phase 4's
+             store with PIO_ONLINE=1, PIO_HTTP_RESULT_CACHE=1 and a 600 s
+             TTL: once the plane has folded phase 7's events, users u and
+             w answer twice (the second a hit); u rates three of its
+             recommended items, and within 30 s its answer leaves them
+             while w's stays a hit (only the invalidation bus can explain
+             u's fresh answer); POST /reload makes w a miss. The child's
+             folds launch `gj_aug_reg`.
 
 Launch counts are zeroed just before each path (phases 3-4: train →
 serve; phase 5: eval → batchpredict; phase 6: fold; phase 7: online,
-with the deployed child's counts added) and read just after;
-every kernel of a path must have launched there, and `gj_aug`, `gj_packed`
+with the deployed child's counts added; phase 8: serving, with the four
+children's counts added) and read just after;
+every kernel of a path must have launched there (on the serving path,
+`gj_aug_reg` in (d)'s child alone), and `gj_aug`, `gj_packed`
 and `gj_blocked2` (K > 256 only) and `gj_aug_multi` (K > 128 with M > 1
 only) on none. The eval path's counts add the console
 children's own to the grids'; the sequential trains phase 5a compares
@@ -180,6 +212,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from datetime import datetime, timedelta, timezone
 
@@ -295,6 +328,21 @@ ONLINE_ROUNDS, ONLINE_NEW_RATINGS, ONLINE_RERATERS = 20, 3, 4
 ONLINE_ROUND_TIMEOUT_S = 30.0
 ONLINE_TIMED_QUERIES = 50
 ONLINE_PARITY_BAR = 0.05
+# phase 8: the queries of each load run (8a, 8b), the client counts of 8a
+# and 8b, the seconds a fold may take to reach a cached answer (8d), and
+# the knobs a deploy child takes only where phase 8 sets them
+SERVING_QUERIES = 2_000
+SERVING_CLIENTS = (1, 8, 32)
+SERVING_DEVICE_CLIENTS = 128
+CACHE_RYW_TIMEOUT_S = 30.0
+SERVING_KNOBS = (
+    "PIO_SERVING_BATCHING", "PIO_SERVING_MAX_BATCH",
+    "PIO_SERVING_MAX_WAIT_MS", "PIO_SERVING_MAX_QUEUE",
+    "PIO_SERVING_DEFAULT_DEADLINE_MS", "PIO_SERVING_RETRY_AFTER_S",
+    "PIO_HTTP_RESULT_CACHE", "PIO_HTTP_RESULT_CACHE_SIZE",
+    "PIO_HTTP_RESULT_CACHE_TTL_S", "PIO_ONLINE", "PIO_ONLINE_INTERVAL_S",
+    "PIO_ONLINE_FOLD_ITEMS", "PIO_ONLINE_MAX_BATCH", "PIO_ONLINE_APP_ID",
+    "PIO_FAULTS")
 # deploys the console in a child process and writes, when it exits, its
 # launch counts to the file named by its first argument
 _DEPLOY_CHILD = (
@@ -2130,6 +2178,440 @@ def phase_online(report: dict, device, tmp: str, served: dict, data,
     return child_launches
 
 
+# -- phase 8 -----------------------------------------------------------------
+
+def _scrape(url: str) -> dict:
+    """Every sample of a `/metrics` exposition: series (name and labels,
+    as rendered) → value."""
+    out = {}
+    for line in _get(url + "/metrics").decode().splitlines():
+        if line and not line.startswith("#"):
+            series, value = line.rsplit(" ", 1)
+            out[series] = float(value)
+    return out
+
+
+def _delta(after: dict, before: dict, series: str) -> float:
+    return after.get(series, 0.0) - before.get(series, 0.0)
+
+
+def _start_deploy(args: list, env_extra: dict, launches_path: str):
+    """A `console deploy` child through _DEPLOY_CHILD, which writes its
+    launch counts to `launches_path` when it exits; its output is
+    drained by `_read_deployed_line`."""
+    env = dict(os.environ, PYTHONPATH=HERE, **env_extra)
+    for knob in SERVING_KNOBS:
+        if knob not in env_extra:
+            env.pop(knob, None)
+    return subprocess.Popen(
+        [sys.executable, "-c", _DEPLOY_CHILD, launches_path, "deploy"]
+        + args, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=HERE, env=env)
+
+
+def _stop(proc) -> None:
+    proc.terminate()
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def _load(url: str, queries: list, clients: int) -> tuple[list, dict]:
+    """POST every query of `queries` over `clients` keep-alive
+    connections (`http.client`, one thread and connection a client,
+    started together, the queries dealt round robin). Returns the answer
+    bodies (bytes) by query and the run's row: qps over the wall, p50 and
+    p99 of the per-request ms, and the serving families' deltas from
+    `/metrics`: dispatches, mean batch size (before padding), padded rows
+    and batches above SERVE_HOST_MAX_BATCH (the device branch)."""
+    import http.client
+
+    import numpy as np
+
+    port = int(url.rsplit(":", 1)[1])
+    bodies: list = [None] * len(queries)
+    ms = [0.0] * len(queries)
+    errors: list = []
+    start = threading.Barrier(clients + 1)
+
+    def client(k: int) -> None:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            start.wait(timeout=60)
+            for n in range(k, len(queries), clients):
+                payload = json.dumps(queries[n])
+                t0 = time.perf_counter()
+                conn.request("POST", "/queries.json", body=payload,
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                body = resp.read()
+                ms[n] = (time.perf_counter() - t0) * 1e3
+                if resp.status != 200:
+                    errors.append((n, resp.status, body[:200]))
+                bodies[n] = body
+        except Exception as e:  # noqa: BLE001 — reported as the run's failure
+            errors.append((k, repr(e)))
+        finally:
+            conn.close()
+
+    before = _scrape(url)
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(clients)]
+    for t in threads:
+        t.start()
+    start.wait(timeout=60)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    after = _scrape(url)
+    if errors or any(t.is_alive() for t in threads) or None in bodies:
+        raise AssertionError(f"{clients}-client load on {url} failed: "
+                             f"{errors[:5]}")
+    batches = _delta(after, before, "serving_batch_size_count")
+    small = _delta(after, before,
+                   'serving_batch_size_bucket{le="64"}')
+    row = {"clients": clients, "queries": len(queries), "wall_s": wall,
+           "qps": len(queries) / wall,
+           "p50_ms": float(np.percentile(ms, 50)),
+           "p99_ms": float(np.percentile(ms, 99)),
+           "dispatches": batches,
+           "mean_batch": (_delta(after, before, "serving_batch_size_sum")
+                          / batches if batches else None),
+           "padded_rows": _delta(after, before, "serving_padded_rows_total"),
+           "batches_above_64": batches - small,
+           "device_share": (batches - small) / batches if batches else None}
+    return bodies, row
+
+
+def _untied_against(bodies: list, reference: list) -> dict:
+    """Each answer's item ids against the reference answer's wherever
+    its scores are not tied (raises on a difference); the positions
+    compared and the max abs score difference."""
+    import numpy as np
+
+    max_diff, compared = 0.0, 0
+    for got_raw, want_raw in zip(bodies, reference):
+        got = json.loads(got_raw)["itemScores"]
+        want = json.loads(want_raw)["itemScores"]
+        if len(got) != len(want):
+            raise AssertionError(f"device-branch answer {got} != {want}")
+        scores = np.asarray([s["score"] for s in want])
+        gaps = np.abs(np.diff(scores)) < 1e-5
+        tied = np.zeros(len(want), bool)
+        tied[:-1] |= gaps
+        tied[1:] |= gaps
+        for pos in np.nonzero(~tied)[0]:
+            if got[pos]["item"] != want[pos]["item"]:
+                raise AssertionError(f"device branch differs from the "
+                                     f"host's at {pos}: {got} vs {want}")
+            compared += 1
+        if want:
+            max_diff = max(max_diff, float(np.max(np.abs(
+                np.asarray([s["score"] for s in got]) - scores))))
+    return {"positions_compared": compared, "max_abs_score_diff": max_diff}
+
+
+def _serving_loads(urls: dict, data) -> dict:
+    """8a and 8b: the `2m` rank-64 instance under 1, 8 and 32 clients
+    with batching on and off, then twice (cold, warm) under 128 clients
+    with max_batch 128. Every answer of 8a equals, byte for byte, the
+    one-client answer with batching on; every answer of 8b has its item
+    ids wherever the scores are not tied, and each 8b run dispatched at
+    least one batch above 64 (the device branch)."""
+    import numpy as np
+
+    rng = np.random.default_rng(8)
+    queries = [{"user": f"u{int(u)}", "num": 10}
+               for u in rng.integers(0, data.n_users, SERVING_QUERIES)]
+    runs, reference = [], None
+    for mode in ("batching_on", "batching_off"):
+        for clients in SERVING_CLIENTS:
+            bodies, row = _load(urls[mode], queries, clients)
+            if reference is None:
+                reference = bodies
+            row.update(mode=mode, byte_identical=bodies == reference)
+            emit(dict(phase="serving_load", **row))
+            runs.append(row)
+    device = []
+    for when in ("cold", "warm"):
+        # the cold run holds the child's first device-branch dispatch
+        # (CUDA's lazy start on its dispatcher thread), the warm run not
+        bodies, row = _load(urls["device"], queries, SERVING_DEVICE_CLIENTS)
+        row.update(mode="max_batch_128", run=when,
+                   **_untied_against(bodies, reference))
+        emit(dict(phase="serving_load", **row))
+        device.append(row)
+    if (not all(r["byte_identical"] for r in runs)
+            or not all(r["batches_above_64"] > 0 for r in device)):
+        raise AssertionError(f"serving under load failed a bar: "
+                             f"{runs + device}")
+    return {"runs": runs, "device": device}
+
+
+@contextlib.contextmanager
+def _in_process_server(engine_json: str, model: str, device,
+                       serving_config=None):
+    """A PredictionServer of a model file (its plane configured by
+    `serving_config`, None: the defaults), serving on a thread of this
+    process."""
+    from predictionio_torch.serving import ServingConfig
+    from predictionio_torch.workflow.create_server import PredictionServer
+
+    server = PredictionServer(engine_json, model, ip="127.0.0.1", port=0,
+                              device=device,
+                              serving_config=serving_config or ServingConfig())
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield server, f"http://127.0.0.1:{server.port}"
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+
+
+def _raw_post(url: str, query: dict, headers=None) -> tuple:
+    req = urllib.request.Request(
+        url + "/queries.json", data=json.dumps(query).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, json.loads(resp.read()), resp.headers
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), e.headers
+
+
+def train_serving_multi(device, tmp: str, served: dict) -> None:
+    """The als + popular engine that 8c sheds to its popularity answer,
+    trained from phase 4's events file at phase 4's rank (its launches
+    count on the train → serve path); adds its engine.json and model
+    file to `served`."""
+    from predictionio_torch.tools import console
+
+    with open(served["engine_json"]) as f:
+        variant = json.load(f)
+    variant["id"] = "serving-multi"
+    variant["algorithms"] = variant["algorithms"] + [
+        {"name": "popular", "params": {}}]
+    variant["serving"] = {"name": "weighted",
+                          "params": {"weights": [0.8, 0.2]}}
+    multi_json = os.path.join(tmp, "engine-serving-multi.json")
+    with open(multi_json, "w") as f:
+        json.dump(variant, f)
+    multi_model = os.path.join(tmp, "serving-multi.pio")
+    if console.main(["train", "--engine-json", multi_json, "--events",
+                     served["events"], "--model-out", multi_model,
+                     "--device", str(device)]) != 0:
+        raise AssertionError("console train of the als + popular engine "
+                             "failed")
+    served.update(multi_engine_json=multi_json, multi_model=multi_model)
+
+
+def _serving_contract(device, served: dict) -> dict:
+    """8c, in process on the card: phase 4's ALS model and the als +
+    popular model of `train_serving_multi`. A lapsed X-PIO-Deadline-Ms
+    answers 503, a shed with the popularity algorithm 200 +
+    X-PIO-Degraded: 1 and its answer, a shed without it 429, both with
+    Retry-After; /metrics counts each."""
+    from predictionio_torch.serving import AdmissionConfig, ServingConfig
+
+    query = {"user": served["users"][3], "num": 10}
+    row = {}
+    with _in_process_server(served["engine_json"], served["model"],
+                            device) as (_, url):
+        before = _scrape(url)
+        code, body, headers = _raw_post(url, query,
+                                        {"X-PIO-Deadline-Ms": "0.0001"})
+        row["deadline"] = {"status": code, "body": body,
+                           "retry_after": headers.get("Retry-After")}
+        code, body, headers = _raw_post(url, query)
+        row["normal"] = {"status": code,
+                         "degraded": headers.get("X-PIO-Degraded")}
+    shed = ServingConfig(admission=AdmissionConfig(max_queue=0))
+    with _in_process_server(served["multi_engine_json"],
+                            served["multi_model"], device,
+                            shed) as (server, url):
+        code, body, headers = _raw_post(url, query)
+        st = server.state
+        popular = st.engine.degraded_predict(
+            st.engine_params, st.models, query, components=st.components)
+        row["degraded"] = {"status": code,
+                           "degraded": headers.get("X-PIO-Degraded"),
+                           "equals_popularity": body == popular,
+                           "items": len(body.get("itemScores", []))}
+    with _in_process_server(served["engine_json"], served["model"], device,
+                            shed) as (_, url):
+        code, body, headers = _raw_post(url, query)
+        row["shed"] = {"status": code, "body": body,
+                       "retry_after": headers.get("Retry-After")}
+        after = _scrape(url)
+    row["metrics"] = {series: _delta(after, before, series) for series in (
+        'serving_shed_total{reason="queue_full"}',
+        'serving_shed_total{reason="deadline"}',
+        "serving_deadline_misses_total", "serving_degraded_total",
+        "engine_queries_failed_total")}
+    m = row["metrics"]
+    if (row["deadline"]["status"] != 503 or not row["deadline"]["retry_after"]
+            or row["normal"] != {"status": 200, "degraded": None}
+            or row["degraded"]["status"] != 200
+            or row["degraded"]["degraded"] != "1"
+            or not row["degraded"]["equals_popularity"]
+            or not row["degraded"]["items"]
+            or row["shed"]["status"] != 429 or not row["shed"]["retry_after"]
+            or m['serving_shed_total{reason="queue_full"}'] < 2
+            or m["serving_deadline_misses_total"] < 1
+            or m["serving_degraded_total"] < 1
+            or m["engine_queries_failed_total"] < 2):
+        raise AssertionError(f"the serving HTTP contract failed: {row}")
+    return row
+
+
+def _serving_cache(url: str, served: dict, events_folded: int) -> dict:
+    """8d: read-your-writes of the result cache under a 600 s TTL, on
+    phase 4's store deployed with the online plane (its child started by
+    `phase_serving`). Once the plane has caught up with phase 7's events:
+    users u and w answer twice each (the second a hit); u rates three of
+    its recommended items; within CACHE_RYW_TIMEOUT_S u's answer leaves
+    them while w's stays a hit; /reload then makes w a miss."""
+    import numpy as np
+
+    from predictionio_torch.data.datamap import DataMap
+    from predictionio_torch.data.events import Event
+    from predictionio_torch.storage.registry import Storage, StorageConfig
+
+    deadline = time.monotonic() + 120
+    while json.loads(_get(url + "/"))["online"]["eventsFolded"] \
+            < events_folded:
+        if time.monotonic() > deadline:
+            raise AssertionError("the plane never caught up with phase 7's "
+                                 "events")
+        time.sleep(0.05)
+    hits, misses = ("http_result_cache_hits_total",
+                    "http_result_cache_misses_total")
+    invalidations = "http_result_cache_invalidations_total"
+    rng = np.random.default_rng(9)
+    u, w = (served["users"][int(n)]
+            for n in rng.choice(len(served["users"]), 2, replace=False))
+
+    def items(user):
+        return [s["item"] for s in _post(url, {"user": user,
+                                               "num": 10})["itemScores"]]
+
+    m0 = _scrape(url)
+    u_first, u_second = items(u), items(u)
+    w_first, w_second = items(w), items(w)
+    m1 = _scrape(url)
+    rated = u_first[:3]
+    storage = Storage(StorageConfig.from_env(
+        {"PIO_FS_BASEDIR": served["store_base"]}))
+    try:
+        app_id = storage.meta_apps().get_by_name("MyApp1").id
+        for item in rated:
+            storage.l_events().insert(Event(
+                event="rate", entity_type="user", entity_id=u,
+                target_entity_type="item", target_entity_id=item,
+                properties=DataMap({"rating": 5.0})), app_id)
+    finally:
+        storage.close()
+    committed = time.perf_counter()
+    fresh_ms, u_fresh, polls = None, u_first, 0
+    while time.perf_counter() - committed < CACHE_RYW_TIMEOUT_S:
+        u_fresh = items(u)
+        polls += 1
+        if not set(u_fresh) & set(rated):
+            fresh_ms = (time.perf_counter() - committed) * 1e3
+            break
+        time.sleep(0.002)
+    m2 = _scrape(url)
+    w_third = items(w)
+    m3 = _scrape(url)
+    req = urllib.request.Request(url + "/reload", data=b"")
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        reloaded = json.loads(resp.read())
+    m4 = _scrape(url)
+    w_after_reload = items(w)
+    m5 = _scrape(url)
+    row = {"user_u": u, "user_w": w, "rated": rated,
+           "second_queries": {"hits": _delta(m1, m0, hits),
+                              "misses": _delta(m1, m0, misses)},
+           "u_repeat_equal": u_first == u_second,
+           "w_repeat_equal": w_first == w_second,
+           "event_to_fresh_answer_ms": fresh_ms, "u_polls": polls,
+           "u_answer_after": u_fresh,
+           "invalidations": _delta(m2, m1, invalidations),
+           "w_hit_after_fold": _delta(m3, m2, hits) == 1
+           and w_third == w_first,
+           "reload": reloaded,
+           "reload_invalidations": _delta(m4, m3, invalidations),
+           "w_miss_after_reload": _delta(m5, m4, misses) == 1
+           and _delta(m5, m4, hits) == 0,
+           "w_after_reload": w_after_reload}
+    if (row["second_queries"] != {"hits": 2.0, "misses": 2.0}
+            or not row["u_repeat_equal"] or not row["w_repeat_equal"]
+            or fresh_ms is None or row["invalidations"] < 1
+            or not row["w_hit_after_fold"] or "engineInstanceId" not in
+            reloaded or not row["w_miss_after_reload"]):
+        raise AssertionError(f"read-your-writes through the result cache "
+                             f"failed a bar: {row}")
+    return row
+
+
+def phase_serving(report: dict, device, tmp: str, served: dict,
+                  data) -> tuple[dict, dict]:
+    """Phase 8: the serving plane. Four `console deploy` children start
+    together: phase 6's store's `2m` rank-64 instance with batching on,
+    with it off, and with max_batch 128 (8a, 8b), and phase 4's store
+    with the online plane and the result cache (8d); 8c runs in process
+    while they come up. Returns each child's launch counts (by child)
+    and the 8d child's."""
+    t0 = time.perf_counter()
+    fold64 = ["--engine-json", os.path.join(tmp, "engine-fold64.json"),
+              "--ip", "127.0.0.1", "--port", "0", "--device", str(device)]
+    fold_store = {"PIO_FS_BASEDIR": os.path.join(tmp, "fold")}
+    children = {
+        "batching_on": (fold64, fold_store),
+        "batching_off": (fold64, dict(fold_store, PIO_SERVING_BATCHING="0")),
+        "device": (fold64, dict(fold_store, PIO_SERVING_MAX_BATCH="128",
+                                PIO_SERVING_MAX_QUEUE="256")),
+        "cache": (["--engine-json", served["engine_json"], "--ip",
+                   "127.0.0.1", "--port", "0", "--device", str(device)],
+                  {"PIO_FS_BASEDIR": served["store_base"], "PIO_ONLINE": "1",
+                   "PIO_HTTP_RESULT_CACHE": "1",
+                   "PIO_HTTP_RESULT_CACHE_TTL_S": "600"})}
+    paths = {name: os.path.join(tmp, f"serving-{name}-launches.json")
+             for name in children}
+    procs = {name: _start_deploy(args, env, paths[name])
+             for name, (args, env) in children.items()}
+    try:
+        contract = _serving_contract(device, served)
+        emit(dict(phase="serving_http", **contract))
+        urls = {}
+        for name, proc in procs.items():
+            line = _read_deployed_line(proc, 300.0)
+            urls[name] = f"http://127.0.0.1:{int(line.rsplit(':', 1)[1])}"
+        ready_s = time.perf_counter() - t0
+        loads = _serving_loads(urls, data)
+        cache = _serving_cache(urls["cache"], served,
+                               report["online"]["http"]["events_written"])
+        emit(dict(phase="serving_cache", **cache))
+    finally:
+        for proc in procs.values():
+            _stop(proc)
+    launches = {}
+    for name, path in paths.items():
+        with open(path) as f:
+            launches[name] = json.load(f)["launches"]
+    report["serving"] = {
+        "loads": loads, "http": contract, "cache": cache,
+        "children_ready_s": ready_s, "wall_s": time.perf_counter() - t0,
+        "child_launches": {name: {k: v for k, v in counts.items() if v}
+                           for name, counts in launches.items()}}
+    return launches, launches["cache"]
+
+
 def _require_launches(path: str, launches: dict, kernels) -> None:
     """Every kernel in `kernels` launched on the path, and no kernel of
     OFF_PATH."""
@@ -2174,6 +2656,7 @@ def main(argv=None) -> int:
     train_runs, trained = phase_train(report, data, device, chol)
     with tempfile.TemporaryDirectory() as tmp:
         served = phase_serve(report, device, tmp)
+        train_serving_multi(device, tmp, served)  # phase 8c's model
         serve_launches = dict(spd_solve.launches)  # ... and ends here
         _require_launches("train → serve", serve_launches, PATH_KERNELS)
 
@@ -2193,8 +2676,21 @@ def main(argv=None) -> int:
         # child's (its counts start at 0 with the process)
         online_launches = {k: v + child[k]
                            for k, v in spd_solve.launches.items()}
+        spd_solve.reset_launches()  # the serving path starts here
+        children, cache_child = phase_serving(report, device, tmp, served,
+                                              data)
+        # ... and ends here: this process's launches (8c's servers) and
+        # the four deployed children's (the 8d child's folds)
+        serving_launches = {
+            k: v + sum(c[k] for c in children.values())
+            for k, v in spd_solve.launches.items()}
     _require_launches("fold", fold_launches, FOLD_KERNEL.values())
     _require_launches("online", online_launches, FOLD_KERNEL.values())
+    # the fold kernel from the 8d child's folds alone; no off-path kernel
+    # in any of the serving path's processes
+    _require_launches("serving (8d's folds)", cache_child,
+                      [FOLD_KERNEL[64]])
+    _require_launches("serving", serving_launches, [])
     # the path's launches: the grids in this process and the console
     # children's (each child's counts start at 0 with the process)
     children = [run["launches"] for run in eval_runs.values()]
@@ -2204,7 +2700,8 @@ def main(argv=None) -> int:
     _require_launches("eval", eval_launches, LAYOUT_KERNEL.values())
     report["launches"] = {"train_serve": serve_launches,
                           "eval": eval_launches, "eval_grid": grid_launches,
-                          "fold": fold_launches, "online": online_launches}
+                          "fold": fold_launches, "online": online_launches,
+                          "serving": serving_launches}
 
     kernels = []
     for name, (replaces, source) in KERNELS.items():
@@ -2216,7 +2713,8 @@ def main(argv=None) -> int:
             "source": f"predictionio_torch/csrc/{source}",
             "replaces": replaces, "ranks": KERNEL_RANKS[name],
             "launches": (serve_launches[name] + eval_launches[name]
-                         + fold_launches[name] + online_launches[name]),
+                         + fold_launches[name] + online_launches[name]
+                         + serving_launches[name]),
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -2226,6 +2724,7 @@ def main(argv=None) -> int:
             "launches_eval_grid": grid_launches[name],
             "launches_fold": fold_launches[name],
             "launches_online": online_launches[name],
+            "launches_serving": serving_launches[name],
             "launches_per_epoch_2m": per_epoch,
             "launches_console_eval": {layout: run["launches"][name]
                                       for layout, run in eval_runs.items()},

@@ -71,6 +71,11 @@ class Algorithm(abc.ABC, Generic[PD, M, Q, R]):
     from an in-memory model; `batch_predict` scores many (the default
     loops `predict`)."""
 
+    # True for algorithms whose predict is cheap enough (and needs no
+    # per-user state) to answer under saturation — the serving plane's
+    # degraded-mode fallback (e.g. a popularity model).
+    degraded_capable: bool = False
+
     @abc.abstractmethod
     def train(self, ctx: WorkflowContext, prepared_data: PD) -> M: ...
 

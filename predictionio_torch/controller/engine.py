@@ -1,7 +1,8 @@
 """Engine: binds DASE component classes + params into a trainable,
 deployable unit — the port of ``predictionio_tpu/controller/engine.py``,
-reduced to train, eval, eval_grid, model (de)serialization, predict and
-predict_batch (the port keeps no checkpoints, so no checkpoint scopes).
+reduced to train, eval, eval_grid, model (de)serialization, predict,
+predict_batch and degraded_predict (the port keeps no checkpoints, so no
+checkpoint scopes).
 """
 
 from __future__ import annotations
@@ -223,6 +224,21 @@ class Engine:
         _, _, algos, serving = components
         return [p for _, p, _ in _serve_fold(
             algos, models, serving, [(q, None) for q in queries])]
+
+    def degraded_predict(self, engine_params: EngineParams,
+                         models: Sequence[Any], query: Any,
+                         components=None) -> Optional[Any]:
+        """Serve one query through the first `degraded_capable` algorithm
+        alone (bypassing Serving combination — the other algorithms did
+        not run). Returns None when no algorithm volunteers; the serving
+        plane then sheds normally."""
+        if components is None:
+            components = self.components(engine_params)
+        _, _, algos, _ = components
+        for (_, algo), model in zip(algos, models):
+            if getattr(algo, "degraded_capable", False):
+                return algo.predict(model, query)
+        return None
 
 
 def _serve_fold(algos, models, serving, qa_pairs) -> list[tuple]:

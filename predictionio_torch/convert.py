@@ -3,7 +3,10 @@
 The reference's `ALSModel` holds numpy factors, two id→row maps and a CSR
 of seen items; pull those out as numpy arrays and dicts and
 `als_model_from_arrays` builds the port's `ALSModel` from them, so a model
-the reference trained serves through the port unchanged.
+the reference trained serves through the port unchanged. Its
+`PopularityModel` (the Recommendation template's second algorithm, the
+serving plane's degraded answer) holds item counts, their order and the
+same maps and seen items: `popularity_model_from_arrays` carries it.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import numpy as np
 
 from predictionio_torch.data.bimap import BiMap
 from predictionio_torch.models.als_model import ALSModel, SeenItems
+from predictionio_torch.templates.recommendation.engine import PopularityModel
 
 
 def als_model_from_arrays(
@@ -44,4 +48,31 @@ def als_model_from_arrays(
         user_ids=BiMap(dict(user_ids)),
         item_ids=BiMap(dict(item_ids)),
         seen=seen,
+    )
+
+
+def popularity_model_from_arrays(
+    counts: np.ndarray,
+    order: np.ndarray,
+    user_ids: Mapping[str, int],
+    item_ids: Mapping[str, int],
+    seen_user_idx: np.ndarray,
+    seen_item_idx: np.ndarray,
+) -> PopularityModel:
+    """The port's PopularityModel from the [n_items] popularity mass, the
+    item rows in serving order, the id string → row maps, and the (user
+    row, item row) pairs of seen items."""
+    counts = np.asarray(counts, dtype=np.float32)
+    order = np.asarray(order, dtype=np.int32)
+    if len(item_ids) != counts.shape[0] or order.shape != counts.shape:
+        raise ValueError(
+            f"{len(item_ids)} items do not match counts {counts.shape} / "
+            f"order {order.shape}")
+    return PopularityModel(
+        user_ids=BiMap(dict(user_ids)),
+        item_ids=BiMap(dict(item_ids)),
+        counts=counts,
+        order=order,
+        seen=SeenItems(np.asarray(seen_user_idx), np.asarray(seen_item_idx),
+                       len(user_ids)),
     )

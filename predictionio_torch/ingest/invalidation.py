@@ -6,8 +6,8 @@ what keeps it read-your-writes. A publisher sends the entity ids whose
 answers changed once the change is durable (in the reference, every
 commit path of the ingest write plane; in the port, today, the online
 plane's `online.swap.DeltaSwapper` after each fold), and subscribers
-(the result cache) drop whatever they hold for those entities. Until
-the port's result cache subscribes, the bus has no subscriber.
+(`serving.plane.ServingPlane`'s result cache) drop whatever they hold
+for those entities.
 
 Messages optionally carry an **engine variant id**. A plain data commit
 (`variant=None`) may change any variant's answer, so every subscriber

@@ -332,6 +332,9 @@ class PopularityAlgorithm(Algorithm):
     cold-start backstop in the served blend."""
 
     params_class = PopularityParams
+    # no per-user device work and O(num) serve cost: this is the serving
+    # plane's degraded-mode answer when admission sheds under saturation
+    degraded_capable = True
 
     def __init__(self, params: PopularityParams):
         self.params = params

@@ -13,8 +13,15 @@ not per query. The served state sits in a table keyed by engine variant,
 replaced whole under a lock by `/reload` and by the online plane
 (`online/plane.py`, `PIO_ONLINE=1`), which folds new events from the
 store into the served models. A deploy from a model file has no store:
-it can neither reload nor run the plane. The reference's serving plane
-(micro-batching, admission, result cache) comes in a later slice.
+it can neither reload nor run the plane.
+
+Every `/queries.json` goes through the serving plane
+(`serving/plane.py`, configured by `PIO_SERVING_*`): the opt-in result
+cache, admission control (429 past the queue bound, 503 past the
+client's `X-PIO-Deadline-Ms`, both with Retry-After), micro-batching into
+`Engine.predict_batch` on a dispatcher thread (a lone request dispatches
+inline on its handler thread), and the popularity answer with
+`X-PIO-Degraded: 1` when admission sheds.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import dataclasses
 import json
 import logging
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional
 
@@ -32,9 +40,17 @@ from predictionio_torch.controller.engine import Engine, EngineParams
 from predictionio_torch.data.events import format_time
 from predictionio_torch.device import DeviceLike, resolve_device
 from predictionio_torch.online.plane import OnlineConfig, OnlinePlane
+from predictionio_torch.serving import (
+    DeadlineExceeded,
+    ServingConfig,
+    ServingPlane,
+    ShedLoad,
+)
 from predictionio_torch.storage import base as storage_base
 from predictionio_torch.storage.registry import Storage
 from predictionio_torch.telemetry.registry import REGISTRY
+from predictionio_torch.utils import fastjson
+from predictionio_torch.utils.faults import FaultInjected
 from predictionio_torch.workflow.core_workflow import read_model_file
 from predictionio_torch.workflow.workflow_utils import (
     EngineVariant,
@@ -47,6 +63,17 @@ log = logging.getLogger(__name__)
 
 # the Prometheus text exposition format the reference serves
 METRICS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+# The query hot path, separated from the HTTP envelope so engine time is
+# distinguishable from request parsing/serialization in one scrape.
+PREDICT_SECONDS = REGISTRY.histogram(
+    "engine_predict_seconds",
+    "Engine predict dispatch latency in seconds (one observation per "
+    "batched dispatch; serving_batch_size gives queries per dispatch)")
+QUERIES_FAILED = REGISTRY.counter(
+    "engine_queries_failed_total", "Queries answered with a non-200 status")
+_PREDICT_SECONDS = PREDICT_SECONDS.labels()
+_QUERIES_FAILED = QUERIES_FAILED.labels()
 
 
 @dataclasses.dataclass
@@ -157,19 +184,25 @@ def load_engine_state(engine_json: str, model_path: Optional[str],
 
 class PredictionServer(ThreadingHTTPServer):
     daemon_threads = True
+    # a burst of concurrent clients connects before any handler reads:
+    # the standard library's listen backlog of 5 would drop the rest
+    request_queue_size = 128
 
     def __init__(self, engine_json: str, model_path: Optional[str] = None,
                  ip: str = "0.0.0.0", port: int = 8000,
                  device: DeviceLike = None, engine_version: str = "1",
                  storage: Optional[Storage] = None,
-                 online: Optional[OnlineConfig] = None):
+                 online: Optional[OnlineConfig] = None,
+                 serving_config: Optional[ServingConfig] = None):
         """Serve the model file `model_path`, or without one the latest
         completed instance of engine.json's engine id and variant in
         `storage` (None: `Storage.get()`). `online` (None:
         `OnlineConfig.from_env()`, i.e. `PIO_ONLINE=1`) runs the online
         plane over that storage; asking for it with a model file raises.
         A plane that fails to start is logged and the server serves on
-        without it, as the reference's does."""
+        without it, as the reference's does. `serving_config` (None:
+        `ServingConfig.from_env()`) configures the serving plane that
+        answers `/queries.json`."""
         self.device = resolve_device(device)
         self.engine_version = engine_version
         online_cfg = online if online is not None else OnlineConfig.from_env()
@@ -194,6 +227,8 @@ class PredictionServer(ThreadingHTTPServer):
         self._state_lock = threading.Lock()
         # set before binding: a failed bind calls server_close
         self.online: Optional[OnlinePlane] = None
+        self.serving = self._serving_plane(
+            serving_config or ServingConfig.from_env())
         super().__init__((ip, port), _Handler)
         log.info("Deployed engine instance %s on %s", state.instance.id,
                  self.device)
@@ -205,6 +240,32 @@ class PredictionServer(ThreadingHTTPServer):
                 log.exception("online plane failed to start; serving "
                               "continues without fold-in")
                 self.online = None
+
+    def _serving_plane(self, config: ServingConfig) -> ServingPlane:
+        """The primary variant's plane. It outlives reloads and fold
+        swaps: the dispatch reads `_states` when it runs, so a batch that
+        spans a `/reload` or a swap scores on whichever state is
+        current."""
+        variant = self._primary_variant
+
+        def dispatch(queries):
+            st = self._states[variant]
+            t0 = time.perf_counter()
+            try:
+                return st.engine.predict_batch(
+                    st.engine_params, st.models, queries,
+                    components=st.components)
+            finally:
+                _PREDICT_SECONDS.observe(time.perf_counter() - t0)
+
+        def degraded(query):
+            st = self._states[variant]
+            return st.engine.degraded_predict(
+                st.engine_params, st.models, query,
+                components=st.components)
+
+        return ServingPlane(dispatch, degraded_fn=degraded, config=config,
+                            variant=variant)
 
     def _load_from_store(self) -> ServedState:
         return load_served_state_from_store(
@@ -221,6 +282,8 @@ class PredictionServer(ThreadingHTTPServer):
         return self._states[self._primary_variant]
 
     def predict(self, query: Any) -> Any:
+        """One query straight through the engine, outside the serving
+        plane (no cache, admission or batching): for in-process callers."""
         st = self.state
         return st.engine.predict(st.engine_params, st.models, query,
                                  components=st.components)
@@ -239,6 +302,11 @@ class PredictionServer(ThreadingHTTPServer):
                               self.state.instance.id)
                 raise
             self._states[self._primary_variant] = state
+            if self.serving.result_cache is not None:
+                # answers cached against the outgoing instance are stale
+                # the moment the swap lands
+                self.serving.result_cache.invalidate_variant(
+                    self._primary_variant)
         log.info("Reloaded engine instance %s", state.instance.id)
         if self.online is not None:
             # outside the state lock: a fold pass holds its own lock
@@ -265,33 +333,43 @@ class PredictionServer(ThreadingHTTPServer):
 
     def shutdown(self) -> None:
         """Stop serving (blocks until `serve_forever` returns), then the
-        online plane."""
+        online plane and the serving plane (its dispatcher thread and bus
+        subscription)."""
         super().shutdown()
         if self.online is not None:
             self.online.stop()
+        self.serving.close()
 
     def server_close(self) -> None:
-        """Close the socket and stop the online plane, also for a server
-        that never served (`shutdown` waits for `serve_forever`)."""
+        """Close the socket and stop both planes, also for a server that
+        never served (`shutdown` waits for `serve_forever`)."""
         if self.online is not None:
             self.online.stop()
+        self.serving.close()
         super().server_close()
 
 
 class _Handler(BaseHTTPRequestHandler):
     server: PredictionServer
     protocol_version = "HTTP/1.1"
+    # a response leaves as two writes (headers, body): with Nagle on, a
+    # keep-alive client's delayed ACK holds the body back for tens of ms
+    disable_nagle_algorithm = True
 
-    def _send(self, code: int, body: bytes, content_type: str) -> None:
+    def _send(self, code: int, body: bytes, content_type: str,
+              headers: Optional[dict] = None) -> None:
         self.send_response(code)
         self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
+        for name, value in (headers or {}).items():
+            self.send_header(name, value)
         self.end_headers()
         self.wfile.write(body)
 
-    def _reply(self, code: int, payload: Any) -> None:
-        self._send(code, json.dumps(payload).encode(),
-                   "application/json; charset=UTF-8")
+    def _reply(self, code: int, payload: Any,
+               headers: Optional[dict] = None) -> None:
+        self._send(code, fastjson.dumps_bytes(payload),
+                   "application/json; charset=UTF-8", headers)
 
     def do_GET(self) -> None:  # noqa: N802 — http.server's spelling
         if self.path == "/":
@@ -318,14 +396,40 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path != "/queries.json":
             self._reply(404, {"message": f"no route {self.path}"})
             return
+        self._query(body)
+
+    def _query(self, body: bytes) -> None:
+        """`/queries.json` through the serving plane, its outcomes mapped
+        as the reference's handler maps them."""
+        plane = self.server.serving
         try:
-            query = json.loads(body or b"{}")
-            result = self.server.predict(query)
+            query = fastjson.loads(body or b"{}")
+            result, degraded = plane.handle_query(query, self.headers)
+        except ShedLoad as e:
+            # saturated and no degraded answer: an explicit, immediate
+            # 429 beats queueing into collapse
+            _QUERIES_FAILED.inc()
+            self._reply(429, {"message": str(e)},
+                        {"Retry-After": f"{e.retry_after_s:g}"})
+            return
+        except DeadlineExceeded as e:
+            _QUERIES_FAILED.inc()
+            retry_after = plane.config.admission.retry_after_s
+            self._reply(503, {"message": str(e)},
+                        {"Retry-After": f"{retry_after:g}"})
+            return
+        except FaultInjected as e:
+            # an injected fault is a server error, not the client's
+            _QUERIES_FAILED.inc()
+            self._reply(500, {"message": str(e)})
+            return
         except Exception as e:  # noqa: BLE001 — a bad query is a 400
+            _QUERIES_FAILED.inc()
             log.warning("Query failed: %s", e)
             self._reply(400, {"message": str(e)})
             return
-        self._reply(200, result)
+        self._reply(200, result,
+                    {"X-PIO-Degraded": "1"} if degraded else None)
 
     def log_message(self, fmt: str, *args) -> None:
         log.debug("%s - %s", self.address_string(), fmt % args)

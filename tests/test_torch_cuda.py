@@ -8,6 +8,7 @@ where JAX is not installed (tests/conftest.py imports JAX):
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -1017,3 +1018,86 @@ def test_online_plane_poll_on_card_launches_its_kernel_and_replays_bitwise(
     finally:
         server.server_close()
         storage.close()
+
+
+def test_serving_plane_batch_of_128_on_card_matches_host(dev, monkeypatch):
+    """128 concurrent queries through the port's serving plane with
+    max_batch 128: the batch past SERVE_HOST_MAX_BATCH scores on the card
+    (`topk_device`), and every answer's item ids equal the host branch's
+    (a query alone) wherever the scores are not tied."""
+    import threading
+
+    from predictionio_torch import convert
+    from predictionio_torch.serving import (
+        AdmissionConfig,
+        BatcherConfig,
+        ServingConfig,
+        ServingPlane,
+    )
+    from predictionio_torch.templates.recommendation.engine import (
+        ALSAlgorithm,
+    )
+
+    rng = np.random.default_rng(6)
+    n_users, n_items, rank = 2_000, 2_700, 64
+    seen_u = rng.integers(0, n_users, 40_000)
+    model = convert.als_model_from_arrays(
+        rng.normal(size=(n_users, rank)).astype(np.float32),
+        rng.normal(size=(n_items, rank)).astype(np.float32),
+        {f"u{i}": i for i in range(n_users)},
+        {f"i{i}": i for i in range(n_items)},
+        seen_u, rng.integers(0, n_items, len(seen_u)))
+    model.device = str(dev)
+    algo = ALSAlgorithm(None)
+    device_calls = []
+    topk_device = ranking.topk_device
+
+    def counted(*args, **kw):
+        device_calls.append(len(args[2]))
+        return topk_device(*args, **kw)
+
+    monkeypatch.setattr(ranking, "topk_device", counted)
+    plane = None
+    gate = threading.Event()
+
+    def dispatch(queries):
+        # the first dispatch waits for the rest of the 128 to queue, so
+        # they leave as one batch
+        if not gate.is_set():
+            gate.set()
+            deadline = time.monotonic() + 30
+            while (len(plane.batcher._queue) + len(queries) < 128
+                   and time.monotonic() < deadline):
+                time.sleep(0.001)
+        return algo.batch_predict(model, queries)
+
+    plane = ServingPlane(dispatch, config=ServingConfig(
+        admission=AdmissionConfig(max_queue=256),
+        batcher=BatcherConfig(max_batch=128, max_wait_ms=50.0)))
+    users = [f"u{u}" for u in rng.choice(n_users, 128, replace=False)]
+    out = [None] * 128
+    threads = [threading.Thread(target=lambda i=i: out.__setitem__(
+        i, plane.handle_query({"user": users[i], "num": 10})))
+        for i in range(128)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        plane.close()
+    assert device_calls and max(device_calls) > ranking.SERVE_HOST_MAX_BATCH
+    for user, (result, degraded) in zip(users, out):
+        assert degraded is False
+        want = model.recommend_products(user, 10)  # alone: the host branch
+        got = [(s["item"], s["score"]) for s in result["itemScores"]]
+        scores = np.asarray([s for _, s in want])
+        np.testing.assert_allclose([s for _, s in got], scores, rtol=1e-5,
+                                   atol=1e-5)
+        gaps = np.abs(np.diff(scores)) < 1e-5
+        tied = np.zeros(len(scores), bool)
+        tied[:-1] |= gaps
+        tied[1:] |= gaps
+        for pos in np.nonzero(~tied)[0]:
+            assert got[pos][0] == want[pos][0], (user, pos)

@@ -143,6 +143,64 @@ def test_train_and_serve_with_jax_and_reference_blocked():
     assert "ISOLATED-OK" in proc.stdout
 
 
+_SERVING_RUN = textwrap.dedent("""
+    import importlib.abc, sys, threading
+
+    BLOCKED = {blocked!r}
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError("blocked import of " + name)
+            return None
+
+    before = {{m for m in sys.modules if m.split(".")[0] in BLOCKED}}
+    sys.meta_path.insert(0, Block())
+
+    from predictionio_torch.ingest.invalidation import BUS
+    from predictionio_torch.serving import (
+        AdmissionConfig, ServingConfig, ServingPlane, ShedLoad)
+    from predictionio_torch.serving.result_cache import ResultCache
+    from predictionio_torch.utils import fastjson
+
+    plane = ServingPlane(lambda qs: [{{"q": q}} for q in qs],
+                         result_cache=ResultCache(), variant="v")
+    out = [None] * 8
+    threads = [threading.Thread(target=lambda i=i: out.__setitem__(
+        i, plane.handle_query({{"user": str(i)}}, {{}}))) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert out == [({{"q": {{"user": str(i)}}}}, False) for i in range(8)]
+    assert len(plane.result_cache) == 8
+    BUS.publish(["3"], variant="v")
+    assert len(plane.result_cache) == 7
+    plane.close()
+    assert not BUS.has_subscribers
+    shed = ServingPlane(lambda qs: qs, degraded_fn=lambda q: "popular",
+                        config=ServingConfig(
+                            admission=AdmissionConfig(max_queue=0)))
+    assert shed.handle_query("q") == ("popular", True)
+    shed.close()
+    assert fastjson.loads(fastjson.dumps_bytes({{"a": [1.5]}})) == {{"a": [1.5]}}
+    after = {{m for m in sys.modules if m.split(".")[0] in BLOCKED}}
+    assert after == before, sorted(after - before)
+    print("SERVING-ISOLATED-OK")
+""")
+
+
+def test_serving_plane_with_jax_and_reference_blocked():
+    """The serving plane and the port's JSON codec import neither JAX nor
+    the reference, and serve batched, cached and degraded answers."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _SERVING_RUN.format(blocked=BLOCKED)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "SERVING-ISOLATED-OK" in proc.stdout
+
+
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, names in os.walk(os.path.join(REPO,
