@@ -183,11 +183,39 @@ Phases (any failure exits non-zero and prints no result line):
              while w's stays a hit (only the invalidation bus can explain
              u's fresh answer); POST /reload makes w a miss. The child's
              folds launch `gj_aug_reg`.
+9. eventserver — the port's event server (`data/api.py`, `ingest/
+             writer.py`) in `console eventserver --port 0` children on
+             phase 6's store, beside a `console deploy` child of its `2m`
+             rank-64 instance with PIO_ONLINE=1 and
+             PIO_HTTP_RESULT_CACHE=1; the access keys and a channel made
+             with the console. (a) 2,000 seeded rate events on existing
+             users and items from 1, 8 and 32 keep-alive clients with
+             group commit on, 32 against a child with
+             PIO_INGEST_GROUPING=0, then one /batch/events.json of 50:
+             events/s, p50 and p99 ms of a 201, /metrics' commits, group
+             count and sum, sheds. Bars: every 201's id reads back through
+             GET /events/<id>.json, and the app's rows in pio.db grew by
+             exactly the 201s (no row without its 201, no 201 without its
+             row). (b) The contract: 401 on a bad key, 400 on an invalid
+             event and on an event outside the key's whitelist, 404 for
+             an unknown connector, 201 through /webhooks/segmentio.json,
+             `?channel=` writing to the channel, and against a child with
+             PIO_INGEST_MAX_QUEUE=1 under 32 clients at least one 429,
+             each with Retry-After, all counted in ingest_shed_total.
+             (c) 20 rounds as phase 7a's (a never-seen user rating 3
+             items, 4 existing users re-rating one), each event a single
+             POST /events.json, each polled on the deploy child's
+             /queries.json until the new user is served without what it
+             rated (30 s a round; median and max ms from the round's last
+             201). The deploy child's folds launch `gj_aug_reg` alone; the
+             event-server children never initialise CUDA and are absent
+             from `nvidia-smi --query-compute-apps`.
 
 Launch counts are zeroed just before each path (phases 3-4: train →
 serve; phase 5: eval → batchpredict; phase 6: fold; phase 7: online,
 with the deployed child's counts added; phase 8: serving, with the four
-children's counts added) and read just after;
+children's counts added; phase 9: eventserver, with the deploy child's
+counts added) and read just after;
 every kernel of a path must have launched there (on the serving path,
 `gj_aug_reg` in (d)'s child alone), and `gj_aug`, `gj_packed`
 and `gj_blocked2` (K > 256 only) and `gj_aug_multi` (K > 128 with M > 1
@@ -202,6 +230,7 @@ stdout line is
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -342,7 +371,15 @@ SERVING_KNOBS = (
     "PIO_HTTP_RESULT_CACHE", "PIO_HTTP_RESULT_CACHE_SIZE",
     "PIO_HTTP_RESULT_CACHE_TTL_S", "PIO_ONLINE", "PIO_ONLINE_INTERVAL_S",
     "PIO_ONLINE_FOLD_ITEMS", "PIO_ONLINE_MAX_BATCH", "PIO_ONLINE_APP_ID",
-    "PIO_FAULTS")
+    "PIO_FAULTS", "PIO_INGEST_GROUPING", "PIO_INGEST_MAX_GROUP",
+    "PIO_INGEST_MAX_WAIT_MS", "PIO_INGEST_MAX_QUEUE",
+    "PIO_INGEST_RETRY_AFTER_S")
+# phase 9: the events of each ingest run (9a), its client counts, the
+# events of its batch POST, the requests of the shedding run (9b)
+INGEST_EVENTS = 2_000
+INGEST_CLIENTS = (1, 8, 32)
+INGEST_BATCH = 50
+SHED_EVENTS = 640
 # deploys the console in a child process and writes, when it exits, its
 # launch counts to the file named by its first argument
 _DEPLOY_CHILD = (
@@ -353,6 +390,16 @@ _DEPLOY_CHILD = (
     "with open(sys.argv[1], 'w') as f:\n"
     "    json.dump({'launches': spd_solve.launches,\n"
     "               'by_rank': spd_solve.launches_by_rank}, f)\n"
+    "sys.exit(rc)\n")
+# serves the console's event server in a child process and writes, when
+# it exits, whether it ever initialised CUDA to the file named by its
+# first argument
+_EVENTSERVER_CHILD = (
+    "import json, sys, torch\n"
+    "from predictionio_torch.tools import console\n"
+    "rc = console.main(sys.argv[2:])\n"
+    "with open(sys.argv[1], 'w') as f:\n"
+    "    json.dump({'cuda_initialized': torch.cuda.is_initialized()}, f)\n"
     "sys.exit(rc)\n")
 # runs the console in a child process and prints, as its last line, its
 # launch counts and its grid trains (als_grid.grid_log)
@@ -912,9 +959,10 @@ def _write_events(path, data) -> None:
             }) + "\n")
 
 
-def _read_deployed_line(proc, timeout_s: float) -> str:
-    """The server's "deployed on ip:port" line; its output keeps being
-    drained so the pipe never fills."""
+def _read_deployed_line(proc, timeout_s: float,
+                        marker: str = " deployed on ") -> str:
+    """The server's "deployed on ip:port" line (or the first line holding
+    `marker`); its output keeps being drained so the pipe never fills."""
     lines: "queue.Queue[str]" = queue.Queue()
     tail: list = []
 
@@ -932,7 +980,7 @@ def _read_deployed_line(proc, timeout_s: float) -> str:
             line = lines.get(timeout=1.0)
         except queue.Empty:
             continue
-        if " deployed on " in line:
+        if marker in line:
             return line
         if line == "":
             break
@@ -2218,21 +2266,15 @@ def _stop(proc) -> None:
         proc.wait()
 
 
-def _load(url: str, queries: list, clients: int) -> tuple[list, dict]:
-    """POST every query of `queries` over `clients` keep-alive
-    connections (`http.client`, one thread and connection a client,
-    started together, the queries dealt round robin). Returns the answer
-    bodies (bytes) by query and the run's row: qps over the wall, p50 and
-    p99 of the per-request ms, and the serving families' deltas from
-    `/metrics`: dispatches, mean batch size (before padding), padded rows
-    and batches above SERVE_HOST_MAX_BATCH (the device branch)."""
+def _closed_loop(port: int, requests: list, clients: int) -> tuple:
+    """Send every (method, path, body) of `requests` over `clients`
+    keep-alive connections (`http.client`, one thread and connection a
+    client, started together, the requests dealt round robin). Returns
+    (status, body bytes, Retry-After header, ms) by request and the wall
+    seconds; raises if a connection failed."""
     import http.client
 
-    import numpy as np
-
-    port = int(url.rsplit(":", 1)[1])
-    bodies: list = [None] * len(queries)
-    ms = [0.0] * len(queries)
+    out: list = [None] * len(requests)
     errors: list = []
     start = threading.Barrier(clients + 1)
 
@@ -2240,23 +2282,20 @@ def _load(url: str, queries: list, clients: int) -> tuple[list, dict]:
         conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
         try:
             start.wait(timeout=60)
-            for n in range(k, len(queries), clients):
-                payload = json.dumps(queries[n])
+            for n in range(k, len(requests), clients):
+                method, path, body = requests[n]
                 t0 = time.perf_counter()
-                conn.request("POST", "/queries.json", body=payload,
+                conn.request(method, path, body=body,
                              headers={"Content-Type": "application/json"})
                 resp = conn.getresponse()
-                body = resp.read()
-                ms[n] = (time.perf_counter() - t0) * 1e3
-                if resp.status != 200:
-                    errors.append((n, resp.status, body[:200]))
-                bodies[n] = body
+                data = resp.read()
+                out[n] = (resp.status, data, resp.getheader("Retry-After"),
+                          (time.perf_counter() - t0) * 1e3)
         except Exception as e:  # noqa: BLE001 — reported as the run's failure
             errors.append((k, repr(e)))
         finally:
             conn.close()
 
-    before = _scrape(url)
     threads = [threading.Thread(target=client, args=(k,), daemon=True)
                for k in range(clients)]
     for t in threads:
@@ -2266,10 +2305,33 @@ def _load(url: str, queries: list, clients: int) -> tuple[list, dict]:
     for t in threads:
         t.join(timeout=600)
     wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads) or None in out:
+        raise AssertionError(f"{clients}-client run on port {port} failed: "
+                             f"{errors[:5]}")
+    return out, wall
+
+
+def _load(url: str, queries: list, clients: int) -> tuple[list, dict]:
+    """POST every query of `queries` over `clients` keep-alive
+    connections (`_closed_loop`). Returns the answer bodies (bytes) by
+    query and the run's row: qps over the wall, p50 and p99 of the
+    per-request ms, and the serving families' deltas from `/metrics`:
+    dispatches, mean batch size (before padding), padded rows and batches
+    above SERVE_HOST_MAX_BATCH (the device branch)."""
+    import numpy as np
+
+    before = _scrape(url)
+    out, wall = _closed_loop(
+        int(url.rsplit(":", 1)[1]),
+        [("POST", "/queries.json", json.dumps(q)) for q in queries], clients)
     after = _scrape(url)
-    if errors or any(t.is_alive() for t in threads) or None in bodies:
+    errors = [(n, status, body[:200])
+              for n, (status, body, _, _) in enumerate(out) if status != 200]
+    if errors:
         raise AssertionError(f"{clients}-client load on {url} failed: "
                              f"{errors[:5]}")
+    bodies = [body for _, body, _, _ in out]
+    ms = [t for _, _, _, t in out]
     batches = _delta(after, before, "serving_batch_size_count")
     small = _delta(after, before,
                    'serving_batch_size_bucket{le="64"}')
@@ -2612,6 +2674,397 @@ def phase_serving(report: dict, device, tmp: str, served: dict,
     return launches, launches["cache"]
 
 
+# -- phase 9 -----------------------------------------------------------------
+
+def _console_out(args: list, base: str) -> str:
+    """The port's console in a child process on the store under `base`;
+    its standard output."""
+    env = dict(os.environ, PYTHONPATH=HERE, PIO_FS_BASEDIR=base)
+    proc = subprocess.run(
+        [sys.executable, "-m", "predictionio_torch.tools.console"] + args,
+        capture_output=True, text=True, cwd=HERE, env=env, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"console {args} failed: {proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def _start_eventserver(base: str, env_extra: dict, done_path: str):
+    """A `console eventserver --port 0` child on the store under `base`
+    through _EVENTSERVER_CHILD, which writes whether it initialised CUDA
+    to `done_path` when it exits; PIO_INGEST_* only as `env_extra` sets
+    them."""
+    env = dict(os.environ, PYTHONPATH=HERE, PIO_FS_BASEDIR=base,
+               **env_extra)
+    for knob in SERVING_KNOBS:
+        if knob not in env_extra:
+            env.pop(knob, None)
+    return subprocess.Popen(
+        [sys.executable, "-c", _EVENTSERVER_CHILD, done_path, "eventserver",
+         "--ip", "127.0.0.1", "--port", "0"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=HERE, env=env)
+
+
+def _rate_body(user: str, item: str, rating: float) -> str:
+    return json.dumps({"event": "rate", "entityType": "user",
+                       "entityId": user, "targetEntityType": "item",
+                       "targetEntityId": item,
+                       "properties": {"rating": rating}})
+
+
+def _db_rows(db: str, sql: str, params: tuple) -> list:
+    """The rows of one query on the pio.db at `db`, read-only (the
+    event servers write it meanwhile)."""
+    import sqlite3
+
+    conn = sqlite3.connect(f"file:{db}?mode=ro", uri=True, timeout=60)
+    try:
+        return conn.execute(sql, params).fetchall()
+    finally:
+        conn.close()
+
+
+def _app_rows(db: str, app_id: int) -> set:
+    """The ids of the app's rows in the pio.db at `db`, every channel."""
+    return {r[0] for r in _db_rows(
+        db, "SELECT id FROM events WHERE app_id=?", (app_id,))}
+
+
+def _ingest_run(url: str, key: str, bodies: list, clients: int) -> tuple:
+    """POST /events.json of every body over `clients` keep-alive clients;
+    the 201s' event ids and the run's row: events/s, p50 and p99 ms of a
+    201, the statuses, and the /metrics deltas of the write plane."""
+    import numpy as np
+
+    path = f"/events.json?accessKey={key}"
+    before = _scrape(url)
+    out, wall = _closed_loop(int(url.rsplit(":", 1)[1]),
+                             [("POST", path, b) for b in bodies], clients)
+    after = _scrape(url)
+    ok = [(json.loads(body)["eventId"], ms)
+          for status, body, _, ms in out if status == 201]
+    statuses: dict = {}
+    for status, _, _, _ in out:
+        statuses[status] = statuses.get(status, 0) + 1
+    groups = _delta(after, before, "ingest_group_size_count")
+    row = {"clients": clients, "events": len(bodies), "wall_s": wall,
+           "events_per_s": len(ok) / wall,
+           "p50_ms": float(np.percentile([ms for _, ms in ok], 50))
+           if ok else None,
+           "p99_ms": float(np.percentile([ms for _, ms in ok], 99))
+           if ok else None,
+           "statuses": statuses,
+           "commits": _delta(after, before, "ingest_commits_total"),
+           "groups": groups,
+           "grouped_events": _delta(after, before, "ingest_group_size_sum"),
+           "mean_group": (_delta(after, before, "ingest_group_size_sum")
+                          / groups if groups else None),
+           "shed": _delta(after, before, "ingest_shed_total")}
+    return [eid for eid, _ in ok], out, row
+
+
+def _read_back(url: str, key: str, ids: list, query: str = "") -> int:
+    """GET /events/<id>.json of every id over 16 keep-alive clients; the
+    number that answered 200."""
+    out, _ = _closed_loop(
+        int(url.rsplit(":", 1)[1]),
+        [("GET", f"/events/{eid}.json?accessKey={key}{query}", None)
+         for eid in ids], 16)
+    return sum(1 for status, _, _, _ in out if status == 200)
+
+
+def _ingest_phase(urls: dict, keys: dict, data, db: str, app_id: int):
+    """9a: the closed-loop ingest runs and the batch POST; returns the
+    runs' rows and every 201's id."""
+    import numpy as np
+
+    rng = np.random.default_rng(14)
+
+    def bodies(n):
+        users = rng.integers(0, data.n_users, n)
+        items = rng.integers(0, data.n_items, n)
+        ratings = rng.integers(1, 11, n) / 2
+        return [_rate_body(f"u{u}", f"i{i}", float(r))
+                for u, i, r in zip(users, items, ratings)]
+
+    rows_before = _app_rows(db, app_id)
+    ids, runs = [], []
+    for mode, clients in [("grouping_on", c) for c in INGEST_CLIENTS] + [
+            ("grouping_off", INGEST_CLIENTS[-1])]:
+        run_ids, _, row = _ingest_run(urls[mode], keys["all"],
+                                      bodies(INGEST_EVENTS), clients)
+        row["mode"] = mode
+        ids += run_ids
+        emit(dict(phase="eventserver_ingest", **row))
+        runs.append(row)
+    req = urllib.request.Request(
+        urls["grouping_on"] + f"/batch/events.json?accessKey={keys['all']}",
+        data=json.dumps([json.loads(b) for b in bodies(INGEST_BATCH)])
+        .encode(), headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        results = json.loads(resp.read())
+    batch = {"events": INGEST_BATCH,
+             "ms": (time.perf_counter() - t0) * 1e3,
+             "statuses": sorted({r["status"] for r in results})}
+    ids += [r["eventId"] for r in results if r["status"] == 201]
+    readable = _read_back(urls["grouping_on"], keys["all"], ids)
+    grown = _app_rows(db, app_id) - rows_before
+    row = {"runs": runs, "batch": batch, "acknowledged": len(ids),
+           "readable": readable, "rows_grown": len(grown),
+           "rows_equal_acks": grown == set(ids)}
+    if (readable != len(ids) or not row["rows_equal_acks"]
+            or batch["statuses"] != [201]
+            or any(set(r["statuses"]) != {201} for r in runs)):
+        raise AssertionError(f"event-server ingest failed a bar: {row}")
+    return row, ids
+
+
+def _contract_phase(urls: dict, keys: dict, db: str, app_id: int,
+                    channel_id: int) -> dict:
+    """9b: the answers of the event server's contract, and shedding
+    under PIO_INGEST_MAX_QUEUE=1."""
+    rows_before = _app_rows(db, app_id)
+    url, key = urls["grouping_on"], keys["all"]
+    rate = _rate_body("u1", "i1", 4.0)
+
+    def post(path, body, content_type="application/json"):
+        req = urllib.request.Request(url + path, data=body.encode(),
+                                     headers={"Content-Type": content_type})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    def get(path):
+        try:
+            with urllib.request.urlopen(url + path, timeout=60) as resp:
+                return resp.status
+        except urllib.error.HTTPError as e:
+            return e.code
+
+    codes = {
+        "bad_key": post("/events.json?accessKey=WRONG", rate)[0],
+        "invalid_event": post(
+            f"/events.json?accessKey={key}", json.dumps(
+                {"event": "$unset", "entityType": "user",
+                 "entityId": "u1"}))[0],
+        "outside_whitelist": post(
+            f"/events.json?accessKey={keys['view']}", rate)[0],
+        "unknown_connector": post(
+            f"/webhooks/none.json?accessKey={key}", "{}")[0]}
+    acked = []
+    status, body = post(f"/webhooks/segmentio.json?accessKey={key}",
+                        json.dumps({"type": "track", "userId": "u7",
+                                    "event": "Signed Up"}))
+    codes["segmentio"] = status
+    if status == 201:
+        acked.append(body["eventId"])
+        codes["segmentio_read_back"] = get(
+            f"/events/{body['eventId']}.json?accessKey={key}")
+    status, body = post(f"/events.json?accessKey={key}&channel=smoke", rate)
+    codes["channel"] = status
+    if status == 201:
+        acked.append(body["eventId"])
+        codes["channel_read_back"] = get(
+            f"/events/{body['eventId']}.json?accessKey={key}&channel=smoke")
+        codes["channel_read_back_default"] = get(
+            f"/events/{body['eventId']}.json?accessKey={key}")
+    stored_channel = [r[0] for r in _db_rows(
+        db, "SELECT channel_id FROM events WHERE id=?", (acked[-1],))]
+    shed_ids, out, shed = _ingest_run(
+        urls["max_queue_1"], key,
+        [_rate_body(f"u{n % 100}", f"i{n % 50}", 3.0)
+         for n in range(SHED_EVENTS)], INGEST_CLIENTS[-1])
+    acked += shed_ids
+    sheds = [retry for status, _, retry, _ in out if status == 429]
+    grown = _app_rows(db, app_id) - rows_before
+    row = {"codes": codes, "channel_id": channel_id,
+           "stored_channel_id": stored_channel, "shed_run": shed,
+           "responses_429": len(sheds),
+           "retry_after": sorted({r for r in sheds if r is not None}),
+           "rows_grown": len(grown), "rows_equal_acks": grown == set(acked)}
+    want = {"bad_key": 401, "invalid_event": 400, "outside_whitelist": 400,
+            "unknown_connector": 404, "segmentio": 201,
+            "segmentio_read_back": 200, "channel": 201,
+            "channel_read_back": 200, "channel_read_back_default": 404}
+    if (codes != want or stored_channel != [channel_id] or not sheds
+            or None in sheds or shed["shed"] != len(sheds)
+            or set(shed["statuses"]) != {201, 429}
+            or not row["rows_equal_acks"]):
+        raise AssertionError(f"the event server's contract failed a bar: "
+                             f"{row}")
+    return row
+
+
+def _front_door_phase(es_url: str, key: str, deploy_url: str, data,
+                      last_id: str) -> dict:
+    """9c: once the deploy child has folded through the newest event of
+    9a/9b, ONLINE_ROUNDS rounds as phase 7a's, each event a single POST
+    /events.json, each polled on /queries.json until its never-seen user
+    is served without what it rated."""
+    import numpy as np
+
+    with urllib.request.urlopen(
+            f"{es_url}/events/{last_id}.json?accessKey={key}",
+            timeout=60) as resp:
+        newest = datetime.fromisoformat(
+            json.loads(resp.read())["eventTime"].replace("Z", "+00:00"))
+    t0 = time.perf_counter()
+    while True:
+        mark = json.loads(_get(deploy_url + "/"))["online"]["watermark"]
+        if mark is not None and datetime.fromisoformat(mark) >= newest:
+            break
+        if time.perf_counter() - t0 > 180:
+            raise AssertionError(f"the deploy child never folded through "
+                                 f"{newest} (watermark {mark})")
+        time.sleep(0.05)
+    catch_up_s = time.perf_counter() - t0
+    rng = np.random.default_rng(15)
+    path = f"{es_url}/events.json?accessKey={key}"
+    rounds, acked = [], 0
+    for r in range(ONLINE_ROUNDS):
+        new_user = f"es-u{r}"
+        rated = [f"i{i}" for i in rng.choice(data.n_items,
+                                             ONLINE_NEW_RATINGS,
+                                             replace=False)]
+        rows = [(new_user, i, 5.0) for i in rated]
+        rows += [(f"u{u}", f"i{rng.integers(data.n_items)}",
+                  float(rng.integers(1, 11)) / 2)
+                 for u in rng.choice(data.n_users, ONLINE_RERATERS,
+                                     replace=False)]
+        for u, i, rating in rows:
+            req = urllib.request.Request(
+                path, data=_rate_body(u, i, rating).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                if resp.status != 201:
+                    raise AssertionError(f"POST answered {resp.status}")
+            acked += 1
+        committed = time.perf_counter()
+        queries, servable_ms = 0, None
+        while time.perf_counter() - committed < ONLINE_ROUND_TIMEOUT_S:
+            got = [s["item"] for s in _post(
+                deploy_url, {"user": new_user, "num": 10})["itemScores"]]
+            queries += 1
+            if got and not set(got) & set(rated):
+                servable_ms = (time.perf_counter() - committed) * 1e3
+                break
+            time.sleep(0.002)
+        rounds.append({"round": r, "servable_ms": servable_ms,
+                       "queries": queries})
+    servable = [r["servable_ms"] for r in rounds
+                if r["servable_ms"] is not None]
+    metrics = _metric_totals(_get(deploy_url + "/metrics").decode(), (
+        "online_event_to_servable_seconds", "online_foldin_seconds"))
+    row = {"catch_up_s": catch_up_s, "rounds": len(rounds),
+           "rounds_servable": len(servable), "events_posted": acked,
+           "event_to_servable_ms_median": (float(np.median(servable))
+                                           if servable else None),
+           "event_to_servable_ms_max": max(servable, default=None),
+           "event_to_servable_ms": [r["servable_ms"] for r in rounds],
+           "queries_until_servable": [r["queries"] for r in rounds],
+           "metrics": metrics}
+    if len(servable) != ONLINE_ROUNDS:
+        raise AssertionError(f"event → servable through the event server "
+                             f"failed a bar: {row}")
+    return row
+
+
+def _compute_pids() -> list:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return [int(p) for p in out.stdout.split() if p.strip().isdigit()]
+
+
+def phase_eventserver(report: dict, device, tmp: str, data) -> dict:
+    """Phase 9: three event-server children (group commit on, off, and
+    PIO_INGEST_MAX_QUEUE=1) and a deploy child of the `2m` rank-64
+    instance with the online plane, all on phase 6's store; keys and a
+    channel made with the console. Returns the deploy child's launch
+    counts."""
+    t0 = time.perf_counter()
+    base = os.path.join(tmp, "fold")
+    db = os.path.join(base, "pio.db")
+    done = {name: os.path.join(tmp, f"eventserver-{name}.json")
+            for name in ("grouping_on", "grouping_off", "max_queue_1")}
+    knobs = {"grouping_on": {}, "grouping_off": {"PIO_INGEST_GROUPING": "0"},
+             "max_queue_1": {"PIO_INGEST_MAX_QUEUE": "1"}}
+    launches_path = os.path.join(tmp, "eventserver-deploy-launches.json")
+    procs = {name: _start_eventserver(base, knobs[name], done[name])
+             for name in done}
+    deploy = _start_deploy(
+        ["--engine-json", os.path.join(tmp, "engine-fold64.json"), "--ip",
+         "127.0.0.1", "--port", "0", "--device", str(device)],
+        {"PIO_FS_BASEDIR": base, "PIO_ONLINE": "1",
+         "PIO_HTTP_RESULT_CACHE": "1"}, launches_path)
+    # the deploy child comes up (and folds phase 6's backlog) while 9a
+    # and 9b run; its output is drained from the start
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    deployed = pool.submit(_read_deployed_line, deploy, 300.0)
+    try:
+        keys = {"all": _console_out(["accesskey", "new", "FoldApp"], base),
+                "view": _console_out(["accesskey", "new", "FoldApp",
+                                      "--event", "view"], base)}
+        keys = {k: v.rsplit(":", 1)[1].strip() for k, v in keys.items()}
+        channel = _console_out(["app", "channel-new", "FoldApp", "smoke"],
+                               base)
+        channel_id = int(re.search(r"\(id=(\d+)\)", channel).group(1))
+        listed = _console_out(["accesskey", "list", "FoldApp"], base)
+        if f"{keys['view']} events=['view']" not in listed:
+            raise AssertionError(f"accesskey list: {listed}")
+        urls = {}
+        for name, proc in procs.items():
+            line = _read_deployed_line(proc, 120.0, marker=" listening on ")
+            urls[name] = f"http://127.0.0.1:{int(line.rsplit(':', 1)[1])}"
+        ready_s = time.perf_counter() - t0
+        [(app_id,)] = _db_rows(db, "SELECT id FROM apps WHERE name=?",
+                               ("FoldApp",))
+        ingest, ids = _ingest_phase(urls, keys, data, db, app_id)
+        emit(dict(phase="eventserver_ingest_bars",
+                  **{k: v for k, v in ingest.items() if k != "runs"}))
+        contract = _contract_phase(urls, keys, db, app_id, channel_id)
+        emit(dict(phase="eventserver_contract", **contract))
+        line = deployed.result()
+        deploy_url = f"http://127.0.0.1:{int(line.rsplit(':', 1)[1])}"
+        deploy_ready_s = time.perf_counter() - t0
+        status = json.loads(_get(deploy_url + "/"))
+        if "online" not in status or status.get("device") != str(device):
+            raise AssertionError(f"the deploy child runs no online plane "
+                                 f"on {device}: {status}")
+        front = _front_door_phase(urls["grouping_on"], keys["all"],
+                                  deploy_url, data, ids[-1])
+        emit(dict(phase="eventserver_front_door", **front))
+        pids = _compute_pids()
+        visible = {"deploy_child_listed": deploy.pid in pids,
+                   "eventserver_children_listed": [
+                       name for name, p in procs.items() if p.pid in pids]}
+    finally:
+        for proc in [*procs.values(), deploy]:
+            _stop(proc)
+        pool.shutdown()
+    cuda = {}
+    for name, path in done.items():
+        with open(path) as f:
+            cuda[name] = json.load(f)["cuda_initialized"]
+    with open(launches_path) as f:
+        child = json.load(f)
+    row = {"eventservers_ready_s": ready_s,
+           "deploy_ready_s": deploy_ready_s, "compute_apps": visible,
+           "eventserver_cuda_initialized": cuda,
+           "deploy_child_launches": {k: v for k, v in
+                                     child["launches"].items() if v},
+           "deploy_child_launches_by_rank": child["by_rank"],
+           "wall_s": time.perf_counter() - t0}
+    emit(dict(phase="eventserver", **row))
+    if visible["eventserver_children_listed"] or any(cuda.values()):
+        raise AssertionError(f"an event-server child took the card: {row}")
+    report["eventserver"] = {"ingest": ingest, "contract": contract,
+                             "front_door": front, **row}
+    return child["launches"]
+
+
 def _require_launches(path: str, launches: dict, kernels) -> None:
     """Every kernel in `kernels` launched on the path, and no kernel of
     OFF_PATH."""
@@ -2684,6 +3137,12 @@ def main(argv=None) -> int:
         serving_launches = {
             k: v + sum(c[k] for c in children.values())
             for k, v in spd_solve.launches.items()}
+        spd_solve.reset_launches()  # the event-server path starts here
+        eventserver_child = phase_eventserver(report, device, tmp, data)
+        # ... and ends here: this process's launches (none: it only
+        # sends HTTP) and the deploy child's folds
+        eventserver_launches = {k: v + eventserver_child[k]
+                                for k, v in spd_solve.launches.items()}
     _require_launches("fold", fold_launches, FOLD_KERNEL.values())
     _require_launches("online", online_launches, FOLD_KERNEL.values())
     # the fold kernel from the 8d child's folds alone; no off-path kernel
@@ -2691,6 +3150,14 @@ def main(argv=None) -> int:
     _require_launches("serving (8d's folds)", cache_child,
                       [FOLD_KERNEL[64]])
     _require_launches("serving", serving_launches, [])
+    # the fold kernel from the deploy child's folds alone, and no other
+    _require_launches("eventserver", eventserver_launches,
+                      [FOLD_KERNEL[64]])
+    if any(v for k, v in eventserver_launches.items()
+           if k != FOLD_KERNEL[64]):
+        raise AssertionError(f"on the eventserver path: kernels other than "
+                             f"{FOLD_KERNEL[64]} launched "
+                             f"({eventserver_launches})")
     # the path's launches: the grids in this process and the console
     # children's (each child's counts start at 0 with the process)
     children = [run["launches"] for run in eval_runs.values()]
@@ -2701,7 +3168,8 @@ def main(argv=None) -> int:
     report["launches"] = {"train_serve": serve_launches,
                           "eval": eval_launches, "eval_grid": grid_launches,
                           "fold": fold_launches, "online": online_launches,
-                          "serving": serving_launches}
+                          "serving": serving_launches,
+                          "eventserver": eventserver_launches}
 
     kernels = []
     for name, (replaces, source) in KERNELS.items():
@@ -2714,7 +3182,8 @@ def main(argv=None) -> int:
             "replaces": replaces, "ranks": KERNEL_RANKS[name],
             "launches": (serve_launches[name] + eval_launches[name]
                          + fold_launches[name] + online_launches[name]
-                         + serving_launches[name]),
+                         + serving_launches[name]
+                         + eventserver_launches[name]),
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -2725,6 +3194,7 @@ def main(argv=None) -> int:
             "launches_fold": fold_launches[name],
             "launches_online": online_launches[name],
             "launches_serving": serving_launches[name],
+            "launches_eventserver": eventserver_launches[name],
             "launches_per_epoch_2m": per_epoch,
             "launches_console_eval": {layout: run["launches"][name]
                                       for layout, run in eval_runs.items()},

@@ -2,10 +2,14 @@
 ``predictionio_tpu/telemetry/lineage.py`` that storage and the store
 tailer call.
 
-A `CausalContext` rides through the durable store as a `pio_lineage`
-properties envelope (written by the sqlite backend, stripped again on
-read, so clients never see it) and is re-attached to the event by the
-read path; the tailer reports each pickup through `LINEAGE.record_stage`.
+A `CausalContext` is minted (`mint`) when the event server admits a
+write, rides through the group-commit writer into the durable store as a
+`pio_lineage` properties envelope (written by the sqlite backend,
+stripped again on read, so clients never see it) and is re-attached to
+the event by the read path; the tailer reports each pickup through
+`LINEAGE.record_stage`. The reference takes a context's trace id from
+the open request trace and its app from the tenant binding; the port has
+neither, so `mint` draws a fresh id and takes the app from its caller.
 The reference's per-event timelines, tail sampling and debug routes come
 with the port's serving plane; this recorder keeps the exact stage counts
 and the latest origin→stage lag.
@@ -13,6 +17,7 @@ and the latest origin→stage lag.
 
 from __future__ import annotations
 
+import random
 import time
 from typing import Optional
 
@@ -74,6 +79,18 @@ class CausalContext:
                        app=str(d.get("a", "")))
         except (TypeError, KeyError, ValueError):
             return None
+
+
+def _new_id() -> str:
+    """A 64-bit trace id, 16 hex digits (the reference's format)."""
+    return f"{random.getrandbits(64):016x}"
+
+
+def mint(app) -> CausalContext:
+    """A fresh context, originating now, with a new trace id, for the app
+    `app` (the access key's app id at the event server)."""
+    return CausalContext(trace_id=_new_id(), origin_wall=time.time(),
+                         origin_mono=time.monotonic(), app=str(app))
 
 
 def context_of(event) -> Optional[CausalContext]:

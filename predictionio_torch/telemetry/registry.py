@@ -267,12 +267,43 @@ class MetricsRegistry:
 # The process-wide default registry.
 REGISTRY = MetricsRegistry()
 
+# the Prometheus text exposition format the servers' GET /metrics answers
+METRICS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+# Bounded label cardinality for request-derived label values (an event
+# name straight from a client payload): the first DEFAULT_LABEL_CAP
+# distinct values of a group keep their own series, later ones collapse
+# to LABEL_OVERFLOW.
+LABEL_OVERFLOW = "<other>"
+DEFAULT_LABEL_CAP = 64
+
+_label_caps_lock = threading.Lock()
+_label_caps: Dict[str, set] = {}
+
+
+def capped_label(group: str, value: str,
+                 cap: int = DEFAULT_LABEL_CAP) -> str:
+    """Admit `value` into the named label group until `cap` distinct
+    values exist; later never-seen values collapse to ``<other>``. Values
+    seen before the cap keep resolving to themselves."""
+    value = str(value)
+    with _label_caps_lock:
+        seen = _label_caps.setdefault(group, set())
+        if value in seen:
+            return value
+        if len(seen) < cap:
+            seen.add(value)
+            return value
+    return LABEL_OVERFLOW
+
 
 def _reinit_locks_after_fork() -> None:
     # a child inheriting a lock held by another thread of the parent would
     # deadlock on its first metric touch; locks only guard intra-process
     # consistency, so fresh ones are safe
+    global _label_caps_lock
     REGISTRY._lock = threading.Lock()
+    _label_caps_lock = threading.Lock()
     for family in REGISTRY._metrics.values():
         new_lock = threading.Lock()
         family._lock = new_lock

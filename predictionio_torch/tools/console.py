@@ -1,9 +1,16 @@
-"""The port's console — `app`, `import`, `export`, `train`, `deploy`,
-`eval` and `batchpredict`, the port of ``predictionio_tpu/tools/
-console.py``'s ``cmd_app`` (new, list), ``cmd_import``, ``cmd_export``,
-``cmd_train``, ``cmd_deploy``, ``cmd_eval`` and ``cmd_batchpredict``.
+"""The port's console — `app`, `accesskey`, `eventserver`, `import`,
+`export`, `train`, `deploy`, `eval` and `batchpredict`, the port of
+``predictionio_tpu/tools/console.py``'s ``cmd_app`` (new, list,
+channel-new), ``cmd_accesskey``, ``cmd_eventserver``, ``cmd_import``,
+``cmd_export``, ``cmd_train``, ``cmd_deploy``, ``cmd_eval`` and
+``cmd_batchpredict``.
 
     python -m predictionio_torch.tools.console app new NAME
+    python -m predictionio_torch.tools.console app channel-new NAME CHANNEL
+    python -m predictionio_torch.tools.console accesskey new NAME \
+        [--event E ...]
+    python -m predictionio_torch.tools.console eventserver \
+        [--ip 0.0.0.0] [--port 7070] [--stats]
     python -m predictionio_torch.tools.console import --appname A --input F
     python -m predictionio_torch.tools.console train --engine-json E \\
         [--events F] [--model-out M] [--device cuda|cpu]
@@ -24,7 +31,8 @@ instance. `--events` (a JSON-lines events file, the `pio export` format)
 reads events from a file instead; `--model-out`/`--model` write and read
 a model file instead of the model repository; `eval --out` also writes
 the evaluation instance as JSON. Without `--device` the commands run on
-CUDA (or ``$PIO_TORCH_DEVICE``).
+CUDA (or ``$PIO_TORCH_DEVICE``). The event server does no device work
+and takes no `--device`: it never initialises CUDA.
 """
 
 from __future__ import annotations
@@ -39,9 +47,23 @@ from predictionio_torch.storage.registry import Storage
 
 
 def cmd_app(args) -> int:
-    from predictionio_torch.storage.base import AccessKey, App
+    from predictionio_torch.storage.base import AccessKey, App, Channel
 
     storage = Storage.get()
+    if args.app_command == "channel-new":
+        app = storage.meta_apps().get_by_name(args.name)
+        if app is None:
+            print(f"App {args.name!r} does not exist.", file=sys.stderr)
+            return 1
+        cid = storage.meta_channels().insert(
+            Channel(id=0, name=args.channel, app_id=app.id))
+        if cid is None:
+            print(f"Invalid or duplicate channel name {args.channel!r}.",
+                  file=sys.stderr)
+            return 1
+        print(f"Created channel {args.channel} (id={cid}) for app "
+              f"{args.name}.")
+        return 0
     if args.app_command == "new":
         app_id = storage.meta_apps().insert(
             App(id=0, name=args.name, description=args.description or ""))
@@ -60,6 +82,44 @@ def cmd_app(args) -> int:
         app_keys = [k.key for k in keys.get_by_app_id(app.id)]
         print(f"  {app.id} {app.name} key={app_keys[0] if app_keys else '(none)'}")
     return 0
+
+
+def cmd_accesskey(args) -> int:
+    from predictionio_torch.storage.base import AccessKey
+
+    storage = Storage.get()
+    keys = storage.meta_access_keys()
+    if args.ak_command == "delete":
+        ok = keys.delete(args.key)
+        print("Deleted." if ok else "No such key.")
+        return 0 if ok else 1
+    app = storage.meta_apps().get_by_name(args.app_name)
+    if app is None:
+        print(f"App {args.app_name!r} does not exist.", file=sys.stderr)
+        return 1
+    if args.ak_command == "new":
+        key = AccessKey.generate(app.id, events=args.event or [])
+        keys.insert(key)
+        print(f"Created new access key: {key.key}")
+        return 0
+    for k in keys.get_by_app_id(app.id):
+        print(f"  {k.key} events={k.events or 'all'}")
+    return 0
+
+
+def cmd_eventserver(args) -> int:
+    from predictionio_torch.data.api import EventServer, EventServerConfig
+
+    config = EventServerConfig(ip=args.ip, port=args.port, stats=args.stats)
+    try:
+        server = EventServer(config)
+    except OSError as e:
+        print(f"Cannot bind {args.ip}:{args.port}: {e.strerror or e}",
+              file=sys.stderr)
+        return 1
+    print(f"Event Server (stats={'on' if args.stats else 'off'}) listening "
+          f"on {args.ip}:{server.port}", flush=True)
+    return _serve_until_signal(server)
 
 
 def cmd_import(args) -> int:
@@ -219,8 +279,8 @@ def _serve_until_signal(server) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="predictionio_torch",
-        description="PyTorch/CUDA port of the pio train/deploy/eval "
-                    "lifecycle")
+        description="PyTorch/CUDA port of the pio event server and "
+                    "train/deploy/eval lifecycle")
     p.add_argument("--version", action="version",
                    version=predictionio_torch.__version__)
     sub = p.add_subparsers(dest="command", required=True)
@@ -231,7 +291,31 @@ def build_parser() -> argparse.ArgumentParser:
     a_new.add_argument("name")
     a_new.add_argument("--description", default="")
     a_sub.add_parser("list", help="list the apps and their first key")
+    a_ch = a_sub.add_parser("channel-new", help="create a channel of an app")
+    a_ch.add_argument("name")
+    a_ch.add_argument("channel")
     a.set_defaults(fn=cmd_app)
+
+    k = sub.add_parser("accesskey", help="manage an app's access keys")
+    k_sub = k.add_subparsers(dest="ak_command", required=True)
+    k_new = k_sub.add_parser("new", help="create an access key")
+    k_new.add_argument("app_name")
+    k_new.add_argument("--event", action="append",
+                       help="an event name the key may write (repeatable; "
+                            "none: every event)")
+    k_list = k_sub.add_parser("list", help="list an app's access keys")
+    k_list.add_argument("app_name")
+    k_del = k_sub.add_parser("delete", help="delete an access key")
+    k_del.add_argument("key")
+    k.set_defaults(fn=cmd_accesskey)
+
+    s = sub.add_parser("eventserver", help="serve the REST event API")
+    s.add_argument("--ip", default="0.0.0.0")
+    s.add_argument("--port", type=int, default=7070)
+    s.add_argument("--stats", action="store_true",
+                   help="count events by app, name and status at "
+                        "GET /stats.json")
+    s.set_defaults(fn=cmd_eventserver)
 
     i = sub.add_parser("import", help="import a JSON-lines events file "
                                       "into an app's event store")

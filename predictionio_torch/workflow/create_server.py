@@ -48,7 +48,10 @@ from predictionio_torch.serving import (
 )
 from predictionio_torch.storage import base as storage_base
 from predictionio_torch.storage.registry import Storage
-from predictionio_torch.telemetry.registry import REGISTRY
+from predictionio_torch.telemetry.registry import (
+    METRICS_CONTENT_TYPE,
+    REGISTRY,
+)
 from predictionio_torch.utils import fastjson
 from predictionio_torch.utils.faults import FaultInjected
 from predictionio_torch.workflow.core_workflow import read_model_file
@@ -60,9 +63,6 @@ from predictionio_torch.workflow.workflow_utils import (
 )
 
 log = logging.getLogger(__name__)
-
-# the Prometheus text exposition format the reference serves
-METRICS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
 # The query hot path, separated from the HTTP envelope so engine time is
 # distinguishable from request parsing/serialization in one scrape.

@@ -126,6 +126,35 @@ _BLOCKED_RUN = textwrap.dedent("""
         device="cpu")
     assert (stats.folded_users, stats.new_users) == (2, 1), stats
     assert folded.user_factors.shape[0] == als_model.user_factors.shape[0] + 1
+
+    # the event server: a key made with the console, one event POSTed
+    # through group commit and read back
+    import io, contextlib
+    from predictionio_torch.data.api import EventServer, EventServerConfig
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert console.main(["accesskey", "new", "MyApp1"]) == 0
+    key = out.getvalue().split(": ")[-1].strip()
+    es = EventServer(EventServerConfig(ip="127.0.0.1", port=0))
+    es.start()
+    base = "http://127.0.0.1:%d" % es.port
+    req = urllib.request.Request(
+        base + "/events.json?accessKey=" + key,
+        data=json.dumps({{"event": "rate", "entityType": "user",
+                          "entityId": "es-u", "targetEntityType": "item",
+                          "targetEntityId": "i1",
+                          "properties": {{"rating": 3}}}}).encode())
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        assert resp.status == 201
+        eid = json.loads(resp.read())["eventId"]
+    with urllib.request.urlopen(
+            base + "/events/%s.json?accessKey=%s" % (eid, key),
+            timeout=30) as resp:
+        assert json.loads(resp.read())["entityId"] == "es-u"
+    es.shutdown()
+    import torch
+    assert not torch.cuda.is_initialized()
     after = {{m for m in sys.modules if m.split(".")[0] in BLOCKED}}
     assert after == before, sorted(after - before)
     print("ISOLATED-OK")
