@@ -211,11 +211,48 @@ Phases (any failure exits non-zero and prints no result line):
              event-server children never initialise CUDA and are absent
              from `nvidia-smi --query-compute-apps`.
 
+10. templates — the similarproduct, ecommerce and productranking
+             templates at their shipped engine.json (rank 10, 20
+             iterations). (a) A child started with the run writes
+             synth_implicit("2m")'s 1.8 M training pairs as `view` events
+             of app "Shop" into a sqlite pio.db (`insert_batch`, 20,000 a
+             chunk), a seeded one in eight also as a `buy`, a `$set` of 1-2
+             of 8 categories on every item and a `$set` on
+             constraint/unavailableItems naming 20 items; the write's
+             seconds. (b) `console template get … --app-name` and `console
+             build` of each, then `console train` of each in a child (the
+             two implicit ones from that store, productranking from phase
+             4's): the data-read, prepare and train seconds from its log,
+             its launches by rank (`gj_aug_reg` at K = 10 alone), a
+             completed instance; in process, on the PreparedData each
+             implicit template's train ran on (saved by the child), the
+             train under `auto` (epoch ms) and its RMSE trajectory under
+             `auto` and chol within 2e-3. (c) Three `console deploy` children, the result
+             cache off: similarproduct 2,000 seeded one-item queries from
+             1 and 32 keep-alive clients, byte for byte the in-process
+             answer of the instance's model, and a categories, whiteList
+             and blackList query obeying its filter; ecommerce 2,000
+             seeded user queries from 1 and 32 clients, none holding an
+             item its user viewed or bought or an unavailable one, a
+             never-seen user with three views written then answered
+             through the cold-start path, a new constraint obeyed within
+             30 s; productranking 200 queries of 10 candidates from 1 and
+             32 clients, equal to the in-process answer, scores
+             descending, a never-seen user's candidates in order with
+             isOriginal. qps, p50, p99, dispatches and mean batch of each
+             run. (d) `console import` of synth_implicit("100k") into app
+             "Shop100k" of phase 4's store and `console eval` of
+             SimilarProductEvaluation there (3 folds; MAP@10 per cell, the
+             best, the wall; 3 grid trains of 4 cells on `gj_aug_reg` at
+             K = 8 alone; a completed evaluation instance), run beside
+             (b); `console template list`.
+
 Launch counts are zeroed just before each path (phases 3-4: train →
 serve; phase 5: eval → batchpredict; phase 6: fold; phase 7: online,
 with the deployed child's counts added; phase 8: serving, with the four
 children's counts added; phase 9: eventserver, with the deploy child's
-counts added) and read just after;
+counts added; phase 10: templates, with every console child's counts
+added) and read just after;
 every kernel of a path must have launched there (on the serving path,
 `gj_aug_reg` in (d)'s child alone), and `gj_aug`, `gj_packed`
 and `gj_blocked2` (K > 256 only) and `gj_aug_multi` (K > 128 with M > 1
@@ -232,6 +269,8 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import dataclasses
+import io
 import json
 import os
 import queue
@@ -380,6 +419,27 @@ INGEST_EVENTS = 2_000
 INGEST_CLIENTS = (1, 8, 32)
 INGEST_BATCH = 50
 SHED_EVENTS = 640
+# phase 10: the templates' store (synth_implicit's training pairs at
+# TEMPLATE_SCALE as views of TEMPLATE_APP, one pair in BUY_EVERY also a
+# buy, every item `$set` with 1-2 of TEMPLATE_CATEGORIES categories,
+# UNAVAILABLE items in the constraint), the queries of each server's
+# load runs and their client counts, the seconds a new constraint may
+# take to be obeyed (the ecommerce lookups' TTL is 3 s), and the eval
+TEMPLATE_SCALE = "2m"
+STORE_RESULT = "store.json"
+TEMPLATE_APP = "Shop"
+TEMPLATE_CATEGORIES = 8
+BUY_EVERY = 8
+UNAVAILABLE = 20
+TEMPLATE_QUERIES = 2_000
+TEMPLATE_CLIENTS = (1, 32)
+RANKING_QUERIES, RANKING_CANDIDATES = 200, 10
+CONSTRAINT_TIMEOUT_S = 30.0
+TEMPLATE_NAMES = ("ecommerce", "productranking", "recommendation",
+                  "similarproduct")
+TEMPLATE_EVAL_APP = "Shop100k"
+TEMPLATE_EVAL_CLASS = ("predictionio_torch.templates.similarproduct."
+                       "evaluation.SimilarProductEvaluation")
 # deploys the console in a child process and writes, when it exits, its
 # launch counts to the file named by its first argument
 _DEPLOY_CHILD = (
@@ -401,6 +461,39 @@ _EVENTSERVER_CHILD = (
     "with open(sys.argv[1], 'w') as f:\n"
     "    json.dump({'cuda_initialized': torch.cuda.is_initialized()}, f)\n"
     "sys.exit(rc)\n")
+# `console train` (its arguments from the second on) in a child process,
+# which prints its launch counts as _CONSOLE_CHILD does and saves the
+# PreparedData the train ran on (the object the engine's sanity check is
+# handed) to the .npz its first argument names
+_TRAIN_CHILD = (
+    "import json, sys\n"
+    "import numpy as np\n"
+    "from predictionio_torch.controller import engine\n"
+    "from predictionio_torch.ops import als_grid, spd_solve\n"
+    "from predictionio_torch.tools import console\n"
+    "check = engine.run_sanity_check\n"
+    "def keep(obj, stage):\n"
+    "    if stage == 'prepared data':\n"
+    "        values = next(getattr(obj, f) for f in\n"
+    "                      ('counts', 'confidence', 'ratings')\n"
+    "                      if hasattr(obj, f))\n"
+    "        np.savez(sys.argv[1], user_idx=obj.user_idx,\n"
+    "                 item_idx=obj.item_idx, values=values,\n"
+    "                 n_users=len(obj.user_ids), n_items=len(obj.item_ids))\n"
+    "    check(obj, stage)\n"
+    "engine.run_sanity_check = keep\n"
+    "rc = console.main(sys.argv[2:])\n"
+    "print(json.dumps({'launches': spd_solve.launches,\n"
+    "                  'by_rank': spd_solve.launches_by_rank,\n"
+    "                  'grids': als_grid.grid_log}), flush=True)\n"
+    "sys.exit(rc)\n")
+# writes phase 10's store (`write_template_store`): its arguments are the
+# checkout, the store's directory and the scale
+_STORE_CHILD = (
+    "import sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "import chip_smoke\n"
+    "chip_smoke.write_template_store(sys.argv[2], sys.argv[3])\n")
 # runs the console in a child process and prints, as its last line, its
 # launch counts and its grid trains (als_grid.grid_log)
 _CONSOLE_CHILD = (
@@ -1278,15 +1371,19 @@ def phase_grid(report: dict, data, device, sequential: list) -> dict:
     return {row["grid"]: row for row in rows}
 
 
-def _console_child(args: list, layout: str = "auto", timeout_s=900.0):
+def _console_child(args: list, layout: str = "auto", timeout_s=900.0,
+                   env_extra: dict = None, prepared: str = None):
     """Run the port's console in a child process with PIO_GJ_LAYOUT set to
-    `layout`; returns (stderr, {"launches", "grids"}, seconds)."""
-    env = dict(os.environ, PYTHONPATH=HERE)
+    `layout` (and `env_extra`); with `prepared`, a `train` through
+    _TRAIN_CHILD that saves its PreparedData there. Returns (stderr,
+    {"launches", "by_rank", "grids"}, seconds)."""
+    env = dict(os.environ, PYTHONPATH=HERE, **(env_extra or {}))
     env.pop("PIO_GJ_LAYOUT", None)
     if layout != "auto":
         env["PIO_GJ_LAYOUT"] = layout
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", _CONSOLE_CHILD, *args],
+    code = [_CONSOLE_CHILD] if prepared is None else [_TRAIN_CHILD, prepared]
+    proc = subprocess.run([sys.executable, "-c", *code, *args],
                           capture_output=True, text=True, cwd=HERE, env=env,
                           timeout=timeout_s)
     seconds = time.perf_counter() - t0
@@ -3065,6 +3162,637 @@ def phase_eventserver(report: dict, device, tmp: str, data) -> dict:
     return child["launches"]
 
 
+# -- phase 10 ----------------------------------------------------------------
+
+def _scaffolded(name: str, directory: str, app_name: str) -> str:
+    """`console template get NAME DIR --app-name APP`, its algorithms set
+    to the shipped engine.json's (the app name kept), then `console
+    build`; returns the engine.json's path."""
+    from predictionio_torch.tools import console
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        if console.main(["template", "get", name, directory, "--app-name",
+                         app_name]) != 0:
+            raise AssertionError(f"console template get {name} failed")
+        engine_json = os.path.join(directory, "engine.json")
+        with open(engine_json) as f:
+            variant = json.load(f)
+        with open(os.path.join(HERE, "predictionio_torch", "templates", name,
+                               "engine.json")) as f:
+            shipped = json.load(f)
+        variant["algorithms"] = [
+            {"name": a["name"], "params": {
+                k: (app_name if k == "appName" else v)
+                for k, v in a["params"].items()}}
+            for a in shipped["algorithms"]]
+        with open(engine_json, "w") as f:
+            json.dump(variant, f, indent=2)
+        if console.main(["build", "--engine-json", engine_json]) != 0:
+            raise AssertionError(f"console build of {name} failed")
+    return engine_json
+
+
+def _store_at(base: str):
+    """The port's storage on the sqlite pio.db under `base`."""
+    from predictionio_torch.storage.registry import (
+        SourceConfig,
+        Storage,
+        StorageConfig,
+    )
+
+    src = SourceConfig(name="PIO", type="sqlite",
+                       path=os.path.join(base, "pio.db"))
+    return Storage(StorageConfig(metadata=src, modeldata=src, eventdata=src))
+
+
+def write_template_store(base: str, scale: str) -> None:
+    """10a, in the writer child: synth_implicit(scale)'s training pairs as
+    `view` events of app TEMPLATE_APP in a sqlite pio.db under `base`
+    (one second apart, `insert_batch` in chunks of 20,000), a seeded one
+    in BUY_EVERY of them also as a `buy`, a `$set` of 1-2 of
+    TEMPLATE_CATEGORIES categories on every item and a `$set` on
+    constraint/unavailableItems naming UNAVAILABLE seeded items; then
+    STORE_RESULT under `base`: the app id, the unavailable items, each
+    item's categories and the write's row."""
+    import numpy as np
+
+    from predictionio_torch.data.datamap import DataMap
+    from predictionio_torch.data.events import Event
+    from predictionio_torch.quality.datasets import synth_implicit
+    from predictionio_torch.storage.base import App
+
+    t_start = time.perf_counter()
+    data = synth_implicit(scale, seed=0)
+    storage = _store_at(base)
+    app_id = storage.meta_apps().insert(App(id=0, name=TEMPLATE_APP))
+    rng = np.random.default_rng(10)
+    n = len(data.train_u)
+    buys = np.sort(rng.choice(n, n // BUY_EVERY, replace=False))
+    users = [f"u{u}" for u in range(data.n_users)]
+    items = [f"i{i}" for i in range(data.n_items)]
+    le = storage.l_events()
+    t0 = datetime(2026, 1, 1, tzinfo=timezone.utc)
+
+    def write(name, rows, start):
+        for lo in range(0, len(rows), 20_000):
+            le.insert_batch([
+                Event(event=name, entity_type="user",
+                      entity_id=users[data.train_u[k]],
+                      target_entity_type="item",
+                      target_entity_id=items[data.train_i[k]],
+                      event_time=start + timedelta(seconds=lo + j))
+                for j, k in enumerate(rows[lo:lo + 20_000].tolist())],
+                app_id)
+
+    write("view", np.arange(n), t0)
+    write("buy", buys, t0 + timedelta(seconds=n))
+    t_props = t0 + timedelta(seconds=n + len(buys))
+    item_cats = {item: [f"c{c}" for c in rng.choice(
+        TEMPLATE_CATEGORIES, int(rng.integers(1, 3)), replace=False)]
+        for item in items}
+    le.insert_batch([Event(event="$set", entity_type="item", entity_id=item,
+                           properties=DataMap({"categories": cats}),
+                           event_time=t_props)
+                     for item, cats in item_cats.items()], app_id)
+    unavailable = sorted(items[i] for i in rng.choice(
+        np.unique(data.train_i), UNAVAILABLE, replace=False))
+    le.insert(Event(event="$set", entity_type="constraint",
+                    entity_id="unavailableItems",
+                    properties=DataMap({"items": unavailable}),
+                    event_time=t_props + timedelta(seconds=1)), app_id)
+    storage.close()
+    row = {"scale": scale, "views": n, "buys": int(len(buys)),
+           "items_set": data.n_items,
+           "write_s": time.perf_counter() - t_start}
+    with open(os.path.join(base, STORE_RESULT), "w") as f:
+        json.dump({"app_id": app_id, "unavailable": unavailable,
+                   "item_categories": item_cats, "row": row}, f)
+
+
+def _start_store_writer(base: str, scale: str = TEMPLATE_SCALE):
+    """Phase 10's store written by a child process (`write_template_store`)
+    from the start of the run, so that it overlaps phases 1-9; its output
+    goes to a log beside the store."""
+    os.makedirs(base, exist_ok=True)
+    log = open(os.path.join(base, "writer.log"), "w")
+    try:
+        return subprocess.Popen(
+            [sys.executable, "-c", _STORE_CHILD, HERE, base, scale],
+            stdout=log, stderr=subprocess.STDOUT, cwd=HERE,
+            env=dict(os.environ, PYTHONPATH=HERE))
+    finally:
+        log.close()
+
+
+def _await_store(writer, base: str) -> dict:
+    """The writer child's result, once it has exited; raises with its
+    log's tail if it failed."""
+    rc = writer.wait(timeout=1_200)
+    path = os.path.join(base, STORE_RESULT)
+    if rc != 0 or not os.path.exists(path):
+        with open(os.path.join(base, "writer.log")) as f:
+            tail = f.read()[-3000:]
+        raise AssertionError(f"the template store's writer exited {rc}:\n"
+                             f"{tail}")
+    with open(path) as f:
+        return json.load(f)
+
+
+_LOG_TIME = re.compile(r"^(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3}) ")
+# the console train's log lines that open and close its stages
+_TRAIN_MARKS = {"read_start": "Engine.train: reading training data",
+                "read_end": " DataSource: ",
+                "train_start": "Engine.train: training algorithm",
+                "persisted": " byte blob"}
+
+
+def _stage_seconds(stderr: str) -> dict:
+    """A console train's data-read, prepare and train (the model's
+    persisting included) seconds, from its log's ms timestamps."""
+    at = {}
+    for line in stderr.splitlines():
+        m = _LOG_TIME.match(line)
+        for key, marker in _TRAIN_MARKS.items():
+            if m and key not in at and marker in line:
+                at[key] = datetime.strptime(
+                    m.group(1), "%Y-%m-%d %H:%M:%S,%f").timestamp()
+    if len(at) != len(_TRAIN_MARKS):
+        raise AssertionError(f"console train logged no stage times: {at}")
+    return {"read_s": at["read_end"] - at["read_start"],
+            "prepare_s": at["train_start"] - at["read_end"],
+            "train_s": at["persisted"] - at["train_start"]}
+
+
+def _completed_instance(base: str, engine_json: str) -> str:
+    """The id of the latest completed instance of `engine_json`'s engine
+    in the store under `base`; raises if there is none."""
+    from predictionio_torch.workflow.workflow_utils import read_engine_json
+
+    variant = read_engine_json(engine_json)
+    storage = _store_at(base)
+    try:
+        instance = storage.meta_engine_instances().get_latest_completed(
+            variant.id, "1", variant.variant)
+    finally:
+        storage.close()
+    if instance is None:
+        raise AssertionError(f"console train left no completed instance of "
+                             f"{variant.id} under {base}")
+    return instance.id
+
+
+def _latest_model(storage, engine_json: str):
+    """A function answering one query with the latest completed instance
+    of `engine_json`'s engine in `storage`, as the deployed server does."""
+    from predictionio_torch.workflow.workflow_utils import (
+        extract_engine_params,
+        get_engine,
+        read_engine_json,
+    )
+
+    variant = read_engine_json(engine_json)
+    engine = get_engine(variant.engine_factory)
+    ep = extract_engine_params(engine, variant)
+    instance = storage.meta_engine_instances().get_latest_completed(
+        variant.id, "1", variant.variant)
+    if instance is None or instance.status != "COMPLETED":
+        raise AssertionError(f"no completed instance of {variant.id}")
+    models = engine.deserialize_models(
+        storage.model_data_models().get(instance.id).models)
+    components = engine.components(ep)
+    return lambda q: engine.predict(ep, models, q, components=components)
+
+
+def _als_config(engine_json: str):
+    """The implicit ALSConfig of `engine_json`'s first algorithm, as the
+    similarproduct and ecommerce templates build it."""
+    from predictionio_torch.ops.als import ALSConfig
+    from predictionio_torch.workflow.workflow_utils import (
+        extract_engine_params,
+        get_engine,
+        read_engine_json,
+    )
+
+    variant = read_engine_json(engine_json)
+    ep = extract_engine_params(get_engine(variant.engine_factory), variant)
+    p = ep.algorithm_params_list[0][1]
+    return ALSConfig(rank=p.rank, iterations=p.numIterations, reg=p.lambda_,
+                     implicit=True, alpha=p.alpha, seed=p.seed)
+
+
+def _trajectories(prepared: str, cfg, device) -> dict:
+    """10b in process, on the PreparedData a console train ran on (saved
+    by _TRAIN_CHILD at `prepared`): the train under `auto` (epoch ms), and
+    its RMSE trajectory under `auto` and `solver="chol"`, held within
+    RMSE_RTOL of each other at every epoch."""
+    import numpy as np
+
+    from predictionio_torch.ops.als import als_train
+
+    pd = np.load(prepared)
+    runs = {}
+    for key, solver, rmse in (("auto", "auto", False),
+                              ("auto_rmse", "auto", True),
+                              ("chol", "chol", True)):
+        t0 = time.perf_counter()
+        res = als_train(pd["user_idx"], pd["item_idx"], pd["values"],
+                        int(pd["n_users"]), int(pd["n_items"]),
+                        dataclasses.replace(cfg, solver=solver),
+                        device=device, compute_rmse=rmse)
+        runs[key] = (res, time.perf_counter() - t0)
+    auto = runs["auto_rmse"][0].rmse_history
+    chol = runs["chol"][0].rmse_history
+    row = {"pairs": int(len(pd["user_idx"])), "users": int(pd["n_users"]),
+           "items": int(pd["n_items"]), "rank": cfg.rank,
+           "iterations": cfg.iterations,
+           "epoch_ms": [t * 1e3 for t in runs["auto"][0].epoch_times],
+           "call_s": runs["auto"][1], "rmse_auto": auto, "rmse_chol": chol,
+           "rmse_max_rel": max((abs(x - y) / abs(y)
+                                for x, y in zip(auto, chol)), default=None)}
+    if (len(auto) != cfg.iterations or len(chol) != cfg.iterations
+            or row["rmse_max_rel"] > RMSE_RTOL):
+        raise AssertionError(f"the auto trajectory is not chol's: {row}")
+    return row
+
+
+def _seen_by_user(data) -> dict:
+    """User id → the items it viewed (each buy is of a viewed pair)."""
+    import numpy as np
+
+    order = np.argsort(data.train_u, kind="stable")
+    u, i = data.train_u[order], data.train_i[order]
+    cuts = np.searchsorted(u, np.arange(data.n_users + 1))
+    return {f"u{k}": {f"i{x}" for x in i[cuts[k]:cuts[k + 1]].tolist()}
+            for k in range(data.n_users) if cuts[k + 1] > cuts[k]}
+
+
+def _serve_similar(url: str, data, predict, item_cats: dict) -> dict:
+    """10c, similarproduct: TEMPLATE_QUERIES seeded one-item queries from
+    each client count of TEMPLATE_CLIENTS, every answer byte for byte the
+    in-process answer of the instance's model; one query each with
+    `categories`, `whiteList` and `blackList` obeys its filter."""
+    import numpy as np
+
+    from predictionio_torch.utils import fastjson
+
+    rng = np.random.default_rng(11)
+    queries = [{"items": [f"i{int(i)}"], "num": 10}
+               for i in rng.choice(np.unique(data.train_i), TEMPLATE_QUERIES)]
+    want = [fastjson.dumps_bytes(predict(q)) for q in queries]
+    runs = []
+    for clients in TEMPLATE_CLIENTS:
+        bodies, row = _load(url, queries, clients)
+        row.update(byte_identical=bodies == want,
+                   answered=sum(len(json.loads(b)["itemScores"]) == 10
+                                for b in bodies))
+        runs.append(row)
+    anchor = queries[0]["items"]
+    some = sorted(item_cats)[:40]
+    filters = {
+        "categories": ({"items": anchor, "num": 10, "categories": ["c1"]},
+                       lambda item: "c1" in item_cats[item]),
+        "whiteList": ({"items": anchor, "num": 10, "whiteList": some},
+                      lambda item: item in some),
+        "blackList": ({"items": anchor, "num": 10, "blackList": some},
+                      lambda item: item not in some)}
+    checked = {}
+    for name, (q, ok) in filters.items():
+        got = [s["item"] for s in _post(url, q)["itemScores"]]
+        checked[name] = {"query": q, "items": got,
+                         "categories": [item_cats.get(i) for i in got],
+                         "obeyed": bool(got) and all(ok(i) for i in got)}
+    out = {"runs": runs, "filters": checked}
+    if (not all(r["byte_identical"] and r["answered"] == TEMPLATE_QUERIES
+                for r in runs)
+            or not all(c["obeyed"] for c in checked.values())):
+        raise AssertionError(f"similarproduct serving failed a bar: {out}")
+    return out
+
+
+def _serve_ecommerce(url: str, data, storage, app_id: int,
+                     unavailable: list) -> dict:
+    """10c, ecommerce: TEMPLATE_QUERIES seeded user queries from each
+    client count, no answer holding an item its user viewed or bought or
+    an unavailable one; a never-seen user with three views written now
+    answered through the cold-start path, without them; a new `$set` on
+    unavailableItems obeyed within CONSTRAINT_TIMEOUT_S."""
+    import numpy as np
+
+    from predictionio_torch.data.datamap import DataMap
+    from predictionio_torch.data.events import Event
+
+    rng = np.random.default_rng(12)
+    queries = [{"user": f"u{int(u)}", "num": 10}
+               for u in rng.choice(np.unique(data.train_u),
+                                   TEMPLATE_QUERIES)]
+    seen = _seen_by_user(data)
+    banned = set(unavailable)
+    runs = []
+    for clients in TEMPLATE_CLIENTS:
+        bodies, row = _load(url, queries, clients)
+        answered = leaked = 0
+        for q, body in zip(queries, bodies):
+            got = {s["item"] for s in json.loads(body)["itemScores"]}
+            answered += bool(got)
+            leaked += len(got & (seen[q["user"]] | banned))
+        row.update(answered=answered, leaked_items=leaked)
+        runs.append(row)
+    now = datetime.now(timezone.utc)
+    viewed = [f"i{int(i)}" for i in rng.choice(np.unique(data.train_i), 3,
+                                                replace=False)]
+    storage.l_events().insert_batch([
+        Event(event="view", entity_type="user", entity_id="cold-user",
+              target_entity_type="item", target_entity_id=item,
+              event_time=now + timedelta(milliseconds=k))
+        for k, item in enumerate(viewed)], app_id)
+    cold = [s["item"] for s in _post(url, {"user": "cold-user",
+                                           "num": 10})["itemScores"]]
+    # the newest $set is the constraint: the top items of one user's
+    # answer become unavailable (and the first twenty available again)
+    probe = queries[1]
+    top = [s["item"] for s in _post(url, probe)["itemScores"]][:3]
+    storage.l_events().insert(Event(
+        event="$set", entity_type="constraint", entity_id="unavailableItems",
+        properties=DataMap({"items": top}),
+        event_time=datetime.now(timezone.utc)), app_id)
+    t0 = time.perf_counter()
+    obeyed_s = None
+    while time.perf_counter() - t0 < CONSTRAINT_TIMEOUT_S:
+        got = [s["item"] for s in _post(url, probe)["itemScores"]]
+        if got and not set(got) & set(top):
+            obeyed_s = time.perf_counter() - t0
+            break
+        time.sleep(0.1)
+    out = {"runs": runs, "cold_start_items": cold, "cold_viewed": viewed,
+           "constraint_items": top, "constraint_obeyed_s": obeyed_s}
+    if (any(r["leaked_items"] or r["answered"] < TEMPLATE_QUERIES // 2
+            for r in runs) or not cold or set(cold) & set(viewed)
+            or len(top) < 3 or obeyed_s is None):
+        raise AssertionError(f"ecommerce serving failed a bar: {out}")
+    return out
+
+
+def _serve_ranking(url: str, served: dict, predict) -> dict:
+    """10c, productranking: RANKING_QUERIES seeded queries of
+    RANKING_CANDIDATES candidates (one in ten from a never-seen user)
+    from each client count: every answer byte for byte the in-process
+    one, a known user's scores descending over exactly its candidates, a
+    never-seen user's candidates in their order with `isOriginal: true`."""
+    import numpy as np
+
+    from predictionio_torch.utils import fastjson
+
+    rng = np.random.default_rng(13)
+    users, items = served["users"], served["items"]
+    queries = []
+    for k in range(RANKING_QUERIES):
+        user = (f"ghost-{k}" if k % 10 == 0
+                else users[int(rng.integers(len(users)))])
+        queries.append({"user": user, "items": [
+            items[int(i)] for i in rng.choice(len(items), RANKING_CANDIDATES,
+                                              replace=False)]})
+    want = [fastjson.dumps_bytes(predict(q)) for q in queries]
+    runs = []
+    for clients in TEMPLATE_CLIENTS:
+        bodies, row = _load(url, queries, clients)
+        bad = 0
+        for q, body in zip(queries, bodies):
+            got = json.loads(body)
+            order = [s["item"] for s in got["itemScores"]]
+            scores = [s["score"] for s in got["itemScores"]]
+            if q["user"].startswith("ghost-"):
+                bad += not (got["isOriginal"] and order == q["items"])
+            else:
+                bad += (got["isOriginal"]
+                        or sorted(order) != sorted(q["items"])
+                        or scores != sorted(scores, reverse=True))
+        row.update(byte_identical=bodies == want, bad_answers=bad)
+        runs.append(row)
+    if not all(r["byte_identical"] and not r["bad_answers"] for r in runs):
+        raise AssertionError(f"productranking serving failed a bar: {runs}")
+    return {"runs": runs}
+
+
+def _import_views(base: str, tmp: str, app_name: str, data) -> dict:
+    """10d's data: `console app new` and `console import` of `data`'s
+    training pairs as view events (JSON lines) into the store under
+    `base`, in child processes."""
+    path = os.path.join(tmp, f"{app_name}.jsonl")
+    with open(path, "w") as f:
+        for u, i in zip(data.train_u.tolist(), data.train_i.tolist()):
+            f.write(json.dumps({"event": "view", "entityType": "user",
+                                "entityId": f"u{u}",
+                                "targetEntityType": "item",
+                                "targetEntityId": f"i{i}"}) + "\n")
+    t0 = time.perf_counter()
+    _console_out(["app", "new", app_name], base)
+    out = _console_out(["import", "--appname", app_name, "--input", path],
+                       base)
+    return {"events": int(len(data.train_u)),
+            "import_s": time.perf_counter() - t0, "console": out.strip()}
+
+
+def _template_list() -> list:
+    """10d: the names `console template list` prints."""
+    from predictionio_torch.tools import console
+
+    listing = io.StringIO()
+    with contextlib.redirect_stdout(listing):
+        if console.main(["template", "list"]) != 0:
+            raise AssertionError("console template list failed")
+    return [line.split()[0] for line in listing.getvalue().splitlines()
+            if line.strip()]
+
+
+def _template_eval(tmp: str, device, pio_base: str, imported) -> tuple:
+    """10d: once `imported` (the future of `_import_views`) is done,
+    `console eval` of SimilarProductEvaluation on TEMPLATE_EVAL_APP
+    (3 folds) in a child: its cells' MAP@10, the best cell, the grid
+    trains (one a fold, four cells each), a completed evaluation instance
+    in the store. Returns (the row, the child's log, its launch record)."""
+    imported = imported.result()
+    out = os.path.join(tmp, "eval-similarproduct.json")
+    stderr, child, seconds = _console_child(
+        ["eval", TEMPLATE_EVAL_CLASS, "--out", out, "--device", str(device)],
+        env_extra={"PIO_FS_BASEDIR": pio_base,
+                   "PIO_EVAL_APP_NAME": TEMPLATE_EVAL_APP, "PIO_EVAL_K": "3"})
+    with open(out) as f:
+        record = json.load(f)
+    result = json.loads(record["evaluator_results_json"])
+    cells = [r["engineParams"] for r in result["results"]]
+    stored = _db_rows(os.path.join(pio_base, "pio.db"),
+                      "SELECT status FROM evaluation_instances WHERE id=?",
+                      (record["id"],))
+    row = {"wall_s": seconds, "status": record["status"],
+           "stored_status": [s for (s,) in stored],
+           "map_at_10": [r["scores"]["MAP@10"] for r in result["results"]],
+           "cells": [{k: v for k, v in c["algorithms"][0]["params"].items()
+                      if k in ("rank", "numIterations", "lambda", "lambda_")}
+                     for c in cells],
+           "best": cells.index(result["bestEngineParams"]),
+           "grid_trains": len(child["grids"]), "grids": child["grids"],
+           "launches": {k: v for k, v in child["launches"].items() if v},
+           "launches_by_rank": child["by_rank"], "import": imported}
+    if (record["status"] != "EVALCOMPLETED"
+            or row["stored_status"] != ["EVALCOMPLETED"]
+            or len(cells) != 4 or len(child["grids"]) != 3
+            or any(g["cells"] != 4 for g in child["grids"])):
+        raise AssertionError(f"the similar-product evaluation failed a bar: "
+                             f"{row}")
+    return row, stderr, child
+
+
+def phase_templates(report: dict, device, tmp: str, served: dict,
+                    writer, shop: str) -> dict:
+    """Phase 10: the similarproduct, ecommerce and productranking
+    templates scaffolded with the console, trained from the store on the
+    card and served by `console deploy` children, and
+    `SimilarProductEvaluation` through `console eval`. `writer` is the
+    child writing the store under `shop` (`_start_store_writer`). The
+    console trains and the evaluation run together; the servers are
+    measured alone. Returns
+    each console child's launch record (the three trains, the three
+    deploys, the eval)."""
+    from predictionio_torch.quality.datasets import synth_implicit
+
+    t_all = time.perf_counter()
+    pio_base = served["store_base"]
+    engines = {"similarproduct": (os.path.join(tmp, "SimilarProduct"),
+                                  TEMPLATE_APP, shop),
+               "ecommerce": (os.path.join(tmp, "ECommerce"), TEMPLATE_APP,
+                             shop),
+               "productranking": (os.path.join(tmp, "ProductRanking"),
+                                  "MyApp1", pio_base)}
+    launch_paths = {name: os.path.join(tmp, f"templates-{name}.json")
+                    for name in engines}
+    pool = concurrent.futures.ThreadPoolExecutor(8)
+    storage = None
+    deploys = {}
+    try:
+        # 10d's import into phase 4's store, then its eval, from now on
+        imported = pool.submit(_import_views, pio_base, tmp,
+                               TEMPLATE_EVAL_APP, synth_implicit("100k"))
+        evaluated = pool.submit(_template_eval, tmp, device, pio_base,
+                                imported)
+        t0 = time.perf_counter()
+        written = _await_store(writer, shop)
+        store = dict(written["row"], waited_s=time.perf_counter() - t0)
+        emit(dict(phase="templates_store", **store))
+        app_id = written["app_id"]
+        item_cats = written["item_categories"]
+        data = synth_implicit(store["scale"], seed=0)
+        storage = _store_at(shop)
+
+        # 10b: scaffold, build and `console train` each template in a
+        # child, all together
+        jsons = {name: _scaffolded(name, directory, app)
+                 for name, (directory, app, _) in engines.items()}
+        prepared = {name: os.path.join(tmp, f"prepared-{name}.npz")
+                    for name in ("similarproduct", "ecommerce")}
+        trains = {name: pool.submit(
+            _console_child, ["train", "--engine-json", jsons[name],
+                             "--device", str(device)],
+            env_extra={"PIO_FS_BASEDIR": store_base},
+            prepared=prepared.get(name))
+            for name, (_, _, store_base) in engines.items()}
+        train_rows, children = {}, {}
+        for name, fut in trains.items():
+            stderr, child, seconds = fut.result()
+            children[f"train_{name}"] = child
+            train_rows[name] = dict(
+                template=name, wall_s=seconds, **_stage_seconds(stderr),
+                instance=_completed_instance(engines[name][2], jsons[name]),
+                launches={k: v for k, v in child["launches"].items() if v},
+                launches_by_rank=child["by_rank"])
+            report.setdefault("templates_log", {})[name] = \
+                stderr.splitlines()[-40:]
+
+        # 10c: the three servers come up while the in-process auto and
+        # chol trains run
+        t_deploy = time.perf_counter()
+        deploys = {name: _start_deploy(
+            ["--engine-json", jsons[name], "--ip", "127.0.0.1", "--port",
+             "0", "--device", str(device)], {"PIO_FS_BASEDIR": store_base},
+            launch_paths[name])
+            for name, (_, _, store_base) in engines.items()}
+        for name, path in prepared.items():
+            train_rows[name]["in_process"] = _trajectories(
+                path, _als_config(jsons[name]), device)
+        for row in train_rows.values():
+            emit(dict(phase="templates_train", **row))
+        urls = {}
+        for name, proc in deploys.items():
+            line = _read_deployed_line(proc, 300.0)
+            urls[name] = f"http://127.0.0.1:{int(line.rsplit(':', 1)[1])}"
+        ready_s = time.perf_counter() - t_deploy
+        # the servers are measured once the evaluation is done
+        evaluation, eval_log, children["eval"] = evaluated.result()
+        similar = _serve_similar(
+            urls["similarproduct"], data,
+            _latest_model(storage, jsons["similarproduct"]), item_cats)
+        ecomm = _serve_ecommerce(urls["ecommerce"], data, storage, app_id,
+                                 written["unavailable"])
+        rank_storage = _store_at(pio_base)
+        try:
+            ranked = _latest_model(rank_storage, jsons["productranking"])
+        finally:
+            rank_storage.close()
+        ranking = _serve_ranking(urls["productranking"], served, ranked)
+        for name, out in (("similarproduct", similar), ("ecommerce", ecomm),
+                          ("productranking", ranking)):
+            for row in out["runs"]:
+                emit(dict(phase="templates_serve", template=name, **row))
+        emit(dict(phase="templates_serve_bars", ready_s=ready_s,
+                  filters=similar["filters"],
+                  **{k: v for k, v in ecomm.items() if k != "runs"}))
+    finally:
+        for proc in deploys.values():
+            _stop(proc)
+        if storage is not None:
+            storage.close()
+        pool.shutdown(wait=True)
+    for name, path in launch_paths.items():
+        with open(path) as f:
+            children[f"deploy_{name}"] = json.load(f)
+    evaluation["templates_listed"] = _template_list()
+    emit(dict(phase="templates_eval", **evaluation))
+    report.setdefault("templates_log", {})["eval"] = \
+        eval_log.splitlines()[-40:]
+    if sorted(evaluation["templates_listed"]) != sorted(TEMPLATE_NAMES):
+        raise AssertionError(f"console template list printed "
+                             f"{evaluation['templates_listed']}")
+    wall = time.perf_counter() - t_all
+    emit({"phase": "templates", "wall_s": wall})
+    report["templates"] = {"store": store, "train": train_rows,
+                           "serve": {"ready_s": ready_s,
+                                     "similarproduct": similar,
+                                     "ecommerce": ecomm,
+                                     "productranking": ranking},
+                           "eval": evaluation, "wall_s": wall}
+    return children
+
+
+def _require_template_launches(children: dict, here: dict) -> None:
+    """Phase 10's solves: each `console train` and this process's auto
+    trains on `gj_aug_reg` at the engine.json's rank (10) alone, the
+    eval's grids on it at rank 8 alone, the deploy children none (no
+    template here folds)."""
+    want = {**{f"train_{name}": {"gj_aug_reg/K=10"}
+               for name in TEMPLATE_NAMES if name != "recommendation"},
+            "eval": {"gj_aug_reg/K=8"},
+            **{f"deploy_{name}": set() for name in TEMPLATE_NAMES
+               if name != "recommendation"}}
+    got = {name: children[name]["by_rank"] for name in want}
+    got["in_process"] = here
+    want["in_process"] = {"gj_aug_reg/K=10"}
+    wrong = {name: by_rank for name, by_rank in got.items()
+             if set(by_rank) != want[name]
+             or not all(v > 0 for v in by_rank.values())}
+    if wrong:
+        raise AssertionError(f"on the templates path: want {want}, got "
+                             f"{wrong}")
+
+
 def _require_launches(path: str, launches: dict, kernels) -> None:
     """Every kernel in `kernels` launched on the path, and no kernel of
     OFF_PATH."""
@@ -3088,8 +3816,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, HERE)
     try:
-        from predictionio_torch.ops import spd_solve
-        from predictionio_torch.quality.datasets import synth_explicit
+        import predictionio_torch  # noqa: F401 — the checkout's package
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})",
               file=sys.stderr)
@@ -3099,6 +3826,25 @@ def main(argv=None) -> int:
     report: dict = {"card": card, "torch": torch.__version__,
                     "cuda": torch.version.cuda}
     t_all = time.perf_counter()
+    # phase 10's store is written by a child from here on, beside phases
+    # 1-9 (it takes minutes; the phases before it leave host cores idle)
+    shop = tempfile.TemporaryDirectory()
+    writer = _start_store_writer(shop.name)
+    try:
+        return _run(args, report, card, device, t_all, writer, shop.name)
+    finally:
+        _stop(writer)
+        shop.cleanup()
+
+
+def _run(args, report: dict, card: str, device, t_all: float, writer,
+         shop: str) -> int:
+    """Phases 1-10 and the kernels line (`main`'s body, with phase 10's
+    store writer started)."""
+    import torch
+
+    from predictionio_torch.ops import spd_solve
+    from predictionio_torch.quality.datasets import synth_explicit
 
     phase_build(report, card, device)
     main_shapes = phase_kernels(report, device)
@@ -3143,6 +3889,16 @@ def main(argv=None) -> int:
         # sends HTTP) and the deploy child's folds
         eventserver_launches = {k: v + eventserver_child[k]
                                 for k, v in spd_solve.launches.items()}
+        spd_solve.reset_launches()  # the templates path starts here
+        template_children = phase_templates(report, device, tmp, served,
+                                            writer, shop)
+        # ... and ends here: this process's launches (its auto trains)
+        # and every console child's (trains, deploys, eval)
+        _require_template_launches(template_children,
+                                   dict(spd_solve.launches_by_rank))
+        templates_launches = {
+            k: v + sum(c["launches"][k] for c in template_children.values())
+            for k, v in spd_solve.launches.items()}
     _require_launches("fold", fold_launches, FOLD_KERNEL.values())
     _require_launches("online", online_launches, FOLD_KERNEL.values())
     # the fold kernel from the 8d child's folds alone; no off-path kernel
@@ -3158,6 +3914,11 @@ def main(argv=None) -> int:
         raise AssertionError(f"on the eventserver path: kernels other than "
                              f"{FOLD_KERNEL[64]} launched "
                              f"({eventserver_launches})")
+    # the templates' solves on gj_aug_reg alone (rank 10 and 8)
+    _require_launches("templates", templates_launches, ["gj_aug_reg"])
+    if any(v for k, v in templates_launches.items() if k != "gj_aug_reg"):
+        raise AssertionError(f"on the templates path: kernels other than "
+                             f"gj_aug_reg launched ({templates_launches})")
     # the path's launches: the grids in this process and the console
     # children's (each child's counts start at 0 with the process)
     children = [run["launches"] for run in eval_runs.values()]
@@ -3169,7 +3930,8 @@ def main(argv=None) -> int:
                           "eval": eval_launches, "eval_grid": grid_launches,
                           "fold": fold_launches, "online": online_launches,
                           "serving": serving_launches,
-                          "eventserver": eventserver_launches}
+                          "eventserver": eventserver_launches,
+                          "templates": templates_launches}
 
     kernels = []
     for name, (replaces, source) in KERNELS.items():
@@ -3183,7 +3945,8 @@ def main(argv=None) -> int:
             "launches": (serve_launches[name] + eval_launches[name]
                          + fold_launches[name] + online_launches[name]
                          + serving_launches[name]
-                         + eventserver_launches[name]),
+                         + eventserver_launches[name]
+                         + templates_launches[name]),
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -3195,6 +3958,7 @@ def main(argv=None) -> int:
             "launches_online": online_launches[name],
             "launches_serving": serving_launches[name],
             "launches_eventserver": eventserver_launches[name],
+            "launches_templates": templates_launches[name],
             "launches_per_epoch_2m": per_epoch,
             "launches_console_eval": {layout: run["launches"][name]
                                       for layout, run in eval_runs.items()},

@@ -7,6 +7,11 @@ the reference trained serves through the port unchanged. Its
 `PopularityModel` (the Recommendation template's second algorithm, the
 serving plane's degraded answer) holds item counts, their order and the
 same maps and seen items: `popularity_model_from_arrays` carries it.
+The Similar Product template's model (unit item factors, the item map,
+the categories) and the E-Commerce template's (both factor matrices, the
+unit item factors, both maps, the categories and the app name) carry over
+through `similar_product_model_from_arrays` and `ecomm_model_from_arrays`;
+the Product Ranking template's model is an `ALSModel`.
 """
 
 from __future__ import annotations
@@ -17,7 +22,11 @@ import numpy as np
 
 from predictionio_torch.data.bimap import BiMap
 from predictionio_torch.models.als_model import ALSModel, SeenItems
+from predictionio_torch.templates.ecommerce.engine import ECommModelData
 from predictionio_torch.templates.recommendation.engine import PopularityModel
+from predictionio_torch.templates.similarproduct.engine import (
+    SimilarProductModel,
+)
 
 
 def als_model_from_arrays(
@@ -75,4 +84,55 @@ def popularity_model_from_arrays(
         order=order,
         seen=SeenItems(np.asarray(seen_user_idx), np.asarray(seen_item_idx),
                        len(user_ids)),
+    )
+
+
+def similar_product_model_from_arrays(
+    item_factors_unit: np.ndarray,
+    item_ids: Mapping[str, int],
+    item_categories: Mapping[str, list],
+) -> SimilarProductModel:
+    """The port's SimilarProductModel from the [n_items, K] L2-normalised
+    item factors, the item id string → row map and item id → categories."""
+    unit = np.asarray(item_factors_unit, dtype=np.float32)
+    if unit.ndim != 2 or len(item_ids) != unit.shape[0]:
+        raise ValueError(f"{len(item_ids)} items do not match the unit "
+                         f"factors {unit.shape}")
+    return SimilarProductModel(
+        item_factors_unit=unit,
+        item_ids=BiMap(dict(item_ids)),
+        item_categories={k: list(v) for k, v in item_categories.items()},
+    )
+
+
+def ecomm_model_from_arrays(
+    user_factors: np.ndarray,
+    item_factors: np.ndarray,
+    item_factors_unit: np.ndarray,
+    user_ids: Mapping[str, int],
+    item_ids: Mapping[str, int],
+    item_categories: Mapping[str, list],
+    app_name: str,
+) -> ECommModelData:
+    """The port's ECommModelData from the [n_users, K] / [n_items, K]
+    factors, the [n_items, K] unit item factors, the id string → row maps,
+    item id → categories and the app of the serve-time lookups."""
+    user_factors = np.asarray(user_factors)
+    item_factors = np.asarray(item_factors)
+    unit = np.asarray(item_factors_unit, dtype=np.float32)
+    if len(user_ids) != user_factors.shape[0] or \
+            len(item_ids) != item_factors.shape[0] or \
+            unit.shape != item_factors.shape:
+        raise ValueError(
+            f"id maps ({len(user_ids)} users, {len(item_ids)} items) do not "
+            f"match the factors {user_factors.shape} / {item_factors.shape}"
+            f" / unit {unit.shape}")
+    return ECommModelData(
+        user_factors=user_factors,
+        item_factors=item_factors,
+        item_factors_unit=unit,
+        user_ids=BiMap(dict(user_ids)),
+        item_ids=BiMap(dict(item_ids)),
+        item_categories={k: list(v) for k, v in item_categories.items()},
+        app_name=app_name,
     )

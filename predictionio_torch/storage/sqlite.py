@@ -359,12 +359,16 @@ class SQLiteBackend(base.StorageBackend):
         """JSON text of je's value, type-exact: booleans as true/false
         (json_quote would give 1/0), reals re-extracted through the `->`
         operator for shortest-roundtrip precision (json_quote renders
-        %.15g, dropping the 16th/17th digit). `-> fullkey` is NULL for
+        %.15g, dropping the 16th/17th digit), arrays and objects as the
+        JSON text json_each gives them (from sqlite 3.45 that text comes
+        without the JSON subtype, and json_quote would turn a list into a
+        string). `-> fullkey` is NULL for
         keys containing '"' or '\\' (sqlite's path parser rejects its own
         escaping) — the query surfaces that as nbail > 0 and the caller
         falls back to the per-event Python fold rather than lose a ULP."""
         return ("CASE je.type WHEN 'real' THEN s.properties -> je.fullkey "
                 "WHEN 'true' THEN 'true' WHEN 'false' THEN 'false' "
+                "WHEN 'array' THEN je.value WHEN 'object' THEN je.value "
                 "ELSE json_quote(je.value) END")
 
     def _agg_group_object(self) -> str:
@@ -936,8 +940,16 @@ class SQLiteLEvents(base.LEvents):
             clauses.append(f"event IN ({','.join('?' * len(event_names))})")
             params.extend(event_names)
         order = "DESC" if reversed else "ASC"
+        # a lookup by entity seeks that entity's index: left to itself,
+        # sqlite walks idx_events_scan to skip the ORDER BY's sort, which
+        # reads every event of the app for one user's few
+        index = ""
+        if entity_type is not None and entity_id is not None:
+            index = " INDEXED BY idx_events_entity"
+        elif target_entity_type is not None and target_entity_id is not None:
+            index = " INDEXED BY idx_events_target"
         sql = (
-            f"SELECT * FROM events WHERE {' AND '.join(clauses)} "
+            f"SELECT * FROM events{index} WHERE {' AND '.join(clauses)} "
             f"ORDER BY event_time {order}, creation_time {order}, id {order}"
         )
         if limit is not None and limit >= 0:

@@ -1,9 +1,10 @@
 """The port's console — `app`, `accesskey`, `eventserver`, `import`,
-`export`, `train`, `deploy`, `eval` and `batchpredict`, the port of
-``predictionio_tpu/tools/console.py``'s ``cmd_app`` (new, list,
-channel-new), ``cmd_accesskey``, ``cmd_eventserver``, ``cmd_import``,
-``cmd_export``, ``cmd_train``, ``cmd_deploy``, ``cmd_eval`` and
-``cmd_batchpredict``.
+`export`, `template`, `new`, `build`, `train`, `deploy`, `eval` and
+`batchpredict`, the port of ``predictionio_tpu/tools/console.py``'s
+``cmd_app`` (new, list, channel-new), ``cmd_accesskey``,
+``cmd_eventserver``, ``cmd_import``, ``cmd_export``, ``cmd_template``
+(list, get), ``cmd_new``, ``cmd_build``, ``cmd_train``, ``cmd_deploy``,
+``cmd_eval`` and ``cmd_batchpredict``.
 
     python -m predictionio_torch.tools.console app new NAME
     python -m predictionio_torch.tools.console app channel-new NAME CHANNEL
@@ -12,6 +13,12 @@ channel-new), ``cmd_accesskey``, ``cmd_eventserver``, ``cmd_import``,
     python -m predictionio_torch.tools.console eventserver \
         [--ip 0.0.0.0] [--port 7070] [--stats]
     python -m predictionio_torch.tools.console import --appname A --input F
+    python -m predictionio_torch.tools.console template list
+    python -m predictionio_torch.tools.console template get NAME DIR \\
+        [--app-name A]
+    python -m predictionio_torch.tools.console new DIR [--template NAME] \\
+        [--app-name A]
+    python -m predictionio_torch.tools.console build [--engine-json E]
     python -m predictionio_torch.tools.console train --engine-json E \\
         [--events F] [--model-out M] [--device cuda|cpu]
     python -m predictionio_torch.tools.console deploy --engine-json E \\
@@ -32,7 +39,10 @@ reads events from a file instead; `--model-out`/`--model` write and read
 a model file instead of the model repository; `eval --out` also writes
 the evaluation instance as JSON. Without `--device` the commands run on
 CUDA (or ``$PIO_TORCH_DEVICE``). The event server does no device work
-and takes no `--device`: it never initialises CUDA.
+and takes no `--device`: it never initialises CUDA. `template get`
+scaffolds an engine directory from the registry
+(`templates/registry.py`), and `build` checks its engine.json: the
+factory resolves and every component's params extract.
 """
 
 from __future__ import annotations
@@ -145,6 +155,57 @@ def cmd_export(args) -> int:
         print(f"Export failed: {e}", file=sys.stderr)
         return 1
     print(f"Exported {n} events to {args.output}.")
+    return 0
+
+
+def cmd_template(args) -> int:
+    from predictionio_torch.templates.registry import (
+        BUILTIN_TEMPLATES,
+        CONSOLE,
+        scaffold,
+    )
+
+    if args.template_command == "list":
+        for name, info in sorted(BUILTIN_TEMPLATES.items()):
+            print(f"  {name:20s} {info.description}")
+        return 0
+    try:
+        directory = scaffold(args.name, args.directory,
+                             app_name=args.app_name)
+    except (KeyError, FileExistsError) as e:
+        print(e.args[0] if e.args else str(e), file=sys.stderr)
+        return 1
+    print(f"Engine template {args.name!r} created at {directory}")
+    print(f"Edit engine.json, then: {CONSOLE} build && {CONSOLE} train "
+          f"&& {CONSOLE} deploy")
+    return 0
+
+
+def cmd_new(args) -> int:
+    """`new DIR`: `template get` of `--template` (recommendation)."""
+    args.template_command = "get"
+    args.name = args.template
+    return cmd_template(args)
+
+
+def cmd_build(args) -> int:
+    """There is nothing to compile: building checks that engine.json
+    parses, its factory resolves and every component's params extract."""
+    from predictionio_torch.workflow.workflow_utils import (
+        extract_engine_params,
+        get_engine,
+        read_engine_json,
+    )
+
+    try:
+        variant = read_engine_json(args.engine_json)
+        engine = get_engine(variant.engine_factory)
+        extract_engine_params(engine, variant)
+    except Exception as e:  # noqa: BLE001 — every failure is the build's
+        print(f"Engine build failed: {e}", file=sys.stderr)
+        return 1
+    print(f"Engine {variant.id!r} ({variant.engine_factory}) is ready for "
+          "training.")
     return 0
 
 
@@ -330,6 +391,28 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--output", required=True)
     x.add_argument("--channel", default=None)
     x.set_defaults(fn=cmd_export)
+
+    tpl = sub.add_parser("template", help="list or scaffold the built-in "
+                                          "engine templates")
+    tpl_sub = tpl.add_subparsers(dest="template_command", required=True)
+    tpl_sub.add_parser("list", help="list the templates")
+    tpl_get = tpl_sub.add_parser("get", help="scaffold a template's "
+                                             "engine directory")
+    tpl_get.add_argument("name")
+    tpl_get.add_argument("directory")
+    tpl_get.add_argument("--app-name", default=None)
+    tpl.set_defaults(fn=cmd_template)
+
+    n = sub.add_parser("new", help="scaffold an engine directory "
+                                   "(template get)")
+    n.add_argument("directory")
+    n.add_argument("--template", default="recommendation")
+    n.add_argument("--app-name", default=None)
+    n.set_defaults(fn=cmd_new)
+
+    bd = sub.add_parser("build", help="check an engine.json")
+    bd.add_argument("--engine-json", default="engine.json")
+    bd.set_defaults(fn=cmd_build)
 
     def add_device(sp):
         sp.add_argument("--device", default=None,

@@ -118,6 +118,43 @@ _BLOCKED_RUN = textwrap.dedent("""
     assert server.online.poll_once() == 1
     assert server.predict({{"user": "fresh", "num": 2}})["itemScores"]
     server.server_close()
+
+    # the similarproduct and ecommerce templates: scaffolded, built and
+    # trained with the console on the store, served over HTTP
+    assert console.main(["template", "list"]) == 0
+    assert console.main(["app", "new", "ShopApp"]) == 0
+    shop = os.path.join(tmp, "shop.jsonl")
+    with open(shop, "w") as f:
+        for n in range(150):
+            f.write(json.dumps({{
+                "event": "buy" if n % 7 == 0 else "view",
+                "entityType": "user", "entityId": "s%d" % (n % 11),
+                "targetEntityType": "item",
+                "targetEntityId": "p%d" % (n * 7 % 23),
+                "eventTime": "2026-01-01T00:01:%02dZ" % (n % 60)}}) + "\\n")
+    assert console.main(["import", "--appname", "ShopApp", "--input",
+                         shop]) == 0
+    for name, query in (("similarproduct", {{"items": ["p1"], "num": 3}}),
+                        ("ecommerce", {{"user": "s1", "num": 3}})):
+        engine_dir = os.path.join(tmp, name)
+        assert console.main(["template", "get", name, engine_dir,
+                             "--app-name", "ShopApp"]) == 0
+        shop_json = os.path.join(engine_dir, "engine.json")
+        assert console.main(["build", "--engine-json", shop_json]) == 0
+        assert console.main(["train", "--engine-json", shop_json,
+                             "--device", "cpu"]) == 0
+        server = PredictionServer(shop_json, ip="127.0.0.1", port=0,
+                                  device="cpu", storage=storage)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        req = urllib.request.Request(
+            "http://127.0.0.1:%d/queries.json" % server.port,
+            data=json.dumps(query).encode())
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            answer = json.loads(resp.read())
+        server.shutdown()
+        server.server_close()
+        assert len(answer["itemScores"]) == 3, (name, answer)
     storage.close()
     _, (als_model, _popular) = read_model_file(model)
     folded, stats = foldin.fold_model(
@@ -323,3 +360,30 @@ def test_tf32_is_off():
 
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+@pytest.mark.parametrize("name", ["similarproduct", "ecommerce",
+                                  "productranking"])
+def test_new_templates_console_without_a_device_fails(name, no_cuda,
+                                                      tmp_path, monkeypatch,
+                                                      capsys):
+    """`console train` and `console deploy` of a scaffolded template
+    refuse to run on a machine without CUDA unless asked for the CPU."""
+    from predictionio_torch.storage.registry import Storage
+    from predictionio_torch.tools import console
+
+    monkeypatch.setenv("PIO_FS_BASEDIR", str(tmp_path / "base"))
+    Storage.reset(None)
+    try:
+        assert console.main(["template", "get", name, str(tmp_path / name),
+                             "--app-name", "A"]) == 0
+        engine_json = str(tmp_path / name / "engine.json")
+        assert console.main(["build", "--engine-json", engine_json]) == 0
+        capsys.readouterr()
+        assert console.main(["train", "--engine-json", engine_json]) == 1
+        assert "CUDA" in capsys.readouterr().err
+        assert console.main(["deploy", "--engine-json", engine_json,
+                             "--port", "0"]) == 1
+        assert "CUDA" in capsys.readouterr().err
+    finally:
+        Storage.reset(None)

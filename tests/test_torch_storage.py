@@ -4,6 +4,7 @@ held to the reference's storage tests (tests/test_storage.py,
 tests/test_localfs_storage.py), and a `pio.db` written by either package
 read back by the other."""
 
+import json
 import os
 import sqlite3
 import threading
@@ -189,6 +190,76 @@ def test_levents_find_filters(storage):
     times = [e.event_time for e in le.find(app_id=1)]
     assert times == sorted(times)
     assert le.find(app_id=1, reversed=True, limit=1)[0].event_time == ts(3)
+
+
+@pytest.mark.parametrize("kw, index", [
+    ({"entity_type": "user", "entity_id": "u1"}, "idx_events_entity"),
+    ({"entity_type": "user", "entity_id": ["u1", "u3"],
+      "event_names": ["view"], "target_entity_type": "item"},
+     "idx_events_entity"),
+    ({"target_entity_type": "item", "target_entity_id": "i2",
+      "reversed": True, "limit": 3}, "idx_events_target"),
+])
+def test_find_by_entity_seeks_its_index(tmp_path, kw, index):
+    """A lookup by entity (the ecommerce template's per-query reads, the
+    online plane's history gather) reads through that entity's index, not
+    the scan index sqlite picks for the ORDER BY (every event of the
+    app), and returns the rows in event-time order."""
+    s = _file_storage(tmp_path / "pio.db")
+    try:
+        le = s.l_events()
+        for n in range(60):
+            le.insert(Event(event="view" if n % 4 else "buy",
+                            entity_type="user", entity_id=f"u{n % 5}",
+                            target_entity_type="item",
+                            target_entity_id=f"i{n % 7}",
+                            event_time=ts(0, 59 - n)), app_id=1)
+        statements = []
+        conn = le._b._conn()
+        conn.set_trace_callback(statements.append)
+        got = le.find(app_id=1, **kw)
+        conn.set_trace_callback(None)
+        [select] = [q for q in statements if q.startswith("SELECT")]
+        plan = " ".join(str(tuple(r)) for r in conn.execute(
+            "EXPLAIN QUERY PLAN " + select).fetchall())
+        assert f"USING INDEX {index}" in plan, plan
+        everything = le.find(app_id=1)
+        users = kw.get("entity_id")
+        users = [users] if isinstance(users, str) else users
+        want = [e for e in everything
+                if (users is None or e.entity_id in users)
+                and e.event in kw.get("event_names", [e.event])
+                and kw.get("target_entity_id", e.target_entity_id)
+                == e.target_entity_id]
+        if kw.get("reversed"):
+            want = want[::-1][:kw["limit"]]
+        assert [e.event_id for e in got] == [e.event_id for e in want]
+        assert len(got) >= 3
+    finally:
+        s.close()
+
+
+def test_aggregate_value_expr_without_json_subtypes(tmp_path):
+    """The pushed-down property fold takes a list- or object-valued
+    property as its JSON text. From sqlite 3.45 json_each's value column
+    carries no JSON subtype, and json_quote of it made a list a string
+    (the categories of every item, on such a host); here json_each's rows
+    are copied into a plain table, which carries no subtype either."""
+    props = {"categories": ["c6", "c0"], "o": {"a": [1, 2.5]}, "r": 0.1,
+             "i": 3, "t": True, "f": False, "s": "x", "z": None}
+    s = _file_storage(tmp_path / "pio.db")
+    try:
+        expr = s.l_events()._b._agg_value_expr()
+    finally:
+        s.close()
+    conn = sqlite3.connect(":memory:")
+    conn.execute("CREATE TABLE s (properties TEXT)")
+    conn.execute("INSERT INTO s VALUES (?)", (json.dumps(props),))
+    conn.execute("CREATE TABLE je AS SELECT key, type, value, fullkey, id "
+                 "FROM json_each((SELECT properties FROM s))")
+    got = {k: json.loads(v) for k, v in conn.execute(
+        f"SELECT je.key, json({expr}) FROM s, je").fetchall()}
+    assert got == props
 
 
 def test_levents_channel_isolation(storage):
