@@ -7,6 +7,12 @@ Run from the root of a checkout on a machine with a CUDA card:
 
 Phases (any failure exits non-zero and prints no result line):
 
+0. native  — before any child starts, g++ builds the native package's
+             library (predictionio_torch/native: the bucketizer, the
+             columnar scan, the property fold, the importer and the
+             exporter) into build/torch_native/, and it must load; a
+             native fallback line logged in this process, in any console
+             child or in phase 10's writer child fails the run;
 1. build   — nvcc builds every kernel source under predictionio_torch/csrc,
              one nvcc per source, all started together, and prints the
              -Xptxas -v report; the register kernels' instantiations
@@ -215,12 +221,19 @@ Phases (any failure exits non-zero and prints no result line):
              templates at their shipped engine.json (rank 10, 20
              iterations). (a) A child started with the run writes
              synth_implicit("2m")'s 1.8 M training pairs as `view` events
-             of app "Shop" into a sqlite pio.db (`insert_batch`, 20,000 a
-             chunk), a seeded one in eight also as a `buy`, a `$set` of 1-2
-             of 8 categories on every item and a `$set` on
-             constraint/unavailableItems naming 20 items; the write's
-             seconds. (b) `console template get … --app-name` and `console
-             build` of each, then `console train` of each in a child (the
+             of app "Shop" (one second apart), a seeded one in eight also
+             as a `buy`, a `$set` of 1-2 of 8 categories on every item and
+             a `$set` on constraint/unavailableItems naming 20 items, as a
+             JSON-lines file, and `console import`s it (the native
+             importer) into a sqlite pio.db, the file deleted after; the
+             import's seconds beside `insert_batch`'s (20,000 a chunk) on
+             the first 200,000 of those events into a scratch store. On
+             the store, in that child: the templates' `find_columnar`
+             (views and buys, unordered) and `aggregate_properties` of the
+             items, each on the native tier and then under PIO_NATIVE=0
+             (the SQL tier): their seconds, and both reads equal bit for
+             bit. `console status`'s native line. (b) `console template
+             get … --app-name` and `console build` of each, then `console train` of each in a child (the
              two implicit ones from that store, productranking from phase
              4's): the data-read, prepare and train seconds from its log,
              its launches by rank (`gj_aug_reg` at K = 10 alone), a
@@ -241,7 +254,11 @@ Phases (any failure exits non-zero and prints no result line):
              descending, a never-seen user's candidates in order with
              isOriginal. qps, p50, p99, dispatches and mean batch of each
              run. (d) `console import` of synth_implicit("100k") into app
-             "Shop100k" of phase 4's store and `console eval` of
+             "Shop100k" of phase 4's store (the native importer; its rows
+             equal a PIO_NATIVE=0 import's of the same file into a scratch
+             store apart from event ids and creation times, and `console
+             export` of the app byte for byte the PIO_NATIVE=0 export)
+             and `console eval` of
              SimilarProductEvaluation there (3 folds; MAP@10 per cell, the
              best, the wall; 3 grid trains of 4 cells on `gj_aug_reg` at
              K = 8 alone; a completed evaluation instance), run beside
@@ -272,6 +289,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import logging
 import os
 import queue
 import re
@@ -438,6 +456,29 @@ CONSTRAINT_TIMEOUT_S = 30.0
 TEMPLATE_NAMES = ("ecommerce", "productranking", "recommendation",
                   "similarproduct")
 TEMPLATE_EVAL_APP = "Shop100k"
+# the native line of `console status`, before its status
+NATIVE_STATUS = "Native fast paths (scan/bucketize/import/export/aggregate):"
+# 10a: the events of the template store that `insert_batch` also writes,
+# into a scratch store, beside the native import of all of them
+INSERT_BATCH_EVENTS = 200_000
+# what the port logs when a native path falls back: the native
+# package's wrappers (`predictionio_torch/native/__init__.py`: a failed
+# build or load, a scan, bucketizer, property fold, import or export that
+# bailed), a folded payload the storage could not decode
+# (`storage/sqlite.py`), and an import that handed lines to Python
+# (`tools/transfer.py`); a process whose log holds one failed the native
+# tier
+NATIVE_FALLBACK = ("native: build failed", "native: cannot load",
+                   "native scan: ", "native: row ids outside",
+                   "native: fill/plan disagreement", "native aggprops: ",
+                   "native import: rc=", "native export: rc=",
+                   "aggregate pushdown: bad folded payload",
+                   "import: native path stopped mid-file",
+                   "outside the native fast path")
+# the loggers of those lines
+NATIVE_LOGGERS = ("predictionio_torch.native",
+                  "predictionio_torch.storage.sqlite",
+                  "predictionio_torch.tools.transfer")
 TEMPLATE_EVAL_CLASS = ("predictionio_torch.templates.similarproduct."
                        "evaluation.SimilarProductEvaluation")
 # deploys the console in a child process and writes, when it exits, its
@@ -488,7 +529,8 @@ _TRAIN_CHILD = (
     "                  'grids': als_grid.grid_log}), flush=True)\n"
     "sys.exit(rc)\n")
 # writes phase 10's store (`write_template_store`): its arguments are the
-# checkout, the store's directory and the scale
+# checkout, the store's directory and the scale; its log goes to
+# writer.log beside the store
 _STORE_CHILD = (
     "import sys\n"
     "sys.path.insert(0, sys.argv[1])\n"
@@ -505,6 +547,15 @@ _CONSOLE_CHILD = (
     "                  'by_rank': spd_solve.launches_by_rank,\n"
     "                  'grids': als_grid.grid_log}), flush=True)\n"
     "sys.exit(rc)\n")
+
+
+def _require_native_log(log: str, who: str) -> None:
+    """Raise if `log` holds a line of NATIVE_FALLBACK."""
+    fell = [line for line in log.splitlines()
+            if any(mark in line for mark in NATIVE_FALLBACK)]
+    if fell:
+        raise AssertionError(f"{who} fell back from the native tier: "
+                             f"{fell[:5]}")
 
 
 def emit(obj) -> None:
@@ -948,6 +999,54 @@ def _train(data, rank, solver, device):
     return res, wall
 
 
+def bucketize_ab(report: dict, data) -> dict:
+    """Phase 3's host set-up, its bucketizer alone: `als_train`'s two
+    `bucket_ragged_split` calls on `data` (users, then items; the default
+    ALSConfig's split cap and ladder) on the native tier, then under
+    PIO_NATIVE=0 (numpy), twice each in turn; the seconds of each and
+    whether the buckets are bitwise equal."""
+    import numpy as np
+
+    from predictionio_torch.ops.als import ALSConfig, bucket_ragged_split
+
+    cfg = ALSConfig()
+
+    def both():
+        t0 = time.perf_counter()
+        out = [bucket_ragged_split(rows, cols, data.train_r, n, 8,
+                                   cfg.split_cap, cap_growth=cfg.cap_growth)
+               for rows, cols, n in (
+                   (data.train_u, data.train_i, data.n_users),
+                   (data.train_i, data.train_u, data.n_items))]
+        return out, time.perf_counter() - t0
+
+    seconds = {"native": [], "numpy": []}
+    got = {}
+    try:
+        for tier in ("native", "numpy", "numpy", "native"):
+            if tier == "numpy":
+                os.environ["PIO_NATIVE"] = "0"
+            got[tier], took = both()
+            seconds[tier].append(took)
+            os.environ.pop("PIO_NATIVE", None)
+    finally:
+        os.environ.pop("PIO_NATIVE", None)
+    equal = all(
+        np.array_equal(sa, sb) and len(ba) == len(bb) and all(
+            np.array_equal(getattr(x, f), getattr(y, f))
+            and getattr(x, f).dtype == getattr(y, f).dtype
+            for x, y in zip(ba, bb) for f in ("rows", "cols", "vals", "mask"))
+        for (ba, sa), (bb, sb) in zip(got["native"], got["numpy"]))
+    row = {"ratings": int(len(data.train_r)), "native_s": seconds["native"],
+           "numpy_s": seconds["numpy"], "bitwise_equal": equal}
+    emit(dict(phase="bucketize", **row))
+    report["bucketize"] = row
+    if not equal:
+        raise AssertionError(f"the native buckets differ from numpy's: "
+                             f"{row}")
+    return row
+
+
 def phase_train_reference(report: dict, data, device) -> dict:
     """The solver='chol' runs the kernels' trajectories are held to (no
     kernel launches), and profiles of the rank-64, 80 and 128 trains."""
@@ -1016,7 +1115,8 @@ def phase_train(report: dict, data, device, chol: dict) -> tuple:
                "rmse": res.rmse_history, "rmse_chol": ref,
                "item_factor_max_abs_diff": factor_diff,
                "epoch_s": res.epoch_times,
-               "wall_s": wall, "launches": launched,
+               "wall_s": wall, "setup_s": wall - sum(res.epoch_times),
+               "launches": launched,
                "launches_per_epoch": {k: v / ITERATIONS
                                       for k, v in launched.items()}}
         emit(dict(phase="train", **row))
@@ -1390,6 +1490,7 @@ def _console_child(args: list, layout: str = "auto", timeout_s=900.0,
     if proc.returncode != 0:
         raise AssertionError(f"console {args[0]} ({layout}) exited "
                              f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    _require_native_log(proc.stderr, f"console {args[0]} ({layout})")
     record = json.loads(proc.stdout.strip().splitlines()[-1])
     return proc.stderr, record, seconds
 
@@ -2773,15 +2874,18 @@ def phase_serving(report: dict, device, tmp: str, served: dict,
 
 # -- phase 9 -----------------------------------------------------------------
 
-def _console_out(args: list, base: str) -> str:
-    """The port's console in a child process on the store under `base`;
-    its standard output."""
-    env = dict(os.environ, PYTHONPATH=HERE, PIO_FS_BASEDIR=base)
+def _console_out(args: list, base: str, env_extra: dict = None) -> str:
+    """The port's console in a child process on the store under `base`
+    (and `env_extra`); its standard output. Raises if it failed or its log
+    holds a native fallback line."""
+    env = dict(os.environ, PYTHONPATH=HERE, PIO_FS_BASEDIR=base,
+               **(env_extra or {}))
     proc = subprocess.run(
         [sys.executable, "-m", "predictionio_torch.tools.console"] + args,
         capture_output=True, text=True, cwd=HERE, env=env, timeout=300)
     if proc.returncode != 0:
         raise AssertionError(f"console {args} failed: {proc.stderr[-2000:]}")
+    _require_native_log(proc.stderr, f"console {args[0]}")
     return proc.stdout
 
 
@@ -3205,65 +3309,202 @@ def _store_at(base: str):
     return Storage(StorageConfig(metadata=src, modeldata=src, eventdata=src))
 
 
-def write_template_store(base: str, scale: str) -> None:
-    """10a, in the writer child: synth_implicit(scale)'s training pairs as
-    `view` events of app TEMPLATE_APP in a sqlite pio.db under `base`
-    (one second apart, `insert_batch` in chunks of 20,000), a seeded one
-    in BUY_EVERY of them also as a `buy`, a `$set` of 1-2 of
-    TEMPLATE_CATEGORIES categories on every item and a `$set` on
-    constraint/unavailableItems naming UNAVAILABLE seeded items; then
-    STORE_RESULT under `base`: the app id, the unavailable items, each
-    item's categories and the write's row."""
+def _template_events(data, rng) -> tuple:
+    """10a's events as JSON-lines dicts: synth_implicit's training pairs
+    as `view`s one second apart, a seeded one in BUY_EVERY of them also
+    as a `buy`, a `$set` of 1-2 of TEMPLATE_CATEGORIES categories on every
+    item, then a `$set` on constraint/unavailableItems naming UNAVAILABLE
+    seeded items. Returns (the dicts in file order, the views, the buys,
+    each item's categories, the unavailable items)."""
     import numpy as np
 
-    from predictionio_torch.data.datamap import DataMap
-    from predictionio_torch.data.events import Event
-    from predictionio_torch.quality.datasets import synth_implicit
-    from predictionio_torch.storage.base import App
-
-    t_start = time.perf_counter()
-    data = synth_implicit(scale, seed=0)
-    storage = _store_at(base)
-    app_id = storage.meta_apps().insert(App(id=0, name=TEMPLATE_APP))
-    rng = np.random.default_rng(10)
     n = len(data.train_u)
     buys = np.sort(rng.choice(n, n // BUY_EVERY, replace=False))
     users = [f"u{u}" for u in range(data.n_users)]
     items = [f"i{i}" for i in range(data.n_items)]
-    le = storage.l_events()
     t0 = datetime(2026, 1, 1, tzinfo=timezone.utc)
+    train_u, train_i = data.train_u.tolist(), data.train_i.tolist()
 
-    def write(name, rows, start):
-        for lo in range(0, len(rows), 20_000):
-            le.insert_batch([
-                Event(event=name, entity_type="user",
-                      entity_id=users[data.train_u[k]],
-                      target_entity_type="item",
-                      target_entity_id=items[data.train_i[k]],
-                      event_time=start + timedelta(seconds=lo + j))
-                for j, k in enumerate(rows[lo:lo + 20_000].tolist())],
-                app_id)
+    def stamp(seconds):
+        return (t0 + timedelta(seconds=seconds)).strftime(
+            "%Y-%m-%dT%H:%M:%S.%fZ")
 
-    write("view", np.arange(n), t0)
-    write("buy", buys, t0 + timedelta(seconds=n))
-    t_props = t0 + timedelta(seconds=n + len(buys))
+    def pair(name, k, seconds):
+        return {"event": name, "entityType": "user",
+                "entityId": users[train_u[k]], "targetEntityType": "item",
+                "targetEntityId": items[train_i[k]],
+                "eventTime": stamp(seconds)}
+
+    events = [pair("view", k, k) for k in range(n)]
+    events += [pair("buy", k, n + j) for j, k in enumerate(buys.tolist())]
+    t_props = n + len(buys)
     item_cats = {item: [f"c{c}" for c in rng.choice(
         TEMPLATE_CATEGORIES, int(rng.integers(1, 3)), replace=False)]
         for item in items}
-    le.insert_batch([Event(event="$set", entity_type="item", entity_id=item,
-                           properties=DataMap({"categories": cats}),
-                           event_time=t_props)
-                     for item, cats in item_cats.items()], app_id)
+    events += [{"event": "$set", "entityType": "item", "entityId": item,
+                "properties": {"categories": cats},
+                "eventTime": stamp(t_props)}
+               for item, cats in item_cats.items()]
     unavailable = sorted(items[i] for i in rng.choice(
         np.unique(data.train_i), UNAVAILABLE, replace=False))
-    le.insert(Event(event="$set", entity_type="constraint",
-                    entity_id="unavailableItems",
-                    properties=DataMap({"items": unavailable}),
-                    event_time=t_props + timedelta(seconds=1)), app_id)
+    events.append({"event": "$set", "entityType": "constraint",
+                   "entityId": "unavailableItems",
+                   "properties": {"items": unavailable},
+                   "eventTime": stamp(t_props + 1)})
+    return events, n, len(buys), item_cats, unavailable
+
+
+def _canonical_rows(cols):
+    """An unordered scan's columns as raw bits (values and times bitwise),
+    rows sorted by those bits."""
+    import numpy as np
+
+    table = np.stack([
+        cols.entity_ids.astype(np.int64), cols.target_ids.astype(np.int64),
+        cols.event_codes.astype(np.int64),
+        np.asarray(cols.values, np.float32).view(np.uint32).astype(np.int64),
+        np.asarray(cols.times, np.float64).view(np.int64)], axis=1)
+    return table[np.lexsort(table.T[::-1])] if len(table) else table
+
+
+def _read_ab(base: str, app_name: str) -> dict:
+    """10a's in-process A/B on the store under `base`: the templates'
+    `find_columnar` (ecommerce's: user → item views and buys, unordered)
+    and `aggregate_properties` of the items on the native tier, then
+    under PIO_NATIVE=0 (the SQL tier); the seconds of each, and whether
+    the two returned the same columns bit for bit (BiMaps in order) and
+    the same property maps (values with their types, both times)."""
+    import numpy as np
+
+    from predictionio_torch import native
+    from predictionio_torch.data.store import EventStore
+
+    answered = []
+    scan, agg = native.columnar_scan_native, native.agg_props_native
+
+    def spy(real):
+        def call(*a, **k):
+            out = real(*a, **k)
+            answered.append(out is not None)
+            return out
+        return call
+
+    native.columnar_scan_native = spy(scan)
+    native.agg_props_native = spy(agg)
+    storage = _store_at(base)
+    store = EventStore(storage)
+    out = {}
+    try:
+        for tier in ("native", "sql"):
+            if tier == "sql":
+                os.environ["PIO_NATIVE"] = "0"
+            t0 = time.perf_counter()
+            cols = store.find_columnar(
+                app_name, entity_type="user", target_entity_type="item",
+                event_names=["view", "buy"], ordered=False)
+            t1 = time.perf_counter()
+            props = store.aggregate_properties(app_name, "item")
+            t2 = time.perf_counter()
+            out[tier] = (cols, props, t1 - t0, t2 - t1)
+    finally:
+        os.environ.pop("PIO_NATIVE", None)
+        native.columnar_scan_native, native.agg_props_native = scan, agg
+        storage.close()
+    (nc, nprops, n_scan, n_agg), (sc, sprops, s_scan, s_agg) = \
+        out["native"], out["sql"]
+
+    def typed(props):
+        return {eid: (json.dumps(p.to_dict(), sort_keys=True),
+                      sorted((k, type(v).__name__)
+                             for k, v in p.to_dict().items()),
+                      p.first_updated, p.last_updated)
+                for eid, p in props.items()}
+
+    columns_equal = bool(
+        len(nc) == len(sc) and nc.event_names == sc.event_names
+        and list(nc.entity_bimap.items()) == list(sc.entity_bimap.items())
+        and list(nc.target_bimap.items()) == list(sc.target_bimap.items())
+        and np.array_equal(_canonical_rows(nc), _canonical_rows(sc)))
+    return {"rows": len(nc), "users": len(nc.entity_bimap),
+            "items": len(nc.target_bimap), "entities_folded": len(nprops),
+            "native_answered": answered,
+            "find_columnar_native_s": n_scan, "find_columnar_sql_s": s_scan,
+            "aggregate_native_s": n_agg, "aggregate_sql_s": s_agg,
+            "columns_bitwise_equal": columns_equal,
+            "properties_equal": typed(nprops) == typed(sprops)}
+
+
+def write_template_store(base: str, scale: str) -> None:
+    """10a, in the writer child: `_template_events(synth_implicit(scale))`
+    written as a JSON-lines file under `base`, then `console app new` of
+    TEMPLATE_APP and `console import` of the file into a sqlite pio.db
+    under `base` (the native importer), the file deleted; `insert_batch`
+    (20,000 a chunk) timed on the first INSERT_BATCH_EVENTS of those
+    events into a scratch store, deleted after; `_read_ab` on the store.
+    Then STORE_RESULT under `base`: the app id, the unavailable items,
+    each item's categories and the write's row."""
+    import numpy as np
+
+    from predictionio_torch.data.events import Event
+    from predictionio_torch.quality.datasets import synth_implicit
+    from predictionio_torch.tools import console
+
+    t_start = time.perf_counter()
+    data = synth_implicit(scale, seed=0)
+    events, n_views, n_buys, item_cats, unavailable = _template_events(
+        data, np.random.default_rng(10))
+    path = os.path.join(base, "template-events.jsonl")
+    t0 = time.perf_counter()
+    with open(path, "w") as f:
+        for event in events:
+            f.write(json.dumps(event) + "\n")
+    file_s = time.perf_counter() - t0
+    file_bytes = os.path.getsize(path)
+    os.environ["PIO_FS_BASEDIR"] = base
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        if console.main(["app", "new", TEMPLATE_APP]) != 0:
+            raise AssertionError("console app new failed")
+        t0 = time.perf_counter()
+        if console.main(["import", "--appname", TEMPLATE_APP, "--input",
+                         path]) != 0:
+            raise AssertionError("console import of the template store "
+                                 "failed")
+        import_s = time.perf_counter() - t0
+    os.unlink(path)
+    imported = said.getvalue().strip().splitlines()[-1]
+    if imported != f"Imported {len(events)} events.":
+        raise AssertionError(f"console import said {imported!r}")
+    storage = _store_at(base)
+    app_id = storage.meta_apps().get_by_name(TEMPLATE_APP).id
     storage.close()
-    row = {"scale": scale, "views": n, "buys": int(len(buys)),
-           "items_set": data.n_items,
-           "write_s": time.perf_counter() - t_start}
+
+    # insert_batch on the first INSERT_BATCH_EVENTS, into a scratch store
+    scratch = os.path.join(base, "insert-batch")
+    os.makedirs(scratch)
+    storage = _store_at(scratch)
+    from predictionio_torch.storage.base import App
+
+    scratch_app = storage.meta_apps().insert(App(id=0, name=TEMPLATE_APP))
+    le = storage.l_events()
+    head = [Event.from_dict(e) for e in events[:INSERT_BATCH_EVENTS]]
+    n_head = len(head)
+    t0 = time.perf_counter()
+    for lo in range(0, len(head), 20_000):
+        le.insert_batch(head[lo:lo + 20_000], scratch_app)
+    insert_batch_s = time.perf_counter() - t0
+    storage.close()
+    del head
+    for name in os.listdir(scratch):
+        os.unlink(os.path.join(scratch, name))
+    os.rmdir(scratch)
+    read_ab = _read_ab(base, TEMPLATE_APP)
+    row = {"scale": scale, "views": n_views, "buys": n_buys,
+           "items_set": data.n_items, "events": len(events),
+           "file_s": file_s, "file_bytes": file_bytes,
+           "import_s": import_s, "import_events_per_s": len(events) / import_s,
+           "insert_batch_events": n_head, "insert_batch_s": insert_batch_s,
+           "insert_batch_events_per_s": n_head / insert_batch_s,
+           "read_ab": read_ab, "write_s": time.perf_counter() - t_start}
     with open(os.path.join(base, STORE_RESULT), "w") as f:
         json.dump({"app_id": app_id, "unavailable": unavailable,
                    "item_categories": item_cats, "row": row}, f)
@@ -3294,8 +3535,16 @@ def _await_store(writer, base: str) -> dict:
             tail = f.read()[-3000:]
         raise AssertionError(f"the template store's writer exited {rc}:\n"
                              f"{tail}")
+    with open(os.path.join(base, "writer.log")) as f:
+        _require_native_log(f.read(), "the template store's writer")
     with open(path) as f:
-        return json.load(f)
+        written = json.load(f)
+    ab = written["row"]["read_ab"]
+    if not (ab["columns_bitwise_equal"] and ab["properties_equal"]
+            and ab["native_answered"] == [True, True, False, False]):
+        raise AssertionError(f"the native and SQL reads of the template "
+                             f"store differ: {ab}")
+    return written
 
 
 _LOG_TIME = re.compile(r"^(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3}) ")
@@ -3573,23 +3822,74 @@ def _serve_ranking(url: str, served: dict, predict) -> dict:
     return {"runs": runs}
 
 
+_EVENT_COLUMNS = ("event, entity_type, entity_id, target_entity_type, "
+                  "target_entity_id, properties, event_time, tags, pr_id")
+
+
+def _app_events(db: str, app_name: str) -> list:
+    """The rows of app `app_name` in the pio.db at `db`, without what a
+    store gives each event anew (its id and creation time), sorted."""
+    (app_id,), = _db_rows(db, "SELECT id FROM apps WHERE name=?",
+                          (app_name,))
+    return sorted(_db_rows(db, f"SELECT {_EVENT_COLUMNS} FROM events "
+                               f"WHERE app_id=?", (app_id,)))
+
+
 def _import_views(base: str, tmp: str, app_name: str, data) -> dict:
     """10d's data: `console app new` and `console import` of `data`'s
-    training pairs as view events (JSON lines) into the store under
-    `base`, in child processes."""
+    training pairs as view events (JSON lines, one second apart) into the
+    store under `base`, in child processes (the native importer). The
+    same file imported under PIO_NATIVE=0 (the Python path) into a
+    scratch store: the rows equal apart from event ids and creation
+    times. `console export` of the app under both tiers: byte for
+    byte."""
     path = os.path.join(tmp, f"{app_name}.jsonl")
+    t_first = datetime(2026, 1, 1, tzinfo=timezone.utc)
     with open(path, "w") as f:
-        for u, i in zip(data.train_u.tolist(), data.train_i.tolist()):
-            f.write(json.dumps({"event": "view", "entityType": "user",
-                                "entityId": f"u{u}",
-                                "targetEntityType": "item",
-                                "targetEntityId": f"i{i}"}) + "\n")
-    t0 = time.perf_counter()
-    _console_out(["app", "new", app_name], base)
-    out = _console_out(["import", "--appname", app_name, "--input", path],
-                       base)
-    return {"events": int(len(data.train_u)),
-            "import_s": time.perf_counter() - t0, "console": out.strip()}
+        for k, (u, i) in enumerate(zip(data.train_u.tolist(),
+                                       data.train_i.tolist())):
+            f.write(json.dumps({
+                "event": "view", "entityType": "user", "entityId": f"u{u}",
+                "targetEntityType": "item", "targetEntityId": f"i{i}",
+                "eventTime": (t_first + timedelta(seconds=k)).strftime(
+                    "%Y-%m-%dT%H:%M:%S.%fZ")}) + "\n")
+    python = {"PIO_NATIVE": "0"}
+    python_base = os.path.join(tmp, f"{app_name}-python")
+    os.makedirs(python_base)
+    seconds = {}
+    for tier, where, env in (("native", base, None),
+                             ("python", python_base, python)):
+        t0 = time.perf_counter()
+        _console_out(["app", "new", app_name], where, env)
+        out = _console_out(["import", "--appname", app_name, "--input",
+                            path], where, env)
+        seconds[f"import_{tier}_s"] = time.perf_counter() - t0
+        if out.strip() != f"Imported {len(data.train_u)} events.":
+            raise AssertionError(f"console import ({tier}) said {out!r}")
+    rows_equal = (_app_events(os.path.join(base, "pio.db"), app_name)
+                  == _app_events(os.path.join(python_base, "pio.db"),
+                                 app_name))
+    exported = {}
+    for tier, env in (("native", None), ("python", python)):
+        out_path = os.path.join(tmp, f"{app_name}-export-{tier}.jsonl")
+        t0 = time.perf_counter()
+        _console_out(["export", "--appname", app_name, "--output",
+                      out_path], base, env)
+        seconds[f"export_{tier}_s"] = time.perf_counter() - t0
+        with open(out_path, "rb") as f:
+            exported[tier] = f.read()
+        os.unlink(out_path)
+    row = {"events": int(len(data.train_u)),
+           "import_s": seconds["import_native_s"], **seconds,
+           "rows_equal_to_python_import": rows_equal,
+           "export_bytes": len(exported["native"]),
+           "export_byte_identical": exported["native"] == exported["python"]}
+    if not (rows_equal and row["export_byte_identical"]
+            and exported["native"].count(b"\n") == row["events"]):
+        raise AssertionError(f"the native import or export of "
+                             f"{app_name} differs from the Python path's: "
+                             f"{row}")
+    return row
 
 
 def _template_list() -> list:
@@ -3677,6 +3977,13 @@ def phase_templates(report: dict, device, tmp: str, served: dict,
         t0 = time.perf_counter()
         written = _await_store(writer, shop)
         store = dict(written["row"], waited_s=time.perf_counter() - t0)
+        # `console status` in a child: the native tier built, not loaded
+        status = [line for line in _console_out(["status"], shop)
+                  .splitlines() if line.startswith("Native fast paths")]
+        if status != [f"{NATIVE_STATUS} available (cached build)"]:
+            raise AssertionError(f"console status said {status}")
+        print(status[0], flush=True)
+        store["console_status"] = status[0]
         emit(dict(phase="templates_store", **store))
         app_id = written["app_id"]
         item_cats = written["item_categories"]
@@ -3804,6 +4111,41 @@ def _require_launches(path: str, launches: dict, kernels) -> None:
                              f"({launches})")
 
 
+class _NativeFallbacks(logging.Handler):
+    """Keeps what NATIVE_LOGGERS log in this process (at INFO and above:
+    the scan's fallback is an INFO line)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines: list = []
+        for name in NATIVE_LOGGERS:
+            logger = logging.getLogger(name)
+            logger.setLevel(logging.INFO)
+            logger.addHandler(self)
+
+    def emit(self, record) -> None:
+        self.lines.append(record.getMessage())
+
+
+def native_build() -> dict:
+    """Builds (or loads) the native package's library with g++ and
+    requires it loaded: the status before, the seconds the first use
+    took (the g++ build's, unless the status said it was built), the
+    library and the status after."""
+    from predictionio_torch import native
+
+    before = native.native_status()
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    seconds = time.perf_counter() - t0
+    status = native.native_status()
+    if lib is None or status != "available (loaded)":
+        raise AssertionError(f"the native library did not build or load: "
+                             f"{status}")
+    return {"status_before": before, "first_use_s": seconds,
+            "library": os.path.relpath(lib._name, HERE), "status": status}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--report", default=None,
@@ -3826,19 +4168,26 @@ def main(argv=None) -> int:
     report: dict = {"card": card, "torch": torch.__version__,
                     "cuda": torch.version.cuda}
     t_all = time.perf_counter()
+    # the native package (g++, one library) before any child starts, so
+    # that every process of the run loads this build; its fallback lines
+    # in this process are kept and fail the run at its end
+    fallbacks = _NativeFallbacks()
+    report["native"] = native_build()
+    emit(dict(phase="native", **report["native"]))
     # phase 10's store is written by a child from here on, beside phases
     # 1-9 (it takes minutes; the phases before it leave host cores idle)
     shop = tempfile.TemporaryDirectory()
     writer = _start_store_writer(shop.name)
     try:
-        return _run(args, report, card, device, t_all, writer, shop.name)
+        return _run(args, report, card, device, t_all, writer, shop.name,
+                    fallbacks)
     finally:
         _stop(writer)
         shop.cleanup()
 
 
 def _run(args, report: dict, card: str, device, t_all: float, writer,
-         shop: str) -> int:
+         shop: str, fallbacks) -> int:
     """Phases 1-10 and the kernels line (`main`'s body, with phase 10's
     store writer started)."""
     import torch
@@ -3853,6 +4202,7 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
 
     spd_solve.reset_launches()  # the train → serve path starts here
     train_runs, trained = phase_train(report, data, device, chol)
+    bucketize_ab(report, data)
     with tempfile.TemporaryDirectory() as tmp:
         served = phase_serve(report, device, tmp)
         train_serving_multi(device, tmp, served)  # phase 8c's model
@@ -3964,6 +4314,7 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
                                       for layout, run in eval_runs.items()},
         })
     report["kernels_line"] = kernels
+    _require_native_log("\n".join(fallbacks.lines), "this process")
     report["wall_s"] = time.perf_counter() - t_all
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),

@@ -200,7 +200,8 @@ class EventStore:
         """`$set/$unset/$delete`-folded entity state (`aggregateProperties` [U]).
 
         Reads through the pushed-down columnar fold when the backend has
-        one (the SQL tier in `storage/sqlite.py`, no per-event Python
+        one (on sqlite the C++ reader of `native/pio_aggprops.cpp`, then
+        the SQL tier in `storage/sqlite.py`; no per-event Python
         object). A backend without it (its `aggregate_properties_columnar`
         returns None) takes the per-event
         `data/datamap.py::aggregate_properties` fold, which is the

@@ -1,0 +1,439 @@
+"""ctypes bindings for the port's native host-side data paths — an own
+copy of the reference's ``predictionio_tpu/native/__init__.py``.
+
+Five C++ sources (the bucketizer ``pio_native.cpp``, the columnar scan
+``pio_scan.cpp``, the property fold ``pio_aggprops.cpp``, the importer
+``pio_import.cpp`` and the exporter ``pio_export.cpp``) build with g++
+into one shared library (no third-party deps — plain C ABI + ctypes;
+sqlite is ``dlopen``ed, no headers). Nothing is built at import: the
+first use builds it into ``build/torch_native/`` at the root of the
+checkout, beside the CUDA kernels' ``build/torch_kernels/``, keyed by a
+source hash so edits rebuild automatically. The build never goes under
+``$PIO_FS_BASEDIR``, whose default is the reference's directory: the same
+sources there would name the same library, and the port would load the
+reference's build. If no toolchain is available the callers fall back
+to the SQL, numpy or Python path; `PIO_NATIVE=0` forces the fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import logging
+import os
+import subprocess
+import threading
+from typing import Optional
+
+import numpy as np
+
+log = logging.getLogger(__name__)
+
+_SRCS = [
+    os.path.join(os.path.dirname(os.path.abspath(__file__)), name)
+    for name in ("pio_native.cpp", "pio_scan.cpp", "pio_import.cpp",
+                 "pio_export.cpp", "pio_aggprops.cpp")
+]
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "build", "torch_native")
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_lib_failed = False
+
+
+def _build_dir() -> str:
+    return BUILD_DIR
+
+
+def _so_path() -> str:
+    """The library's path, keyed by a hash of the five sources."""
+    h = hashlib.blake2b(digest_size=8)
+    for src_path in _SRCS:
+        with open(src_path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(_build_dir(), f"pio_native_{h.hexdigest()}.so")
+
+
+def _compile() -> Optional[str]:
+    so_path = _so_path()
+    if os.path.exists(so_path):
+        return so_path
+    os.makedirs(_build_dir(), exist_ok=True)
+    tmp = so_path + f".build.{os.getpid()}"
+    # -ldl: pio_scan.cpp dlopens libsqlite3 (a no-op on glibc >= 2.34
+    # where dlopen lives in libc)
+    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", *_SRCS,
+           "-o", tmp, "-ldl"]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, so_path)
+    except (subprocess.SubprocessError, OSError) as e:
+        detail = getattr(e, "stderr", b"")
+        log.warning("native: build failed (%s)%s — using numpy fallback",
+                    e, b": " + detail[:500] if detail else "")
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        return None
+    log.info("native: built %s", so_path)
+    return so_path
+
+
+def get_lib() -> Optional[ctypes.CDLL]:
+    """The loaded native library, or None (disabled / no toolchain)."""
+    global _lib, _lib_failed
+    if os.environ.get("PIO_NATIVE", "1") == "0":
+        return None
+    with _lock:
+        if _lib is not None or _lib_failed:
+            return _lib
+        so_path = _compile()
+        if so_path is None:
+            _lib_failed = True
+            return None
+        try:
+            lib = ctypes.CDLL(so_path)
+        except OSError as e:
+            log.warning("native: cannot load %s: %s", so_path, e)
+            _lib_failed = True
+            return None
+        i64, i32p, i64p, f32p = (ctypes.c_int64,
+                                 np.ctypeslib.ndpointer(np.int32),
+                                 np.ctypeslib.ndpointer(np.int64),
+                                 np.ctypeslib.ndpointer(np.float32))
+        f64 = ctypes.c_double
+        lib.pio_plan_buckets.restype = i64
+        lib.pio_plan_buckets.argtypes = [
+            i32p, i64, ctypes.c_int32, i64, i64, i64, f64, i64p, i64p]
+        lib.pio_fill_buckets.restype = i64
+        lib.pio_fill_buckets.argtypes = [
+            i32p, i32p, f32p, i64, ctypes.c_int32, i64, i64, i64, f64, i64,
+            i64p, i64p, i32p, i32p, f32p, f32p]
+        cstr = ctypes.c_char_p
+        cstrp = ctypes.POINTER(ctypes.c_char_p)
+        i64_out = ctypes.POINTER(ctypes.c_int64)
+        lib.pio_scan_open.restype = i64
+        lib.pio_scan_open.argtypes = [
+            cstr, cstr, cstrp, i64, cstr, cstrp, i64,
+            ctypes.POINTER(ctypes.c_void_p),
+            i64_out, i64_out, i64_out, i64_out, i64_out]
+        lib.pio_scan_fill.restype = i64
+        lib.pio_scan_fill.argtypes = [
+            ctypes.c_void_p, i32p, i32p, i32p, f32p,
+            np.ctypeslib.ndpointer(np.float64), ctypes.c_char_p,
+            ctypes.c_char_p]
+        lib.pio_scan_free.restype = None
+        lib.pio_scan_free.argtypes = [ctypes.c_void_p]
+        lib.pio_scan_error.restype = ctypes.c_char_p
+        lib.pio_scan_error.argtypes = []
+        llp = ctypes.POINTER(ctypes.c_longlong)
+        lib.pio_import_file.restype = ctypes.c_int
+        lib.pio_import_file.argtypes = [
+            cstr, cstr, ctypes.c_longlong, ctypes.c_longlong,
+            llp, llp, ctypes.POINTER(llp), llp, llp]
+        lib.pio_import_free_lines.restype = None
+        lib.pio_import_free_lines.argtypes = [llp]
+        lib.pio_export_events.restype = ctypes.c_int
+        lib.pio_export_events.argtypes = [
+            cstr, cstr, ctypes.c_longlong, ctypes.c_longlong, llp]
+        lib.pio_export_error.restype = ctypes.c_char_p
+        lib.pio_export_error.argtypes = []
+        lib.pio_agg_open.restype = i64
+        lib.pio_agg_open.argtypes = [
+            cstr, cstr, cstrp, i64, cstrp, i64,
+            ctypes.POINTER(ctypes.c_void_p), i64_out, i64_out]
+        lib.pio_agg_fill.restype = i64
+        lib.pio_agg_fill.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+        lib.pio_agg_free.restype = None
+        lib.pio_agg_free.argtypes = [ctypes.c_void_p]
+        lib.pio_agg_error.restype = ctypes.c_char_p
+        lib.pio_agg_error.argtypes = []
+        _lib = lib
+        return _lib
+
+
+def native_available() -> bool:
+    return get_lib() is not None
+
+
+def native_status() -> str:
+    """One-line status for `pio status` — reports from CHEAP state only
+    (env, loaded lib, cached .so, toolchain presence); never compiles,
+    never raises. Distinguishes disabled-by-env from build-failed from
+    no-toolchain so the operator debugs the right thing."""
+    import shutil
+
+    try:
+        if os.environ.get("PIO_NATIVE", "1") == "0":
+            return "disabled (PIO_NATIVE=0) — Python fallbacks active"
+        # snapshot under the build lock so a concurrent first-use build
+        # can't interleave a stale (loaded, failed) pair into the report
+        # — but never BLOCK on it (a first-use g++ build holds it for
+        # ~2 min, and this probe must stay cheap): a held lock IS the
+        # status
+        if not _lock.acquire(blocking=False):
+            # the lock is also taken briefly on get_lib()'s cached fast
+            # path — an unlocked _lib read distinguishes "loaded, lock
+            # momentarily busy" from an actual first-use build
+            if _lib is not None:
+                return "available (loaded)"
+            return "build in progress (first use) — will load when done"
+        try:
+            lib, lib_failed = _lib, _lib_failed
+        finally:
+            _lock.release()
+        if lib is not None:
+            return "available (loaded)"
+        if lib_failed:
+            return ("build/load FAILED earlier this process (see warnings) "
+                    "— Python fallbacks active")
+        if os.path.exists(_so_path()):
+            return "available (cached build)"
+        if shutil.which("g++"):
+            return "toolchain present — builds on first use"
+        return "unavailable (no toolchain) — Python fallbacks active"
+    except Exception as e:  # status must never take the CLI down
+        return f"status unknown ({type(e).__name__}) — Python fallbacks apply"
+
+
+def columnar_scan_native(db_path: str, sql: str, params: list,
+                         value_key: Optional[str],
+                         event_names: list):
+    """Bulk columnar event scan via the C++ sqlite3 reader (pio_scan.cpp).
+
+    `sql` must select (entity_id, target_entity_id, event, properties,
+    event_time) with `?` placeholders bound from `params` (all bound as
+    text; sqlite's column affinity converts). Returns
+    (entity_codes, target_codes, event_codes, values, times,
+    entity_ids_sorted, target_ids_sorted) with codes in sorted-distinct
+    order, or None when the native path is unavailable or bails (caller
+    falls back to the pure-SQL scan).
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    c_params = (ctypes.c_char_p * max(len(params), 1))(
+        *[str(p).encode() for p in params])
+    c_names = (ctypes.c_char_p * max(len(event_names), 1))(
+        *[str(s).encode() for s in event_names])
+    handle = ctypes.c_void_p()
+    n = ctypes.c_int64()
+    n_ent, ent_bytes = ctypes.c_int64(), ctypes.c_int64()
+    n_tgt, tgt_bytes = ctypes.c_int64(), ctypes.c_int64()
+    rc = lib.pio_scan_open(
+        db_path.encode(), sql.encode(), c_params, len(params),
+        value_key.encode() if value_key is not None else None,
+        c_names, len(event_names), ctypes.byref(handle),
+        ctypes.byref(n), ctypes.byref(n_ent), ctypes.byref(ent_bytes),
+        ctypes.byref(n_tgt), ctypes.byref(tgt_bytes))
+    if rc != 0:
+        log.info("native scan: %s — SQL fallback",
+                 lib.pio_scan_error().decode(errors="replace"))
+        return None
+    try:
+        nn = n.value
+        ent = np.empty(nn, np.int32)
+        tgt = np.empty(nn, np.int32)
+        ev = np.empty(nn, np.int32)
+        val = np.empty(nn, np.float32)
+        tim = np.empty(nn, np.float64)
+        ent_buf = ctypes.create_string_buffer(max(ent_bytes.value, 1))
+        tgt_buf = ctypes.create_string_buffer(max(tgt_bytes.value, 1))
+        if lib.pio_scan_fill(handle, ent, tgt, ev, val, tim,
+                             ent_buf, tgt_buf) != 0:
+            log.info("native scan: fill failed — SQL fallback")
+            return None
+        ent_ids = (ent_buf.raw[:ent_bytes.value].decode().split("\0")[:-1]
+                   if n_ent.value else [])
+        tgt_ids = (tgt_buf.raw[:tgt_bytes.value].decode().split("\0")[:-1]
+                   if n_tgt.value else [])
+        return ent, tgt, ev, val, tim, ent_ids, tgt_ids
+    finally:
+        lib.pio_scan_free(handle)
+
+
+def bucket_ragged_native(rows: np.ndarray, cols: np.ndarray,
+                         vals: np.ndarray, n_rows: int,
+                         row_multiple: int = 8,
+                         max_cap: Optional[int] = None,
+                         min_cap: int = 8,
+                         cap_growth: float = 1.5):
+    """COO → padded buckets via the C++ loader; output matches the numpy
+    ops.als.bucket_ragged bit for bit (and, with `max_cap`, the
+    reference's, whose numpy path truncates rows to it). Returns None when the native
+    library is unavailable (caller falls back to numpy)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    rows = np.ascontiguousarray(rows, dtype=np.int32)
+    cols = np.ascontiguousarray(cols, dtype=np.int32)
+    vals = np.ascontiguousarray(vals, dtype=np.float32)
+    n = len(rows)
+    if max_cap is not None and max_cap < 1:
+        return None  # degenerate cap: numpy path defines the semantics
+    mc = 0 if max_cap is None else int(max_cap)
+    caps = np.zeros(63, dtype=np.int64)
+    rpads = np.zeros(63, dtype=np.int64)
+    nb = lib.pio_plan_buckets(rows, n, n_rows, row_multiple, mc, min_cap,
+                              cap_growth, caps, rpads)
+    if nb < 0:
+        # out-of-range row ids: defer to the numpy path so behavior is
+        # identical with and without a toolchain
+        log.warning("native: row ids outside [0, n_rows) — numpy fallback")
+        return None
+    caps, rpads = caps[:nb], rpads[:nb]
+    total_rows = int(rpads.sum())
+    total_elems = int((rpads * caps).sum())
+    rows_out = np.empty(total_rows, dtype=np.int32)
+    cols_out = np.empty(total_elems, dtype=np.int32)
+    vals_out = np.empty(total_elems, dtype=np.float32)
+    mask_out = np.empty(total_elems, dtype=np.float32)
+    rc = lib.pio_fill_buckets(rows, cols, vals, n, n_rows, row_multiple,
+                              mc, min_cap, cap_growth, nb, caps, rpads,
+                              rows_out, cols_out, vals_out, mask_out)
+    if rc != 0:
+        log.warning("native: fill/plan disagreement (rc=%d) — fallback", rc)
+        return None
+
+    from predictionio_torch.ops.als import Bucket
+
+    buckets = []
+    ro = eo = 0
+    for b in range(nb):
+        rpad, cap = int(rpads[b]), int(caps[b])
+        shape = (rpad, cap)
+        buckets.append(Bucket(
+            rows=rows_out[ro:ro + rpad],
+            cols=cols_out[eo:eo + rpad * cap].reshape(shape),
+            vals=vals_out[eo:eo + rpad * cap].reshape(shape),
+            mask=mask_out[eo:eo + rpad * cap].reshape(shape),
+        ))
+        ro += rpad
+        eo += rpad * cap
+    return buckets
+
+
+def agg_props_native(db_path: str, sql: str, params: list,
+                     required: Optional[list]) -> Optional[list]:
+    """$set/$unset/$delete fold via the C++ reader (pio_aggprops.cpp).
+
+    `sql` must select (entity_id, event, properties, event_time) ordered
+    by (event_time, creation_time, id) ascending — the unique id as
+    final tiebreak, so exact-timestamp ties fold identically to the SQL
+    window tier and the per-event oracle — with `?` placeholders
+    bound from `params` (all bound as text). Returns a list of
+    (entity_id, first_updated_text, last_updated_text, folded_json_text)
+    tuples — one per surviving entity, `required` keys pre-filtered —
+    or None when the native path is unavailable or bailed (the caller
+    falls back to the per-event Python fold, which is bit-identical).
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    c_params = (ctypes.c_char_p * max(len(params), 1))(
+        *[str(p).encode() for p in params])
+    req = required or []
+    c_req = (ctypes.c_char_p * max(len(req), 1))(
+        *[str(k).encode() for k in req])
+    handle = ctypes.c_void_p()
+    n = ctypes.c_int64()
+    nbytes = ctypes.c_int64()
+    rc = lib.pio_agg_open(
+        db_path.encode(), sql.encode(), c_params, len(params),
+        c_req, len(req), ctypes.byref(handle), ctypes.byref(n),
+        ctypes.byref(nbytes))
+    if rc != 0:
+        log.info("native aggprops: %s — Python fallback",
+                 lib.pio_agg_error().decode(errors="replace"))
+        return None
+    try:
+        buf = ctypes.create_string_buffer(max(nbytes.value, 1))
+        if lib.pio_agg_fill(handle, buf) != 0:
+            log.info("native aggprops: fill failed — Python fallback")
+            return None
+        try:
+            parts = buf.raw[:nbytes.value].decode().split("\0")[:-1]
+        except UnicodeDecodeError as e:
+            # stored TEXT that isn't valid UTF-8 (foreign writer):
+            # fall back to the Python fold rather than crash the read
+            log.warning("native aggprops: undecodable payload (%s) — "
+                        "Python fallback", e)
+            return None
+    finally:
+        lib.pio_agg_free(handle)
+    if len(parts) != 4 * n.value:
+        log.warning("native aggprops: blob shape mismatch — fallback")
+        return None
+    return [tuple(parts[i:i + 4]) for i in range(0, len(parts), 4)]
+
+
+def import_events_native(json_path: str, db_path: str, app_id: int,
+                         channel_id) -> Optional[tuple]:
+    """JSON-lines → sqlite event rows via the C++ parser (pio_import.cpp).
+
+    Returns (imported, skipped, fallback_line_numbers, resume_from_line)
+    or None when the native path is unavailable or failed before
+    committing anything (caller runs the Python path for everything).
+
+    - fallback lines: 1-based numbers of lines whose Python-identical
+      rendering the parser does not guarantee — re-process just those.
+    - resume_from_line > 0: the import failed mid-file AFTER durably
+      committing everything before that line; the counts cover only
+      lines < resume_from_line, and the caller must run lines >= it
+      through the Python path (a full re-run would duplicate the
+      committed rows).
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    imported = ctypes.c_longlong(0)
+    skipped = ctypes.c_longlong(0)
+    lines_p = ctypes.POINTER(ctypes.c_longlong)()
+    n_fb = ctypes.c_longlong(0)
+    resume = ctypes.c_longlong(0)
+    rc = lib.pio_import_file(
+        json_path.encode(), db_path.encode(), app_id,
+        -1 if channel_id is None else channel_id,
+        ctypes.byref(imported), ctypes.byref(skipped),
+        ctypes.byref(lines_p), ctypes.byref(n_fb), ctypes.byref(resume))
+    if rc == 6:
+        # committed rows are durable; the fallback-line list could not be
+        # allocated, so those lines were NOT imported and cannot be
+        # pinpointed. Raise (→ `pio import` exits nonzero) instead of
+        # returning clean-looking counts with data silently missing; a
+        # silent redo would duplicate the committed rows.
+        raise RuntimeError(
+            f"native import: {n_fb.value} line(s) were not imported and "
+            f"their positions were lost (allocation failure); the other "
+            f"{imported.value} events ARE committed. Free memory and "
+            f"re-import the missing lines from the source file.")
+    if rc != 0:
+        log.warning("native import: rc=%d — using the Python path", rc)
+        return None
+    try:
+        fallback = [lines_p[i] for i in range(n_fb.value)]
+    finally:
+        if n_fb.value:
+            lib.pio_import_free_lines(lines_p)
+    return imported.value, skipped.value, fallback, resume.value
+
+
+def export_events_native(db_path: str, out_path: str, app_id: int,
+                         channel_id) -> Optional[int]:
+    """Sqlite event rows → JSON-lines file via the C++ writer
+    (pio_export.cpp), byte-identical to the Python exporter for rows this
+    framework wrote. Returns the exported count, or None when the native
+    path is unavailable or bailed (all-or-nothing: a failed run removes
+    its partial output and the caller re-exports through Python)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    count = ctypes.c_longlong(0)
+    rc = lib.pio_export_events(
+        db_path.encode(), out_path.encode(), app_id,
+        -1 if channel_id is None else channel_id, ctypes.byref(count))
+    if rc != 0:
+        log.warning("native export: rc=%d (%s) — using the Python path",
+                    rc, lib.pio_export_error().decode(errors="replace"))
+        return None
+    return count.value

@@ -1,0 +1,241 @@
+// Native host-side data loader for predictionio_torch (an own copy of the
+// reference's predictionio_tpu/native/pio_native.cpp: same semantics, same
+// C ABI).
+//
+// The reference delegates its hot host paths to the JVM/Spark (RDD
+// shuffles, HBase scans — SURVEY.md §2.5: its only native code lives in
+// dependencies like netlib/netty). The rebuild's equivalent hot host
+// path is the ragged-COO → padded-dense-bucket transform that feeds the
+// device (ops/als.py::bucket_ragged): O(nnz) work per train that was a
+// Python loop. This file implements it in C++ behind a two-phase C ABI
+// (plan → caller allocates numpy buffers → fill), bound via ctypes
+// (predictionio_torch/native/__init__.py) with the numpy implementation as
+// fallback. Output is bit-identical to the Python path:
+//   - buckets ordered by ascending capacity (power-of-two, >= min_cap)
+//   - rows within a bucket ordered by ascending row id
+//   - entries within a row sorted by column id (stable; truncation to
+//     max_cap keeps the first entries in original order, then sorts)
+//   - row count padded to a multiple of row_multiple with sentinel
+//     row id == n_rows and zeroed cols/vals/mask
+//
+// Build: g++ -O3 -shared -fPIC (see native/__init__.py; no deps).
+
+#include <algorithm>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <map>
+#include <vector>
+
+namespace {
+
+// Cap ladder: min_cap, then ceil(prev*growth/8)*8 — growth 2.0 reproduces
+// the power-of-two caps exactly; smaller growth (e.g. 1.5) trades
+// more bucket shapes (compile time) for less padding in the gather
+// (the reference's BASELINE.md: 1.08x epoch on its TPU at 2M rank-64). The arithmetic is
+// IEEE double, identical to the numpy path's — bit-identical caps.
+std::vector<int64_t> build_ladder(int64_t max_count, int64_t min_cap,
+                                  double growth) {
+    std::vector<int64_t> ladder{min_cap};
+    while (ladder.back() < max_count) {
+        int64_t next =
+            static_cast<int64_t>(std::ceil(ladder.back() * growth / 8.0)) * 8;
+        if (next <= ladder.back()) next = ladder.back() + 8;
+        ladder.push_back(next);
+    }
+    return ladder;
+}
+
+int64_t ladder_cap(const std::vector<int64_t>& ladder, int64_t count,
+                   int64_t max_cap) {
+    int64_t c = count < 1 ? 1 : count;
+    auto it = std::lower_bound(ladder.begin(), ladder.end(), c);
+    int64_t cap = it == ladder.end() ? ladder.back() : *it;
+    if (max_cap > 0 && cap > max_cap) cap = max_cap;
+    return cap;
+}
+
+struct Plan {
+    std::vector<int64_t> counts;        // per row id, truncated to max_cap
+    std::vector<int64_t> ladder;        // cap ladder (growth-dependent)
+    std::vector<int64_t> caps;          // distinct caps ascending
+    std::vector<int64_t> rpads;         // padded row count per bucket
+    std::vector<int64_t> nrows_real;    // real rows per bucket
+};
+
+// returns false if any row id is outside [0, n_rows) — the caller then
+// falls back to the numpy path rather than silently dropping entries
+// (keeps behavior identical with and without a toolchain)
+bool build_plan(const int32_t* rows, int64_t n, int32_t n_rows,
+                int64_t row_multiple, int64_t max_cap, int64_t min_cap,
+                double growth, Plan& plan) {
+    plan.counts.assign(static_cast<size_t>(n_rows) + 1, 0);
+    int64_t max_count = 1;
+    for (int64_t k = 0; k < n; ++k) {
+        int32_t r = rows[k];
+        if (r < 0 || r >= n_rows) return false;
+        plan.counts[r] += 1;
+    }
+    for (int32_t r = 0; r < n_rows; ++r) {
+        if (max_cap > 0 && plan.counts[r] > max_cap) plan.counts[r] = max_cap;
+        if (plan.counts[r] > max_count) max_count = plan.counts[r];
+    }
+    plan.ladder = build_ladder(max_count, min_cap, growth);
+    std::map<int64_t, int64_t> rows_per_cap;  // ordered: caps ascending
+    for (int32_t r = 0; r < n_rows; ++r) {
+        if (plan.counts[r] == 0) continue;
+        rows_per_cap[ladder_cap(plan.ladder, plan.counts[r], max_cap)] += 1;
+    }
+    plan.caps.clear();
+    plan.rpads.clear();
+    plan.nrows_real.clear();
+    for (const auto& kv : rows_per_cap) {
+        int64_t r = kv.second;
+        int64_t rm = row_multiple > 0 ? row_multiple : 1;
+        plan.caps.push_back(kv.first);
+        plan.rpads.push_back(((r + rm - 1) / rm) * rm);
+        plan.nrows_real.push_back(r);
+    }
+    return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Phase 1: returns the number of buckets (or -1 on out-of-range row ids);
+// writes per-bucket capacity and padded row count into out_caps/out_rpads
+// (each sized >= 63).
+int64_t pio_plan_buckets(const int32_t* rows, int64_t n, int32_t n_rows,
+                         int64_t row_multiple, int64_t max_cap,
+                         int64_t min_cap, double growth, int64_t* out_caps,
+                         int64_t* out_rpads) {
+    Plan plan;
+    if (!build_plan(rows, n, n_rows, row_multiple, max_cap, min_cap, growth,
+                    plan))
+        return -1;
+    // the caller allocates 63-slot output buffers (the old power-of-two
+    // bound); a small growth factor on heavy-tailed data can exceed that
+    // — bail to the numpy path rather than write past the buffers
+    if (plan.caps.size() > 63) return -1;
+    for (size_t b = 0; b < plan.caps.size(); ++b) {
+        out_caps[b] = plan.caps[b];
+        out_rpads[b] = plan.rpads[b];
+    }
+    return static_cast<int64_t>(plan.caps.size());
+}
+
+// Phase 2: fill caller-allocated flat buffers.
+//   rows_out: [sum(rpads)] int32
+//   cols_out/vals_out/mask_out: [sum(rpads[b] * caps[b])]
+// Layout: buckets in ascending-cap order, concatenated.
+// Returns 0 on success, -1 if the derived plan disagrees with the
+// caller's buffer layout (caller bug).
+int64_t pio_fill_buckets(const int32_t* rows, const int32_t* cols,
+                         const float* vals, int64_t n, int32_t n_rows,
+                         int64_t row_multiple, int64_t max_cap,
+                         int64_t min_cap, double growth, int64_t n_buckets,
+                         const int64_t* caps, const int64_t* rpads,
+                         int32_t* rows_out, int32_t* cols_out,
+                         float* vals_out, float* mask_out) {
+    Plan plan;
+    if (!build_plan(rows, n, n_rows, row_multiple, max_cap, min_cap, growth,
+                    plan))
+        return -1;
+    if (static_cast<int64_t>(plan.caps.size()) != n_buckets) return -1;
+    for (int64_t b = 0; b < n_buckets; ++b) {
+        if (plan.caps[b] != caps[b] || plan.rpads[b] != rpads[b]) return -1;
+    }
+
+    // flat offsets; bucket lookup is by cap value (caps ascending)
+    std::vector<int64_t> row_off(n_buckets), elem_off(n_buckets);
+    int64_t ro = 0, eo = 0;
+    for (int64_t b = 0; b < n_buckets; ++b) {
+        row_off[b] = ro;
+        elem_off[b] = eo;
+        ro += rpads[b];
+        eo += rpads[b] * caps[b];
+    }
+    auto bucket_of_cap = [&](int64_t cap) -> int64_t {
+        auto it = std::lower_bound(plan.caps.begin(), plan.caps.end(), cap);
+        if (it == plan.caps.end() || *it != cap) return -1;
+        return static_cast<int64_t>(it - plan.caps.begin());
+    };
+
+    // sentinel-fill rows_out; zero the element buffers
+    for (int64_t i = 0; i < ro; ++i) rows_out[i] = n_rows;
+    std::memset(cols_out, 0, static_cast<size_t>(eo) * sizeof(int32_t));
+    std::memset(vals_out, 0, static_cast<size_t>(eo) * sizeof(float));
+    std::memset(mask_out, 0, static_cast<size_t>(eo) * sizeof(float));
+
+    // slot of each real row within its bucket: ascending row id order
+    std::vector<int64_t> row_slot(static_cast<size_t>(n_rows), -1);
+    std::vector<int64_t> next_slot(n_buckets, 0);
+    std::vector<int64_t> row_bucket(static_cast<size_t>(n_rows), -1);
+    for (int32_t r = 0; r < n_rows; ++r) {
+        if (plan.counts[r] == 0) continue;
+        int64_t b = bucket_of_cap(
+            ladder_cap(plan.ladder, plan.counts[r], max_cap));
+        if (b < 0) return -1;
+        row_bucket[r] = b;
+        row_slot[r] = next_slot[b]++;
+        rows_out[row_off[b] + row_slot[r]] = r;
+    }
+
+    // scatter entries in original order (stable), truncating at count cap
+    std::vector<int64_t> filled(static_cast<size_t>(n_rows), 0);
+    for (int64_t k = 0; k < n; ++k) {
+        int32_t r = rows[k];
+        if (r < 0 || r >= n_rows) continue;
+        if (filled[r] >= plan.counts[r]) continue;  // max_cap truncation
+        int64_t b = row_bucket[r];
+        int64_t idx = elem_off[b] + row_slot[r] * caps[b] + filled[r];
+        cols_out[idx] = cols[k];
+        vals_out[idx] = vals[k];
+        mask_out[idx] = 1.0f;
+        filled[r] += 1;
+    }
+
+    // sort each padded row by column id (stable, matching numpy argsort
+    // kind="stable"): Gram/RHS sums are order-invariant and monotonic
+    // gather indices read memory in order
+    {
+        std::vector<int64_t> perm;
+        std::vector<int32_t> tc;
+        std::vector<float> tv, tm;
+        for (int64_t b = 0; b < n_buckets; ++b) {
+            const int64_t cap = caps[b];
+            perm.resize(static_cast<size_t>(cap));
+            tc.resize(static_cast<size_t>(cap));
+            tv.resize(static_cast<size_t>(cap));
+            tm.resize(static_cast<size_t>(cap));
+            for (int64_t rr = 0; rr < rpads[b]; ++rr) {
+                const int64_t base = elem_off[b] + rr * cap;
+                for (int64_t j = 0; j < cap; ++j) perm[j] = j;
+                // perm starts as the identity, so tie-breaking on the
+                // index under plain sort IS the stable order — without
+                // stable_sort's per-call temp-buffer allocation
+                std::sort(perm.begin(), perm.end(),
+                          [&](int64_t x, int64_t y) {
+                              const int32_t cx = cols_out[base + x];
+                              const int32_t cy = cols_out[base + y];
+                              return cx != cy ? cx < cy : x < y;
+                          });
+                for (int64_t j = 0; j < cap; ++j) {
+                    tc[j] = cols_out[base + perm[j]];
+                    tv[j] = vals_out[base + perm[j]];
+                    tm[j] = mask_out[base + perm[j]];
+                }
+                std::memcpy(cols_out + base, tc.data(),
+                            static_cast<size_t>(cap) * sizeof(int32_t));
+                std::memcpy(vals_out + base, tv.data(),
+                            static_cast<size_t>(cap) * sizeof(float));
+                std::memcpy(mask_out + base, tm.data(),
+                            static_cast<size_t>(cap) * sizeof(float));
+            }
+        }
+    }
+    return 0;
+}
+
+}  // extern "C"

@@ -3,7 +3,8 @@
 
 Same math as the reference: the ragged interaction matrix is bucketed by
 row nnz into padded dense blocks (the host half below is an own copy of
-the reference's numpy bucketizer); each half-epoch gathers the opposing
+the reference's bucketizer: the C++ loader of `predictionio_torch.native`,
+and its numpy fallback); each half-epoch gathers the opposing
 factor rows, forms every row's normal equations
 (Yᵀ_r Y_r + λ(n_r)I) x_r = Yᵀ_r v_r with f32 batched products, solves the
 batch, and scatters the solved rows into a fresh factor matrix. Implicit
@@ -42,7 +43,7 @@ log = logging.getLogger(__name__)
 MIN_CAP = 8  # smallest bucket width
 
 
-# -- host half: bucketing (own copy of the reference's numpy path) ----------
+# -- host half: bucketing (own copy of the reference's C++/numpy path) ------
 
 @dataclasses.dataclass
 class Bucket:
@@ -81,7 +82,17 @@ def bucket_ragged(
     """COO triplets → per-row padded buckets, bucketed by nnz.
 
     Rows with no entries are skipped; `row_multiple` pads each bucket's
-    row count; `cap_growth` sets the capacity ladder (`cap_ladder`)."""
+    row count; `cap_growth` sets the capacity ladder (`cap_ladder`).
+
+    The hot path runs in the native C++ loader (native/pio_native.cpp,
+    bit-identical output) when a toolchain is available; PIO_NATIVE=0 or
+    a failed build falls back to the numpy body below."""
+    from predictionio_torch import native
+
+    nb = native.bucket_ragged_native(rows, cols, vals, n_rows, row_multiple,
+                                     None, MIN_CAP, cap_growth)
+    if nb is not None:
+        return nb
     rows = np.asarray(rows, dtype=np.int32)
     cols = np.asarray(cols, dtype=np.int32)
     vals = np.asarray(vals, dtype=np.float32)

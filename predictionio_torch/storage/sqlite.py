@@ -1,10 +1,12 @@
 """SQLite storage backend — own copy of the reference's
 ``predictionio_tpu/storage/sqlite.py``, with its schema and row encoding
 unchanged: a ``pio.db`` written by either package reads back in the
-other. The reference's C++ readers (its ``native/`` package) are not
-ported: `find_columnar` and `aggregate_properties_columnar` run the
-reference's pure-SQL tier, with `find_columnar`'s event times computed
-exactly, as the C++ reader computes them (see `_sql_epoch`).
+other. `find_columnar` and `aggregate_properties_columnar` try the C++
+readers first (``predictionio_torch/native``: ``pio_scan.cpp`` and
+``pio_aggprops.cpp``, on file databases), as the reference does, and fall
+back to the reference's pure-SQL tier; `find_columnar`'s SQL tier
+computes event times exactly, as the C++ reader does (see `_sql_epoch`),
+so both tiers return the same columns bit for bit.
 
 One file (or ``:memory:``) holds metadata + events + model blobs. Connections
 are per-thread (servers are multi-threaded); WAL mode keeps readers
@@ -347,6 +349,14 @@ class SQLiteBackend(base.StorageBackend):
         concurrent ingestion between them would shift every dense_rank
         code). sqlite in WAL: a plain BEGIN pins the snapshot."""
         cur.execute("BEGIN")
+
+    def _native_scan_path(self) -> Optional[str]:
+        """DB path for the C++ columnar readers (pio_scan.cpp,
+        pio_aggprops.cpp), or None when they can't apply: :memory:/URI
+        databases a second connection can't see."""
+        if self.path == ":memory:" or self.path.startswith("file:"):
+            return None
+        return self.path
 
     # -- property-aggregation pushdown SQL fragments -----------------------
     def _agg_json_each(self, tbl: str) -> str:
@@ -972,8 +982,10 @@ class SQLiteLEvents(base.LEvents):
         ordered: bool = True,
     ):
         """Pushed-down columnar scan (the reference's `HBPEvents`
-        TableInputFormat-scan role) — no per-event Python objects:
-        string→int coding via `dense_rank()` windows, values via
+        TableInputFormat-scan role) — no per-event Python objects. On a
+        file database the C++ reader (native/pio_scan.cpp) walks the rows
+        once and fills the columns; otherwise, or when it is unavailable
+        or bails, string→int coding via `dense_rank()` windows, values via
         `json_extract`, so the only per-row Python work is one numeric
         tuple.
 
@@ -985,8 +997,10 @@ class SQLiteLEvents(base.LEvents):
         valid UTF-8, so `dense_rank() OVER (ORDER BY entity_id)` agrees
         with `BiMap.string_int(sorted(ids))` on every input.
         """
+        from predictionio_torch.data.bimap import BiMap
         from predictionio_torch.data.columnar import (
             SPECIAL_EVENTS,
+            EventColumns,
             columns_from_numeric_rows,
         )
 
@@ -1026,6 +1040,28 @@ class SQLiteLEvents(base.LEvents):
         clauses.append(f"event IN ({','.join('?' * len(event_names))})")
         where_params.extend(event_names)
         where = " AND ".join(clauses)
+
+        native_path = b._native_scan_path()
+        if native_path is not None:
+            from predictionio_torch import native as native_mod
+
+            raw_sql = (
+                "SELECT entity_id, target_entity_id, event, properties, "
+                f"event_time FROM events WHERE {where}"
+            )
+            if ordered:
+                raw_sql += " ORDER BY event_time, creation_time, id"
+            out = native_mod.columnar_scan_native(
+                native_path, raw_sql, where_params, value_key, event_names)
+            if out is not None:
+                ent, tgt, ev, val, tim, ent_ids, tgt_ids = out
+                return EventColumns(
+                    entity_ids=ent, target_ids=tgt, event_codes=ev,
+                    values=val, times=tim,
+                    entity_bimap=BiMap.string_int(ent_ids),
+                    target_bimap=BiMap.string_int(tgt_ids),
+                    event_names=list(event_names),
+                )
 
         with b._cursor() as cur:
             # one snapshot for uniques + coded rows: a concurrent insert
@@ -1079,17 +1115,21 @@ class SQLiteLEvents(base.LEvents):
         """Pushed-down `$set/$unset/$delete` fold (the
         «aggregateProperties» HBase-scan role) — the property-path sibling
         of `find_columnar`. No per-EVENT Python object; the host parses one
-        JSON object per surviving ENTITY. Window functions assign a
-        (event_time, creation_time) sequence, `json_each` explodes
-        $set/$unset bags, latest-set-wins per (entity, key) with
-        $unset/$delete tombstones resolved by sequence comparison, and
-        `json_group_object` re-assembles each entity server-side. The
-        `required` filter is pushed into the query.
+        JSON object per surviving ENTITY. Three tiers, identical results:
 
-        Returns None when the query cannot run or cannot keep a value
-        exact (float-valued keys containing '"', where sqlite's
-        `-> fullkey` extraction fails); the caller then falls back to the
-        per-event Python fold, the semantics oracle.
+        - C++ reader (native/pio_aggprops.cpp): streams rows once via
+          the sqlite3 C API, folds with raw JSON value spans, hands back
+          a packed per-entity blob (file-backed DBs).
+        - Pure SQL: window functions assign a (event_time,
+          creation_time) sequence, `json_each` explodes $set/$unset
+          bags, latest-set-wins per (entity, key) with $unset/$delete
+          tombstones resolved by sequence comparison, and
+          `json_group_object` re-assembles each entity server-side. The
+          `required` filter is pushed into the query.
+        - Returns None when neither tier can run or keep a value exact
+          (no toolchain AND float-valued keys containing '"', where
+          sqlite's `-> fullkey` extraction fails); the caller then falls
+          back to the per-event Python fold, the semantics oracle.
 
         Returns dict[entity_id, (fields_dict, first_updated,
         last_updated)] or None.
@@ -1113,6 +1153,22 @@ class SQLiteLEvents(base.LEvents):
             params.append(entity_type)
         clauses.append("event IN ('$set','$unset','$delete')")
         where = " AND ".join(clauses)
+
+        native_path = b._native_scan_path()
+        if native_path is not None:
+            from predictionio_torch import native as native_mod
+
+            raw_sql = (
+                "SELECT entity_id, event, properties, event_time "
+                f"FROM events WHERE {where} "
+                "ORDER BY event_time, creation_time, id"
+            )
+            rows = native_mod.agg_props_native(
+                native_path, raw_sql, params, required)
+            if rows is not None:
+                out = self._agg_rows_to_dict(rows)
+                if out is not None:
+                    return out
 
         # dedupe: the oracle's `all(k in p for k in required)` is
         # set-semantics, but the HAVING below counts DISTINCT winner rows

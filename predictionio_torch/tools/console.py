@@ -1,11 +1,12 @@
-"""The port's console — `app`, `accesskey`, `eventserver`, `import`,
-`export`, `template`, `new`, `build`, `train`, `deploy`, `eval` and
-`batchpredict`, the port of ``predictionio_tpu/tools/console.py``'s
-``cmd_app`` (new, list, channel-new), ``cmd_accesskey``,
+"""The port's console — `status`, `app`, `accesskey`, `eventserver`,
+`import`, `export`, `template`, `new`, `build`, `train`, `deploy`, `eval`
+and `batchpredict`, the port of ``predictionio_tpu/tools/console.py``'s
+``cmd_status``, ``cmd_app`` (new, list, channel-new), ``cmd_accesskey``,
 ``cmd_eventserver``, ``cmd_import``, ``cmd_export``, ``cmd_template``
 (list, get), ``cmd_new``, ``cmd_build``, ``cmd_train``, ``cmd_deploy``,
 ``cmd_eval`` and ``cmd_batchpredict``.
 
+    python -m predictionio_torch.tools.console status
     python -m predictionio_torch.tools.console app new NAME
     python -m predictionio_torch.tools.console app channel-new NAME CHANNEL
     python -m predictionio_torch.tools.console accesskey new NAME \
@@ -54,6 +55,24 @@ import threading
 
 import predictionio_torch
 from predictionio_torch.storage.registry import Storage
+
+
+def cmd_status(args) -> int:
+    """Storage connectivity health check (`pio status`) + which native
+    fast paths this host can run."""
+    results = Storage.get().verify_all_data_objects()
+    for name, ok in results.items():
+        print(f"  {name}: {'OK' if ok else 'FAILED'}")
+    ok = all(results.values())
+    print("Storage status: " + ("all OK" if ok else "FAILURES detected"))
+    # native tier: informational, never a failure, never a compile —
+    # every native path has a bit-identical Python fallback and the
+    # status reads cached state only
+    from predictionio_torch import native
+
+    print("Native fast paths (scan/bucketize/import/export/aggregate): "
+          + native.native_status())
+    return 0 if ok else 1
 
 
 def cmd_app(args) -> int:
@@ -345,6 +364,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--version", action="version",
                    version=predictionio_torch.__version__)
     sub = p.add_subparsers(dest="command", required=True)
+
+    st = sub.add_parser("status", help="check the storage and the native "
+                                       "fast paths")
+    st.set_defaults(fn=cmd_status)
 
     a = sub.add_parser("app", help="manage apps in the metadata store")
     a_sub = a.add_subparsers(dest="app_command", required=True)

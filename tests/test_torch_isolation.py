@@ -387,3 +387,87 @@ def test_new_templates_console_without_a_device_fails(name, no_cuda,
         assert "CUDA" in capsys.readouterr().err
     finally:
         Storage.reset(None)
+
+
+_NATIVE_RUN = textwrap.dedent("""
+    import importlib.abc, json, os, sys, tempfile
+
+    BLOCKED = {blocked!r}
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError("blocked import of " + name)
+            return None
+
+    before = {{m for m in sys.modules if m.split(".")[0] in BLOCKED}}
+    sys.meta_path.insert(0, Block())
+
+    from predictionio_torch import native
+    from predictionio_torch.data.store import EventStore
+    from predictionio_torch.storage.registry import Storage
+    from predictionio_torch.tools import console
+
+    answered = {{}}
+    for name in ("import_events_native", "columnar_scan_native",
+                 "agg_props_native", "export_events_native"):
+        def spy(*a, _real=getattr(native, name), _name=name, **k):
+            out = _real(*a, **k)
+            answered.setdefault(_name, []).append(out is not None)
+            return out
+        setattr(native, name, spy)
+
+    tmp = tempfile.mkdtemp()
+    os.environ["PIO_FS_BASEDIR"] = tmp
+    events = os.path.join(tmp, "events.jsonl")
+    with open(events, "w") as f:
+        for n in range(200):
+            f.write(json.dumps({{
+                "event": "rate", "entityType": "user",
+                "entityId": "u%d" % (n % 9), "targetEntityType": "item",
+                "targetEntityId": "i%d" % (n % 29),
+                "properties": {{"rating": 1 + n % 5}},
+                "eventTime": "2026-01-01T00:00:%02dZ" % (n % 60)}}) + "\\n")
+        f.write(json.dumps({{"event": "$set", "entityType": "item",
+                             "entityId": "i1",
+                             "properties": {{"categories": ["a", "b"]}}}})
+                + "\\n")
+    assert console.main(["app", "new", "NativeApp"]) == 0
+    assert console.main(["import", "--appname", "NativeApp", "--input",
+                         events]) == 0
+    assert console.main(["export", "--appname", "NativeApp", "--output",
+                         os.path.join(tmp, "out.jsonl")]) == 0
+    storage = Storage.get()
+    store = EventStore(storage)
+    cols = store.find_columnar("NativeApp", value_key="rating",
+                               ordered=False)
+    assert len(cols) == 200 and len(cols.entity_bimap) == 9
+    props = store.aggregate_properties("NativeApp", "item")
+    assert props["i1"].to_dict() == {{"categories": ["a", "b"]}}
+    storage.close()
+    assert answered == {{"import_events_native": [True],
+                         "export_events_native": [True],
+                         "columnar_scan_native": [True],
+                         "agg_props_native": [True]}}, answered
+    assert native.native_status() == "available (loaded)"
+    after = {{m for m in sys.modules if m.split(".")[0] in BLOCKED}}
+    assert after == before, sorted(after - before)
+    print("NATIVE-ISOLATED-OK")
+""")
+
+
+def test_native_tier_with_jax_and_reference_blocked():
+    """The native package builds and its import, export, columnar scan
+    and property fold answer (none falls back) with JAX and the
+    reference blocked."""
+    from predictionio_torch import native
+
+    if not native.native_available():
+        pytest.skip("no C++ toolchain (g++) to build the native library")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("PIO_NATIVE", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _NATIVE_RUN.format(blocked=BLOCKED)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NATIVE-ISOLATED-OK" in proc.stdout
