@@ -263,13 +263,44 @@ Phases (any failure exits non-zero and prints no result line):
              best, the wall; 3 grid trains of 4 cells on `gj_aug_reg` at
              K = 8 alone; a completed evaluation instance), run beside
              (b); `console template list`.
+11. runtime — the train runtime on phase 3's `2m` data, run before phase
+             10; a child started with the run imports the training ratings
+             into a store of their own (app MyApp2m, `console import`).
+             (a) `als_train` at rank 64 and 128 (auto) with a fresh
+             bucket_cache_dir, a miss then a hit: the set-up seconds
+             (call wall − Σ epochs) of each and the entry's bytes; bars:
+             the hit's factors bitwise the miss's, its buckets bitwise
+             the native bucketizer's. (b) The crash drill, `console
+             train` children on that store at rank 64 (auto), 10 epochs:
+             one uninterrupted, and one with `--checkpoint-dir D
+             --checkpoint-every 1` and PIO_FAULTS=als.epoch_boundary:4,
+             which dies (exit 137) after its 4th epoch and before that
+             epoch's save; the same command again logs "resumed from
+             checkpoint step 3" and a bucket-cache hit. Bars: its factors
+             bitwise the uninterrupted train's, its `gj_aug_reg`
+             launches 7/10 of that train's. (c) `console eval` of
+             HoldoutEvaluation (this module: one fold, the whole app
+             against phase 3's held-out ratings, rank 64 × λ {0.01, 0.1})
+             with the cache on and with PIO_BUCKET_CACHE=0, beside the
+             resumed train: the grid's bucketing a hit on the train's
+             entry, its set-up seconds against the miss's, the same
+             scores. (d) `console train --profile-dir` on phase 4's
+             store: the trace names `gj_reg_kernel` and the train's
+             read, prepare and als stages. (e) `2m` rank-64 trains at
+             split cap 1 024 (split rows on both sides), plain, under the
+             assert mode (`--check-asserts`) twice, plain: all bitwise
+             equal, the epoch times; the split rows' old combine (a float
+             `index_add_`, atomics) against the port's fixed-order one on
+             the item side's buckets: ms, and whether each repeats its
+             bits.
 
 Launch counts are zeroed just before each path (phases 3-4: train →
 serve; phase 5: eval → batchpredict; phase 6: fold; phase 7: online,
 with the deployed child's counts added; phase 8: serving, with the four
 children's counts added; phase 9: eventserver, with the deploy child's
 counts added; phase 10: templates, with every console child's counts
-added) and read just after;
+added; phase 11: runtime, with its console children's counts added, the
+killed train's lost with it) and read just after;
 every kernel of a path must have launched there (on the serving path,
 `gj_aug_reg` in (d)'s child alone), and `gj_aug`, `gj_packed`
 and `gj_blocked2` (K > 256 only) and `gj_aug_multi` (K > 128 with M > 1
@@ -481,6 +512,17 @@ NATIVE_LOGGERS = ("predictionio_torch.native",
                   "predictionio_torch.tools.transfer")
 TEMPLATE_EVAL_CLASS = ("predictionio_torch.templates.similarproduct."
                        "evaluation.SimilarProductEvaluation")
+# phase 11: the store of phase 3's `2m` training ratings (app RUNTIME_APP,
+# written by a child from the start of the run) and its writer's result
+# file; the drill's epochs (rank 64); the chunk whose boundary kills the
+# drill's child (the fault site fires after a chunk is computed and before
+# its save: at `--checkpoint-every 1` the re-run resumes from step
+# RUNTIME_KILL - 1); the split cap of (e), under which rows split at `2m`
+RUNTIME_APP = "MyApp2m"
+RATINGS_RESULT = "ratings.json"
+RUNTIME_ITERATIONS = 10
+RUNTIME_KILL = 4
+RUNTIME_SPLIT_CAP = 1024
 # deploys the console in a child process and writes, when it exits, its
 # launch counts to the file named by its first argument
 _DEPLOY_CHILD = (
@@ -528,14 +570,15 @@ _TRAIN_CHILD = (
     "                  'by_rank': spd_solve.launches_by_rank,\n"
     "                  'grids': als_grid.grid_log}), flush=True)\n"
     "sys.exit(rc)\n")
-# writes phase 10's store (`write_template_store`): its arguments are the
-# checkout, the store's directory and the scale; its log goes to
-# writer.log beside the store
+# writes a store of phase 10 or 11 (`write_template_store`,
+# `write_ratings_store`): its arguments are the checkout, the store's
+# directory, the scale and the writer's name; its log goes to writer.log
+# beside the store
 _STORE_CHILD = (
     "import sys\n"
     "sys.path.insert(0, sys.argv[1])\n"
     "import chip_smoke\n"
-    "chip_smoke.write_template_store(sys.argv[2], sys.argv[3])\n")
+    "getattr(chip_smoke, sys.argv[4])(sys.argv[2], sys.argv[3])\n")
 # runs the console in a child process and prints, as its last line, its
 # launch counts and its grid trains (als_grid.grid_log)
 _CONSOLE_CHILD = (
@@ -3510,15 +3553,17 @@ def write_template_store(base: str, scale: str) -> None:
                    "item_categories": item_cats, "row": row}, f)
 
 
-def _start_store_writer(base: str, scale: str = TEMPLATE_SCALE):
-    """Phase 10's store written by a child process (`write_template_store`)
-    from the start of the run, so that it overlaps phases 1-9; its output
-    goes to a log beside the store."""
+def _start_store_writer(base: str, scale: str = TEMPLATE_SCALE,
+                        writer: str = "write_template_store"):
+    """A store written by a child process (phase 10's
+    `write_template_store`, phase 11's `write_ratings_store`) from the
+    start of the run, so that it overlaps the phases before its own; its
+    output goes to a log beside the store."""
     os.makedirs(base, exist_ok=True)
     log = open(os.path.join(base, "writer.log"), "w")
     try:
         return subprocess.Popen(
-            [sys.executable, "-c", _STORE_CHILD, HERE, base, scale],
+            [sys.executable, "-c", _STORE_CHILD, HERE, base, scale, writer],
             stdout=log, stderr=subprocess.STDOUT, cwd=HERE,
             env=dict(os.environ, PYTHONPATH=HERE))
     finally:
@@ -4079,6 +4124,475 @@ def phase_templates(report: dict, device, tmp: str, served: dict,
     return children
 
 
+# -- phase 11 ----------------------------------------------------------------
+
+def write_ratings_store(base: str, scale: str) -> None:
+    """11, in a writer child started with the run: synth_explicit(scale)'s
+    training ratings as `rate` events of RUNTIME_APP (`_write_events`),
+    `console import`ed (the native importer) into a sqlite pio.db under
+    `base`, the file deleted; then RATINGS_RESULT under `base`."""
+    from predictionio_torch.quality.datasets import synth_explicit
+    from predictionio_torch.tools import console
+
+    t_start = time.perf_counter()
+    data = synth_explicit(scale)
+    path = os.path.join(base, "ratings.jsonl")
+    _write_events(path, data)
+    file_s = time.perf_counter() - t_start
+    os.environ["PIO_FS_BASEDIR"] = base
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        if console.main(["app", "new", RUNTIME_APP]) != 0:
+            raise AssertionError("console app new failed")
+        t0 = time.perf_counter()
+        if console.main(["import", "--appname", RUNTIME_APP, "--input",
+                         path]) != 0:
+            raise AssertionError("console import of the ratings failed")
+        import_s = time.perf_counter() - t0
+    os.unlink(path)
+    imported = said.getvalue().strip().splitlines()[-1]
+    if imported != f"Imported {len(data.train_r)} events.":
+        raise AssertionError(f"console import said {imported!r}")
+    with open(os.path.join(base, RATINGS_RESULT), "w") as f:
+        json.dump({"scale": scale, "events": int(len(data.train_r)),
+                   "file_s": file_s, "import_s": import_s,
+                   "write_s": time.perf_counter() - t_start}, f)
+
+
+def _await_ratings(writer, base: str) -> dict:
+    """The ratings writer's result once it has exited; raises with its
+    log's tail if it failed or fell back from the native tier."""
+    rc = writer.wait(timeout=1_200)
+    path = os.path.join(base, RATINGS_RESULT)
+    with open(os.path.join(base, "writer.log")) as f:
+        log = f.read()
+    if rc != 0 or not os.path.exists(path):
+        raise AssertionError(f"the ratings store's writer exited {rc}:\n"
+                             f"{log[-3000:]}")
+    _require_native_log(log, "the ratings store's writer")
+    with open(path) as f:
+        return json.load(f)
+
+
+def __getattr__(name):
+    """`HoldoutEvaluation`, which `console eval chip_smoke.HoldoutEvaluation`
+    names: built on first use, since it subclasses the port's classes and
+    this module imports the port only inside functions."""
+    if name == "HoldoutEvaluation":
+        globals()[name] = cls = _holdout_evaluation()
+        return cls
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def _holdout_evaluation():
+    """An evaluation of the Recommendation template on one fold: every
+    training event of RUNTIME_APP, queried for the held-out items of
+    $CHIP_SMOKE_HOLDOUT ([[user, [items]], ...]); a grid of rank 64 × λ
+    {0.01, 0.1} at RUNTIME_ITERATIONS epochs, MAP@10. Its fold trains on
+    exactly what `console train` trains on, so its grid's bucketing is
+    that train's bucket-cache entry."""
+    from predictionio_torch.controller import MAPatK
+    from predictionio_torch.controller.engine import Engine, EngineParams
+    from predictionio_torch.controller.evaluation import (
+        EngineParamsGenerator,
+        Evaluation,
+    )
+    from predictionio_torch.templates.recommendation import engine as rec
+
+    class HoldoutDataSource(rec.DataSource):
+        def read_eval(self, ctx):
+            with open(os.environ["CHIP_SMOKE_HOLDOUT"]) as f:
+                held = json.load(f)
+            return [(self._read_events(ctx),
+                     [({"user": u, "num": 10}, {"items": items})
+                      for u, items in held])]
+
+    class HoldoutEvaluation(Evaluation, EngineParamsGenerator):
+        def __init__(self):
+            self.engine = Engine(HoldoutDataSource, rec.Preparator,
+                                 {"als": rec.ALSAlgorithm})
+            self.metric = MAPatK(10)
+            self.engine_params_list = [EngineParams(
+                data_source_params=rec.DataSourceParams(appName=RUNTIME_APP),
+                algorithm_params_list=[("als", rec.ALSAlgorithmParams(
+                    rank=64, numIterations=RUNTIME_ITERATIONS, lambda_=lam,
+                    seed=3))]) for lam in (0.01, 0.1)]
+
+    return HoldoutEvaluation
+
+
+class _Lines(logging.Handler):
+    """Keeps what one logger logs (INFO and above) while installed."""
+
+    def __init__(self, name: str):
+        super().__init__(logging.INFO)
+        self.lines: list = []
+        self._logger = logging.getLogger(name)
+
+    def __enter__(self):
+        self._old_level = self._logger.level
+        self._logger.setLevel(logging.INFO)
+        self._logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self._logger.removeHandler(self)
+        self._logger.setLevel(self._old_level)
+
+    def emit(self, record) -> None:
+        self.lines.append(record.getMessage())
+
+
+def _same_buckets(got, want) -> bool:
+    """Two `bucketize_cached` results (both sides' buckets and split rows)
+    bitwise equal, dtypes included."""
+    import numpy as np
+
+    def same(a, b):
+        return (a is None) == (b is None) and (
+            a is None or (a.dtype == b.dtype and np.array_equal(a, b)))
+
+    return all(
+        same(sa, sb) and len(ba) == len(bb) and all(
+            same(getattr(x, f), getattr(y, f))
+            for x, y in zip(ba, bb)
+            for f in ("rows", "cols", "vals", "mask", "segmap"))
+        for ba, sa, bb, sb in ((got[0], got[1], want[0], want[1]),
+                               (got[2], got[3], want[2], want[3])))
+
+
+def _runtime_cache(data, device, tmp: str) -> dict:
+    """11a: `als_train` at rank 64 and 128 (auto) with a fresh
+    `bucket_cache_dir`, a miss then a hit: set-up seconds (call wall − Σ
+    epochs) of each, the entry's bytes; the hit's factors bitwise the
+    miss's, its buckets bitwise the native bucketizer's."""
+    import numpy as np
+
+    from predictionio_torch.ops import als
+    from predictionio_torch.ops.als import ALSConfig, als_train
+
+    rows = {}
+    for rank in (64, 128):
+        cache = os.path.join(tmp, f"cache{rank}")
+        cfg = ALSConfig(rank=rank, iterations=ITERATIONS, reg=0.01, seed=0)
+        runs = {}
+        for kind in ("miss", "hit"):
+            with _Lines("predictionio_torch.ops.als") as lines:
+                t0 = time.perf_counter()
+                res = als_train(data.train_u, data.train_i, data.train_r,
+                                data.n_users, data.n_items, cfg,
+                                device=device, bucket_cache_dir=cache)
+                wall = time.perf_counter() - t0
+            if not any(f"bucket cache {kind}" in m for m in lines.lines):
+                raise AssertionError(f"11a rank {rank}: no bucket cache "
+                                     f"{kind} logged: {lines.lines}")
+            runs[kind] = (res, wall)
+        (entry,) = os.listdir(cache)
+        split_cap = cfg.split_cap if cfg.split_cap > 0 else None
+        args = (data.train_u, data.train_i, data.train_r, data.n_users,
+                data.n_items, 8, split_cap, cfg.cap_growth)
+        hit_arrays = als.bucketize_cached(*args, cache)
+        native = als.bucketize_cached(*args, None)
+        (miss, miss_wall), (hit, hit_wall) = runs["miss"], runs["hit"]
+        row = {"rank": rank, "entry_bytes": os.path.getsize(
+                   os.path.join(cache, entry)),
+               "setup_s_miss": miss_wall - sum(miss.epoch_times),
+               "setup_s_hit": hit_wall - sum(hit.epoch_times),
+               "wall_s_miss": miss_wall, "wall_s_hit": hit_wall,
+               "factors_bitwise_equal": bool(
+                   np.array_equal(miss.user_factors, hit.user_factors)
+                   and np.array_equal(miss.item_factors, hit.item_factors)),
+               "buckets_bitwise_native": _same_buckets(hit_arrays, native)}
+        if not (row["factors_bitwise_equal"]
+                and row["buckets_bitwise_native"]):
+            raise AssertionError(f"11a: the bucket cache's hit differs: "
+                                 f"{row}")
+        rows[rank] = row
+    emit({"phase": "runtime", "part": "a_bucket_cache", "ranks": rows})
+    return rows
+
+
+def _start_child(args: list, base: str, env_extra: dict = None):
+    """The console (`_CONSOLE_CHILD`) in a child process on the store
+    under `base`, PIO_FAULTS unset unless `env_extra` sets it."""
+    env = dict(os.environ, PYTHONPATH=HERE, PIO_FS_BASEDIR=base)
+    env.pop("PIO_FAULTS", None)
+    env.update(env_extra or {})
+    return subprocess.Popen([sys.executable, "-c", _CONSOLE_CHILD, *args],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=HERE, env=env)
+
+
+def _finish(proc, who: str, want_rc: int = 0, timeout_s: float = 900.0):
+    """(stdout, stderr, launch record or None) once `proc` exits with
+    `want_rc`; raises otherwise, or on a native fallback line."""
+    out, err = proc.communicate(timeout=timeout_s)
+    if proc.returncode != want_rc:
+        raise AssertionError(f"11 {who} exited {proc.returncode}, want "
+                             f"{want_rc}:\n{err[-4000:]}")
+    _require_native_log(err, f"11 {who}")
+    record = (json.loads(out.strip().splitlines()[-1]) if want_rc == 0
+              else None)
+    return out, err, record
+
+
+def _cache_keys(log: str, kind: str) -> set:
+    """The bucket-cache keys a log names after "bucket cache <kind>"."""
+    return set(re.findall(rf"bucket cache {kind}(?: — saved)? ([0-9a-f]+)",
+                          log))
+
+
+def _model_factors(path: str):
+    from predictionio_torch.workflow.core_workflow import read_model_file
+
+    _, models = read_model_file(path)
+    return models[0].user_factors, models[0].item_factors
+
+
+def _combine_ab(data, device) -> dict:
+    """11e: on the item side's buckets at RUNTIME_SPLIT_CAP (rank 64,
+    seeded partials of each bucket's real shapes), the old combine (a
+    float `index_add_` into [U, K, K] accumulators keyed by segmap) and
+    the port's (`index_copy_` to a position a segment, then
+    `als._sum_segments`): ms of each, and whether each gives the same
+    bits twice."""
+    import torch
+
+    from predictionio_torch.ops import als
+
+    buckets, split = als.bucket_ragged_split(
+        data.train_i, data.train_u, data.train_r, data.n_items, 8,
+        RUNTIME_SPLIT_CAP)
+    k = 64
+    _, plan = als._put_side(buckets, split, device)
+    positions = als._split_positions(buckets, len(split))[0]
+    gen = torch.Generator(device=device).manual_seed(11)
+    parts = []
+    for b, pos in zip(buckets, positions):
+        if b.segmap is None:
+            continue
+        r = len(b.segmap)
+        parts.append((torch.as_tensor(b.segmap, dtype=torch.int64,
+                                      device=device),
+                      torch.as_tensor(pos, device=device),
+                      torch.randn((r, k, k), generator=gen, device=device)))
+    n_split = len(split)
+
+    def old():
+        acc = torch.zeros((n_split + 1, k, k), device=device)
+        for segmap, _pos, a in parts:
+            acc.index_add_(0, segmap, a)
+        return acc[:n_split]
+
+    def new():
+        table = torch.zeros((plan.n_segments + 2, k, k), device=device)
+        for _segmap, pos, a in parts:
+            table.index_copy_(0, pos, a)
+        return als._sum_segments(plan.segments, table)[0]
+
+    row = {"split_rows": n_split, "segments": plan.n_segments,
+           "segment_width": int(plan.segments.shape[1]),
+           "old_ms": time_ms(old, 20), "new_ms": time_ms(new, 20),
+           "old_bitwise_repeat": bool(torch.equal(old(), old())),
+           "new_bitwise_repeat": bool(torch.equal(new(), new())),
+           "max_abs_old_new": float((old() - new()).abs().max())}
+    return row
+
+
+def phase_runtime(report: dict, device, tmp: str, served: dict, data,
+                  ratings_writer, ratings_base: str) -> dict:
+    """Phase 11, the train runtime: (a) the bucket cache in process,
+    (b) the crash drill in `console train` children on the ratings store,
+    (c) the eval grid's reuse of the train's entry, (d) `--profile-dir`,
+    (e) trains with split rows (two plain, two checked), the combine A/B.
+    Returns each child's launch record (their counts start at 0)."""
+    import numpy as np
+
+    from predictionio_torch.ops import spd_solve
+    from predictionio_torch.ops.als import ALSConfig, als_train
+    from predictionio_torch.utils import checks
+
+    t_phase = time.perf_counter()
+    work = os.path.join(tmp, "runtime")
+    os.makedirs(work)
+    cache = _runtime_cache(data, device, work)
+
+    written = _await_ratings(ratings_writer, ratings_base)
+    with open(os.path.join(HERE, "predictionio_torch", "templates",
+                           "recommendation", "engine.json")) as f:
+        variant = json.load(f)
+    als_block = dict(variant["algorithms"][0])
+    als_block["params"] = dict(als_block["params"], rank=64,
+                               numIterations=RUNTIME_ITERATIONS)
+    variant.update(algorithms=[als_block], serving={"name": "first"},
+                   datasource={"params": {"appName": RUNTIME_APP}})
+    engine_json = os.path.join(work, "engine.json")
+    with open(engine_json, "w") as f:
+        json.dump(variant, f)
+    ckpt = os.path.join(work, "ckpt")
+    dev = str(device)
+
+    def train(model: str, *extra) -> list:
+        return ["train", "--engine-json", engine_json, "--device", dev,
+                "--model-out", os.path.join(work, model), *extra]
+
+    drill = ["--checkpoint-dir", ckpt, "--checkpoint-every", "1"]
+    # (b) the uninterrupted train and the killed one, together
+    t0 = time.perf_counter()
+    whole = _start_child(train("whole.pio"), ratings_base)
+    killed = _start_child(train("killed.pio", *drill), ratings_base,
+                          {"PIO_FAULTS": f"als.epoch_boundary:{RUNTIME_KILL}"})
+    _, whole_err, whole_rec = _finish(whole, "uninterrupted train")
+    _, killed_err, _ = _finish(killed, "killed train", want_rc=137)
+    first_s = time.perf_counter() - t0
+    if "dying at als.epoch_boundary" not in killed_err:
+        raise AssertionError("11b: the killed train did not die at the "
+                             "epoch boundary")
+    steps = sorted(os.listdir(os.path.join(ckpt, "als")))
+    keys = _cache_keys(whole_err, "miss")
+
+    # then, together: the resumed train, the eval grid with the cache and
+    # without it, and the profiled train on phase 4's store
+    held = {}
+    for u, i in zip(data.test_u, data.test_i):
+        held.setdefault(f"u{u}", set()).add(f"i{i}")
+    holdout = os.path.join(work, "holdout.json")
+    with open(holdout, "w") as f:
+        json.dump([[u, sorted(items)] for u, items in sorted(held.items())],
+                  f)
+    profile = os.path.join(work, "profile")
+    evaluate = ["eval", "chip_smoke.HoldoutEvaluation", "--device", dev]
+    t0 = time.perf_counter()
+    children = {
+        "resumed": _start_child(train("resumed.pio", *drill), ratings_base),
+        "eval_hit": _start_child(evaluate, ratings_base,
+                                 {"CHIP_SMOKE_HOLDOUT": holdout}),
+        "eval_miss": _start_child(evaluate, ratings_base,
+                                  {"CHIP_SMOKE_HOLDOUT": holdout,
+                                   "PIO_BUCKET_CACHE": "0"}),
+        "profiled": _start_child(
+            ["train", "--engine-json", served["engine_json"], "--device",
+             dev, "--model-out", os.path.join(work, "profiled.pio"),
+             "--profile-dir", profile], served["store_base"]),
+    }
+    done = {name: _finish(proc, name) for name, proc in children.items()}
+    second_s = time.perf_counter() - t0
+    _, resumed_err, resumed_rec = done["resumed"]
+    if f"resumed from checkpoint step {RUNTIME_KILL - 1}" not in resumed_err:
+        raise AssertionError(f"11b: the re-run did not resume from step "
+                             f"{RUNTIME_KILL - 1}: {resumed_err[-3000:]}")
+    if not _cache_keys(resumed_err, "hit") & keys:
+        raise AssertionError("11b: the re-run train missed the bucket "
+                             "cache")
+    same = all(np.array_equal(a, b) for a, b in zip(
+        _model_factors(os.path.join(work, "resumed.pio")),
+        _model_factors(os.path.join(work, "whole.pio"))))
+    b_row = {"iterations": RUNTIME_ITERATIONS, "kill_at_chunk": RUNTIME_KILL,
+             "steps_after_kill": steps, "factors_bitwise_equal": same,
+             "launches_uninterrupted": whole_rec["by_rank"],
+             "launches_resumed": resumed_rec["by_rank"],
+             "children_s": [first_s, second_s], "store": written}
+    emit(dict(phase="runtime", part="b_crash_drill", **b_row))
+    if not same or steps != [f"step_{s}" for s in range(
+            max(1, RUNTIME_KILL - 3), RUNTIME_KILL)]:
+        raise AssertionError(f"11b: the crash drill failed: {b_row}")
+
+    # (c) the grid's bucketize: a hit on the train's entry
+    hit_out, hit_err, hit_rec = done["eval_hit"]
+    miss_out, miss_err, miss_rec = done["eval_miss"]
+    c_row = {"hit_keys": sorted(_cache_keys(hit_err, "hit")),
+             "train_keys": sorted(keys),
+             "setup_s_hit": [g["setup_s"] for g in hit_rec["grids"]],
+             "setup_s_miss": [g["setup_s"] for g in miss_rec["grids"]],
+             "steps_s_hit": [g["steps_s"] for g in hit_rec["grids"]],
+             "steps_s_miss": [g["steps_s"] for g in miss_rec["grids"]],
+             "launches_hit": hit_rec["by_rank"],
+             "launches_miss": miss_rec["by_rank"]}
+    # the two grids train on the same buckets: the same scores
+    c_row["scores"] = [[line.strip() for line in out.splitlines()
+                        if "score=" in line] for out in (hit_out, miss_out)]
+    emit(dict(phase="runtime", part="c_grid_reuse", **c_row))
+    if (not set(c_row["hit_keys"]) & keys or _cache_keys(hit_err, "miss")
+            or len(hit_rec["grids"]) != 1 or len(miss_rec["grids"]) != 1
+            or c_row["scores"][0] != c_row["scores"][1]
+            or len(c_row["scores"][0]) != 2):
+        raise AssertionError(f"11c: the eval grid did not reuse the "
+                             f"train's entry: {c_row}")
+
+    # (d) the profiled train's trace names its solve kernel
+    trace_path = os.path.join(profile, "trace.json")
+    with open(trace_path) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    gj = sorted(n for n in names if "gj_" in n and "kernel" in n)
+    stages = sorted(n for n in names if n.startswith("Engine.train "))
+    d_row = {"trace_bytes": os.path.getsize(trace_path), "gj_events": gj,
+             "stages": stages,
+             "launches": done["profiled"][2]["by_rank"]}
+    emit(dict(phase="runtime", part="d_profile", **d_row))
+    if stages != ["Engine.train als", "Engine.train prepare",
+                  "Engine.train read"]:
+        raise AssertionError(f"11d: the trace lacks the train's stages: "
+                             f"{d_row}")
+
+    # (e) trains with split rows, unchecked and checked in turns (plain,
+    # checked, checked, plain), and the combine A/B
+    cfg = ALSConfig(rank=64, iterations=ITERATIONS, reg=0.01, seed=0,
+                    split_cap=RUNTIME_SPLIT_CAP)
+    runs = {"plain": [], "checked": []}
+    for kind in ("plain", "checked", "checked", "plain"):
+        checks.enable(kind == "checked")
+        try:
+            runs[kind].append(als_train(
+                data.train_u, data.train_i, data.train_r, data.n_users,
+                data.n_items, cfg, device=device))
+        finally:
+            checks.enable(False)
+    twice = runs["plain"]
+    e_row = {"split_cap": RUNTIME_SPLIT_CAP,
+             "split_users": int((np.bincount(data.train_u) >
+                                 RUNTIME_SPLIT_CAP).sum()),
+             "split_items": int((np.bincount(data.train_i) >
+                                 RUNTIME_SPLIT_CAP).sum()),
+             "factors_bitwise_equal": bool(all(
+                 np.array_equal(getattr(twice[0], f), getattr(twice[1], f))
+                 for f in ("user_factors", "item_factors"))),
+             "checked_bitwise_equal": bool(all(
+                 np.array_equal(getattr(c, f), getattr(twice[0], f))
+                 for c in runs["checked"]
+                 for f in ("user_factors", "item_factors"))),
+             "epoch_s": [r.epoch_times for r in twice],
+             "epoch_s_checked": [r.epoch_times for r in runs["checked"]],
+             "combine": _combine_ab(data, device)}
+    emit(dict(phase="runtime", part="e_determinism", **e_row))
+    if not (e_row["factors_bitwise_equal"] and e_row["checked_bitwise_equal"]
+            and e_row["split_items"] > 0
+            and e_row["combine"]["new_bitwise_repeat"]):
+        raise AssertionError(f"11e: trains with split rows differ: {e_row}")
+    report["runtime"] = {"a": cache, "b": b_row, "c": c_row, "d": d_row,
+                         "e": e_row, "store": written,
+                         "wall_s": time.perf_counter() - t_phase}
+    return {"whole": whole_rec, "resumed": resumed_rec,
+            "eval_hit": hit_rec, "eval_miss": miss_rec,
+            "profiled": done["profiled"][2]}
+
+
+def _require_runtime_launches(children: dict, profiled: dict) -> None:
+    """Phase 11's launch bars (card only): the resumed train launched
+    `gj_aug_reg` (RUNTIME_ITERATIONS − RUNTIME_KILL + 1) / RUNTIME_ITERATIONS
+    times as often as the uninterrupted one, and the profiled train's
+    trace names `gj_reg_kernel`, which it launched."""
+    whole = children["whole"]["launches"]["gj_aug_reg"]
+    resumed = children["resumed"]["launches"]["gj_aug_reg"]
+    if whole <= 0 or (resumed * RUNTIME_ITERATIONS
+                      != whole * (RUNTIME_ITERATIONS - RUNTIME_KILL + 1)):
+        raise AssertionError(f"11b: the resumed train launched gj_aug_reg "
+                             f"{resumed} times, the uninterrupted one "
+                             f"{whole}")
+    if (not any("gj_reg_kernel" in n for n in profiled["gj_events"])
+            or not children["profiled"]["launches"]["gj_aug_reg"]):
+        raise AssertionError(f"11d: the trace names no gj_reg_kernel "
+                             f"launch: {profiled}")
+
+
 def _require_template_launches(children: dict, here: dict) -> None:
     """Phase 10's solves: each `console train` and this process's auto
     trains on `gj_aug_reg` at the engine.json's rank (10) alone, the
@@ -4174,22 +4688,33 @@ def main(argv=None) -> int:
     fallbacks = _NativeFallbacks()
     report["native"] = native_build()
     emit(dict(phase="native", **report["native"]))
-    # phase 10's store is written by a child from here on, beside phases
-    # 1-9 (it takes minutes; the phases before it leave host cores idle)
+    # the stores of phases 10 and 11 are written by children from here on,
+    # beside the phases before them (they take minutes; those phases leave
+    # host cores idle)
     shop = tempfile.TemporaryDirectory()
+    ratings = tempfile.TemporaryDirectory()
     writer = _start_store_writer(shop.name)
+    ratings_writer = _start_store_writer(ratings.name, "2m",
+                                         "write_ratings_store")
+    # the run's PIO_FS_BASEDIR (the bucket cache of a console child that
+    # names no store lives under it), unless a phase sets its own
+    basedir = tempfile.TemporaryDirectory()
+    os.environ.setdefault("PIO_FS_BASEDIR", basedir.name)
     try:
         return _run(args, report, card, device, t_all, writer, shop.name,
-                    fallbacks)
+                    fallbacks, ratings_writer, ratings.name)
     finally:
         _stop(writer)
+        _stop(ratings_writer)
         shop.cleanup()
+        ratings.cleanup()
+        basedir.cleanup()
 
 
 def _run(args, report: dict, card: str, device, t_all: float, writer,
-         shop: str, fallbacks) -> int:
-    """Phases 1-10 and the kernels line (`main`'s body, with phase 10's
-    store writer started)."""
+         shop: str, fallbacks, ratings_writer, ratings: str) -> int:
+    """Phases 1-11 and the kernels line (`main`'s body, with the store
+    writers of phases 10 and 11 started)."""
     import torch
 
     from predictionio_torch.ops import spd_solve
@@ -4239,6 +4764,15 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
         # sends HTTP) and the deploy child's folds
         eventserver_launches = {k: v + eventserver_child[k]
                                 for k, v in spd_solve.launches.items()}
+        spd_solve.reset_launches()  # the runtime path starts here
+        runtime_children = phase_runtime(report, device, tmp, served, data,
+                                         ratings_writer, ratings)
+        # ... and ends here: this process's launches ((a), (e)) and the
+        # console children's (the killed train's died with it)
+        runtime_launches = {
+            k: v + sum(c["launches"][k] for c in runtime_children.values())
+            for k, v in spd_solve.launches.items()}
+        _require_runtime_launches(runtime_children, report["runtime"]["d"])
         spd_solve.reset_launches()  # the templates path starts here
         template_children = phase_templates(report, device, tmp, served,
                                             writer, shop)
@@ -4250,6 +4784,8 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
             k: v + sum(c["launches"][k] for c in template_children.values())
             for k, v in spd_solve.launches.items()}
     _require_launches("fold", fold_launches, FOLD_KERNEL.values())
+    # the runtime path: gj_aug_reg at rank 64, the Schur base at 128
+    _require_launches("runtime", runtime_launches, FOLD_KERNEL.values())
     _require_launches("online", online_launches, FOLD_KERNEL.values())
     # the fold kernel from the 8d child's folds alone; no off-path kernel
     # in any of the serving path's processes
@@ -4281,7 +4817,8 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
                           "fold": fold_launches, "online": online_launches,
                           "serving": serving_launches,
                           "eventserver": eventserver_launches,
-                          "templates": templates_launches}
+                          "templates": templates_launches,
+                          "runtime": runtime_launches}
 
     kernels = []
     for name, (replaces, source) in KERNELS.items():
@@ -4296,7 +4833,8 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
                          + fold_launches[name] + online_launches[name]
                          + serving_launches[name]
                          + eventserver_launches[name]
-                         + templates_launches[name]),
+                         + templates_launches[name]
+                         + runtime_launches[name]),
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -4309,6 +4847,7 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
             "launches_serving": serving_launches[name],
             "launches_eventserver": eventserver_launches[name],
             "launches_templates": templates_launches[name],
+            "launches_runtime": runtime_launches[name],
             "launches_per_epoch_2m": per_epoch,
             "launches_console_eval": {layout: run["launches"][name]
                                       for layout, run in eval_runs.items()},

@@ -71,6 +71,12 @@ class Algorithm(abc.ABC, Generic[PD, M, Q, R]):
     from an in-memory model; `batch_predict` scores many (the default
     loops `predict`)."""
 
+    # the checkpoint subdir tags this class passes to
+    # ctx.algorithm_checkpoint_dir; Engine._ckpt_suffixes tells duplicates
+    # apart by them, so two classes that share a tag get distinct
+    # suffixes. () means no checkpoints (keyed by class).
+    checkpoint_tags: tuple = ()
+
     # True for algorithms whose predict is cheap enough (and needs no
     # per-user state) to answer under saturation — the serving plane's
     # degraded-mode fallback (e.g. a popularity model).

@@ -1,8 +1,9 @@
 """Engine: binds DASE component classes + params into a trainable,
 deployable unit — the port of ``predictionio_tpu/controller/engine.py``,
 reduced to train, eval, eval_grid, model (de)serialization, predict,
-predict_batch and degraded_predict (the port keeps no checkpoints, so no
-checkpoint scopes).
+predict_batch and degraded_predict. Every algorithm trains inside its
+checkpoint scope (`_ckpt_suffixes`); a train's read, prepare and algorithm
+stages are named ranges on a `--profile-dir` trace.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from predictionio_torch.controller.base import (
 )
 from predictionio_torch.controller.context import WorkflowContext
 from predictionio_torch.controller.params import Params, params_to_dict
+from predictionio_torch.utils.profiling import annotate
 
 log = logging.getLogger(__name__)
 
@@ -36,6 +38,26 @@ def resolve_component(class_map: dict, name: str, role: str) -> Type:
     if name == "" and len(class_map) == 1:
         return next(iter(class_map.values()))
     raise KeyError(f"Unknown {role} name {name!r} (have {sorted(class_map)})")
+
+
+def _ckpt_suffixes(algos) -> list[str]:
+    """The checkpoint-dir suffix of each (name, algorithm) entry: "" for
+    the first user of a checkpoint tag, ".1", ".2", … for later ones.
+    Subdirs are keyed by the tags a class declares
+    (`Algorithm.checkpoint_tags`), so two entries of one class and two
+    classes that declare one tag would otherwise purge each other's saves.
+    A class without tags is keyed by itself."""
+    counts: dict = {}
+    out = []
+    for _, algo in algos:
+        keys = tuple(getattr(algo, "checkpoint_tags", ()) or ()) or (type(algo),)
+        # an instance of a class with several tags reuses none of them:
+        # its ordinal is the largest over its tags
+        n = max(counts.get(k, 0) for k in keys)
+        for k in keys:
+            counts[k] = n + 1
+        out.append(f".{n}" if n else "")
+    return out
 
 
 @dataclasses.dataclass
@@ -107,17 +129,21 @@ class Engine:
         """Read → prepare → train every algorithm; returns the models."""
         ds, prep, algos, _ = self.components(engine_params)
         log.info("Engine.train: reading training data (%s)", type(ds).__name__)
-        td = ds.read_training(ctx)
+        with annotate("Engine.train read"):
+            td = ds.read_training(ctx)
         if sanity_check:
             run_sanity_check(td, "training data")
-        pd = prep.prepare(ctx, td)
+        with annotate("Engine.train prepare"):
+            pd = prep.prepare(ctx, td)
         if sanity_check:
             run_sanity_check(pd, "prepared data")
         models = []
-        for name, algo in algos:
+        for (name, algo), suffix in zip(algos, _ckpt_suffixes(algos)):
             log.info("Engine.train: training algorithm %r (%s)", name,
                      type(algo).__name__)
-            model = algo.train(ctx, pd)
+            with ctx.algo_checkpoint_scope(suffix), annotate(
+                    f"Engine.train {name}"):
+                model = algo.train(ctx, pd)
             if sanity_check:
                 run_sanity_check(model, f"model[{name}]")
             models.append(model)
@@ -129,12 +155,16 @@ class Engine:
         queries. Returns [(fold_td, [(query, predicted, actual), ...])]."""
         ds, prep, algos, serving = self.components(engine_params)
         folds = ds.read_eval(ctx)
+        suffixes = _ckpt_suffixes(algos)
         results = []
         for i, (td, qa_pairs) in enumerate(folds):
             log.info("Engine.eval: fold %d/%d (%d queries)", i + 1,
                      len(folds), len(qa_pairs))
             pd = prep.prepare(ctx, td)
-            models = [algo.train(ctx, pd) for _, algo in algos]
+            models = []
+            for (_, algo), suffix in zip(algos, suffixes):
+                with ctx.algo_checkpoint_scope(suffix):
+                    models.append(algo.train(ctx, pd))
             results.append((td, _serve_fold(algos, models, serving,
                                             qa_pairs)))
         return results
@@ -171,6 +201,9 @@ class Engine:
         algos_by_ep = [self.components(ep)[2] for ep in engine_params_list]
         folds = ds.read_eval(ctx)
         n_ep = len(engine_params_list)
+        # suffixes by position (duplicates across positions collide as in
+        # train); a position's cells share its subdir, last writer wins
+        pos_suffixes = _ckpt_suffixes(algos_by_ep[0])
         results: list[list] = [[] for _ in range(n_ep)]
         for fi, (td, qa_pairs) in enumerate(folds):
             log.info("Engine.eval_grid: fold %d/%d (%d queries, %d grid "
@@ -181,11 +214,12 @@ class Engine:
             for j in range(len(base.algorithm_params_list)):
                 instances = [algos_by_ep[e][j][1] for e in range(n_ep)]
                 cls = type(instances[0])
-                grid_models = None
-                if all(type(a) is cls for a in instances):
-                    grid_models = cls.train_grid(ctx, pd, instances)
-                if grid_models is None:
-                    grid_models = [a.train(ctx, pd) for a in instances]
+                with ctx.algo_checkpoint_scope(pos_suffixes[j]):
+                    grid_models = None
+                    if all(type(a) is cls for a in instances):
+                        grid_models = cls.train_grid(ctx, pd, instances)
+                    if grid_models is None:
+                        grid_models = [a.train(ctx, pd) for a in instances]
                 for e in range(n_ep):
                     models[e].append(grid_models[e])
             for e in range(n_ep):

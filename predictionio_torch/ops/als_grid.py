@@ -37,12 +37,15 @@ from predictionio_torch.device import (
 from predictionio_torch.ops.als import (
     ALSConfig,
     ALSResult,
-    _put_buckets,
+    SplitPlan,
+    _put_side,
     _solve_spd,
+    _sum_segments,
     _walk_bucket_chunks,
-    bucket_ragged_split,
+    bucketize_cached,
     resolve_solver,
 )
+from predictionio_torch.utils import checks
 
 log = logging.getLogger(__name__)
 
@@ -108,27 +111,28 @@ def _gather_rows_grid(table: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
 def _solve_buckets_grid(
     opposing: torch.Tensor,  # [V, G, K]
     out_rows: int,
-    buckets_dev: Sequence[tuple],  # per bucket: (rows, cols, vals, mask, segmap)
+    buckets_dev: Sequence[tuple],  # per bucket: (rows, cols, vals, mask, segpos)
     cfg: ALSConfig,  # static fields only: λ and α come from `regs`/`alphas`
     regs: torch.Tensor,  # [G] f32
     alphas: torch.Tensor,  # [G] f32 (implicit mode)
-    split_rows: Optional[torch.Tensor] = None,
+    split: Optional[SplitPlan] = None,
     row_multiple: int = 8,
 ) -> torch.Tensor:
     """One grid half-epoch: per row, solve the G systems that share the
     row's gathered entries; returns the fresh [out_rows, G, K] factors.
     `als._solve_buckets_device` with a `g` axis, down to the sentinel row
-    that catches padding and segment rows."""
+    that catches padding and segment rows and the split rows' segments
+    summed in a fixed order."""
     v, g, k = opposing.shape
     dev = opposing.device
     f32 = torch.float32
     bf16 = cfg.compute_dtype == "bfloat16"
     new = torch.zeros((out_rows + 1, g, k), dtype=opposing.dtype, device=dev)
-    n_split = 0 if split_rows is None else int(split_rows.shape[0])
-    if n_split:
-        acc_a = torch.zeros((n_split + 1, g, k, k), dtype=f32, device=dev)
-        acc_b = torch.zeros((n_split + 1, g, k), dtype=f32, device=dev)
-        acc_n = torch.zeros((n_split + 1,), dtype=f32, device=dev)
+    n_seg = 0 if split is None else split.n_segments
+    if split is not None:
+        part_a = torch.zeros((n_seg + 2, g, k, k), dtype=f32, device=dev)
+        part_b = torch.zeros((n_seg + 2, g, k), dtype=f32, device=dev)
+        part_n = torch.zeros((n_seg + 2,), dtype=f32, device=dev)
     eye = torch.eye(k, dtype=f32, device=dev)
 
     def compute(t: torch.Tensor) -> torch.Tensor:
@@ -169,16 +173,16 @@ def _solve_buckets_grid(
         return x.reshape(r, g, k)
 
     def process(sliced, _carry):
-        rows_c, cols_c, vals_c, mask_c, segmap_c = sliced
+        rows_c, cols_c, vals_c, mask_c, segpos_c = sliced
         n = mask_c.sum(-1)
         a, b = partial_gram(cols_c, vals_c, mask_c)
         rows_eff = rows_c
-        if segmap_c is not None:
-            acc_a.index_add_(0, segmap_c, a)
-            acc_b.index_add_(0, segmap_c, b)
-            acc_n.index_add_(0, segmap_c, n)
+        if segpos_c is not None:
+            part_a.index_copy_(0, segpos_c, a)
+            part_b.index_copy_(0, segpos_c, b)
+            part_n.index_copy_(0, segpos_c, n)
             # segment rows are solved after the loop: drop their partials
-            rows_eff = torch.where(segmap_c < n_split,
+            rows_eff = torch.where(segpos_c < n_seg,
                                    torch.full_like(rows_c, out_rows), rows_c)
         new.index_copy_(0, rows_eff, finalize(a, b, n).to(new.dtype))
         return None
@@ -188,9 +192,10 @@ def _solve_buckets_grid(
         _walk_bucket_chunks(bucket, bucket[1].shape[1], g * k, row_multiple,
                             process, None)
 
-    if n_split:
-        x_u = finalize(acc_a[:n_split], acc_b[:n_split], acc_n[:n_split])
-        new.index_copy_(0, split_rows, x_u.to(new.dtype))
+    if split is not None:
+        x_u = finalize(*_sum_segments(split.segments, part_a, part_b,
+                                      part_n))
+        new.index_copy_(0, split.rows, x_u.to(new.dtype))
     return new[:out_rows]
 
 
@@ -230,6 +235,7 @@ def als_train_grid(
     compute_rmse: bool = False,
     host_factors: bool = True,
     init_item_factors: Optional[np.ndarray] = None,
+    bucket_cache_dir: Optional[str] = None,
 ) -> list[ALSResult]:
     """Train every cell of `cfgs` together; one `ALSResult` per cell, each
     what a sequential `als_train` with that cell's config gives (same init
@@ -241,7 +247,10 @@ def als_train_grid(
     fiction. host_factors=False keeps each cell's factors as tensors on
     `device` (slices of the [V, G, K] stack); the eval path scores them
     there. init_item_factors: [n_items, G, rank] initial item factors;
-    None draws each cell's from its seed as `als_train` does."""
+    None draws each cell's from its seed as `als_train` does.
+    bucket_cache_dir: the bucketing goes through `als.bucketize_cached`,
+    whose key holds no solver hyperparameter: a grid over (λ, α) reuses
+    the entry a train on the same data left there."""
     reason = grid_compatible(cfgs)
     if reason:
         raise ValueError(f"grid not batchable: {reason}")
@@ -253,12 +262,9 @@ def als_train_grid(
                               seed=0, iterations=0)
     row_multiple = 8
     split_cap = cfg.split_cap if cfg.split_cap > 0 else None
-    user_buckets, u_split = bucket_ragged_split(
-        user_idx, item_idx, ratings, n_users, row_multiple, split_cap,
-        cap_growth=cfg.cap_growth)
-    item_buckets, i_split = bucket_ragged_split(
-        item_idx, user_idx, ratings, n_items, row_multiple, split_cap,
-        cap_growth=cfg.cap_growth)
+    user_buckets, u_split, item_buckets, i_split = bucketize_cached(
+        user_idx, item_idx, ratings, n_users, n_items, row_multiple,
+        split_cap, cfg.cap_growth, bucket_cache_dir)
     iters_list = [c.iterations for c in cfgs]
     log.info("als_train_grid: %d grid points × (%d ratings, %d users, %d "
              "items, rank %d, %s iters), solver %s, device %s", n_grid,
@@ -266,10 +272,8 @@ def als_train_grid(
              "-".join(map(str, sorted(set(iters_list)))), cfg.solver, dev)
 
     dtype = getattr(torch, cfg.dtype)
-    ub_dev = _put_buckets(user_buckets, dev)
-    ib_dev = _put_buckets(item_buckets, dev)
-    u_split_dev = torch.as_tensor(u_split, dtype=torch.int64, device=dev)
-    i_split_dev = torch.as_tensor(i_split, dtype=torch.int64, device=dev)
+    ub_dev, u_plan = _put_side(user_buckets, u_split, dev)
+    ib_dev, i_plan = _put_side(item_buckets, i_split, dev)
 
     if init_item_factors is None:
         item_f = torch.stack([
@@ -299,10 +303,10 @@ def als_train_grid(
         act = torch.tensor([t < n for n in iters_list], device=dev)[
             None, :, None]
         user_f = torch.where(act, _solve_buckets_grid(
-            item_f, n_users, ub_dev, cfg, regs, alphas, u_split_dev,
+            item_f, n_users, ub_dev, cfg, regs, alphas, u_plan,
             row_multiple), user_f)
         item_f = torch.where(act, _solve_buckets_grid(
-            user_f, n_items, ib_dev, cfg, regs, alphas, i_split_dev,
+            user_f, n_items, ib_dev, cfg, regs, alphas, i_plan,
             row_multiple), item_f)
         if compute_rmse:
             total, count = _predict_sq_err_grid(user_f, item_f, ub_dev,
@@ -349,16 +353,24 @@ def grid_dispatch(
     *,
     rmse_flags: Optional[Sequence[bool]] = None,
     host_factors: bool = True,
+    cache_dir: Optional[str] = None,
 ) -> Optional[list]:
     """Partition the grid and train each batchable group as one grid on
     `ctx.device`; the skeleton behind an ALS template's `train_grid`.
 
-    Returns None when no two cells are batchable (the caller trains them
-    sequentially); otherwise one model per cell. `train_one(i)` trains
+    Returns None when no two cells are batchable, or under the assert
+    mode (`utils/checks.py`: the grid has no checked loop, so every cell
+    must take the checked `als_train`), and the caller trains them
+    sequentially; otherwise one model per cell. `train_one(i)` trains
     cell i the ordinary way (singleton groups); `build_model(i, result)`
     wraps cell i's `ALSResult` into the template's model. A group computes
-    an RMSE history when any member's `rmse_flags` entry asks for one."""
+    an RMSE history when any member's `rmse_flags` entry asks for one.
+    `cache_dir`: the bucket cache the groups' bucketing goes through."""
     n = len(cfgs)
+    if checks.enabled():
+        log.info("%s: --check-asserts armed — training %d grid points "
+                 "sequentially (checked)", log_prefix, n)
+        return None
     groups = grid_groups(cfgs)
     if max(len(g) for g in groups) == 1:
         log.info("%s: no two of the %d grid points share shapes — "
@@ -374,7 +386,7 @@ def grid_dispatch(
             cfgs=[cfgs[i] for i in group], device=ctx.device,
             compute_rmse=bool(rmse_flags is not None
                               and any(rmse_flags[i] for i in group)),
-            host_factors=host_factors,
+            host_factors=host_factors, bucket_cache_dir=cache_dir,
         )
         for i, r in zip(group, results):
             models[i] = build_model(i, r)

@@ -214,6 +214,7 @@ class ECommAlgorithm(Algorithm):
     each query's lookups are its user's."""
 
     params_class = ECommAlgorithmParams
+    checkpoint_tags = ("als",)
 
     def __init__(self, params: ECommAlgorithmParams):
         self.params = params
@@ -234,6 +235,9 @@ class ECommAlgorithm(Algorithm):
             pd.user_idx, pd.item_idx, pd.confidence,
             n_users=len(pd.user_ids), n_items=len(pd.item_ids),
             cfg=cfg, device=ctx.device,
+            bucket_cache_dir=ctx.algorithm_cache_dir("als"),
+            checkpoint_dir=ctx.algorithm_checkpoint_dir("als"),
+            checkpoint_every=ctx.checkpoint_every,
         )
         return ECommModelData(
             user_factors=result.user_factors,

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 from typing import Optional
 
 import numpy as np
@@ -187,6 +188,7 @@ class ALSAlgorithm(Algorithm):
     seen items for serve-time exclusion."""
 
     params_class = ALSAlgorithmParams
+    checkpoint_tags = ("als",)
 
     def __init__(self, params: ALSAlgorithmParams):
         self.params = params
@@ -198,12 +200,20 @@ class ALSAlgorithm(Algorithm):
             n_users=len(pd.user_ids), n_items=len(pd.item_ids),
             cfg=self._als_config(ctx), device=ctx.device,
             compute_rmse=p.computeRMSE,
+            checkpoint_dir=ctx.algorithm_checkpoint_dir("als"),
+            checkpoint_every=ctx.checkpoint_every,
+            bucket_cache_dir=ctx.algorithm_cache_dir("als"),
         )
-        for step, t in enumerate(result.epoch_times, 1):
-            rmse = (result.rmse_history[step - 1]
-                    if step <= len(result.rmse_history) else None)
-            log.info("train/als step %d: epoch_time_s=%.6f rmse=%s", step, t,
-                     rmse)
+        # epoch_times covers the epochs run in this call (a resumed run
+        # skips its first start_epoch); rmse_history covers them all
+        for off, t in enumerate(result.epoch_times):
+            step = result.start_epoch + off + 1
+            rec = {"epoch_time_s": t}
+            if result.rmse_history and step <= len(result.rmse_history):
+                rmse = result.rmse_history[step - 1]
+                if not math.isnan(rmse):  # NaN: an epoch without RMSE
+                    rec["rmse"] = rmse
+            ctx.metrics.emit("train/als", step=step, **rec)
         return ALSModel(
             user_factors=result.user_factors,
             item_factors=result.item_factors,
@@ -267,6 +277,7 @@ class ALSAlgorithm(Algorithm):
             log_prefix="ALSAlgorithm.train_grid",
             rmse_flags=[a.params.computeRMSE for a in algos],
             host_factors=False,
+            cache_dir=ctx.algorithm_cache_dir("als"),
         )
 
     def predict(self, model: ALSModel, query: Query) -> PredictedResult:

@@ -273,6 +273,7 @@ class ALSAlgorithm(Algorithm):
     model."""
 
     params_class = ALSAlgorithmParams
+    checkpoint_tags = ("als",)
 
     def __init__(self, params: ALSAlgorithmParams):
         self.params = params
@@ -303,6 +304,9 @@ class ALSAlgorithm(Algorithm):
             pd.user_idx, pd.item_idx, pd.counts,
             n_users=len(pd.user_ids), n_items=len(pd.item_ids),
             cfg=self._als_config(ctx), device=ctx.device,
+            bucket_cache_dir=ctx.algorithm_cache_dir("als"),
+            checkpoint_dir=ctx.algorithm_checkpoint_dir("als"),
+            checkpoint_every=ctx.checkpoint_every,
         )
         return self._model_from_item_factors(result.item_factors, pd)
 
@@ -324,6 +328,7 @@ class ALSAlgorithm(Algorithm):
             build_model=lambda i, r: cls._model_from_item_factors(
                 r.item_factors, pd),
             log_prefix="SimilarProduct train_grid",
+            cache_dir=ctx.algorithm_cache_dir("als"),
         )
 
     def predict(self, model: SimilarProductModel,

@@ -1,10 +1,10 @@
 """The port's console — `status`, `app`, `accesskey`, `eventserver`,
-`import`, `export`, `template`, `new`, `build`, `train`, `deploy`, `eval`
-and `batchpredict`, the port of ``predictionio_tpu/tools/console.py``'s
+`import`, `export`, `template`, `new`, `build`, `train`, `deploy`, `eval`,
+`batchpredict` and `run`, the port of ``predictionio_tpu/tools/console.py``'s
 ``cmd_status``, ``cmd_app`` (new, list, channel-new), ``cmd_accesskey``,
 ``cmd_eventserver``, ``cmd_import``, ``cmd_export``, ``cmd_template``
 (list, get), ``cmd_new``, ``cmd_build``, ``cmd_train``, ``cmd_deploy``,
-``cmd_eval`` and ``cmd_batchpredict``.
+``cmd_eval``, ``cmd_batchpredict`` and ``cmd_run``.
 
     python -m predictionio_torch.tools.console status
     python -m predictionio_torch.tools.console app new NAME
@@ -21,13 +21,18 @@ and `batchpredict`, the port of ``predictionio_tpu/tools/console.py``'s
         [--app-name A]
     python -m predictionio_torch.tools.console build [--engine-json E]
     python -m predictionio_torch.tools.console train --engine-json E \\
-        [--events F] [--model-out M] [--device cuda|cpu]
+        [--events F] [--model-out M] [--device cuda|cpu] \\
+        [--checkpoint-dir D [--checkpoint-every N]] [--profile-dir P] \\
+        [--metrics-file F] [--debug-nans] [--check-asserts] \\
+        [--skip-sanity-check] [--batch LABEL] [--verbose N]
     python -m predictionio_torch.tools.console deploy --engine-json E \\
         [--model M] [--port 0] [--device cuda|cpu]
     python -m predictionio_torch.tools.console eval EVALUATION_CLASS \\
         [GENERATOR_CLASS] [--events F] [--out R] [--device cuda|cpu]
     python -m predictionio_torch.tools.console batchpredict \\
         --engine-json E [--model M] --input Q --output O [--device cuda|cpu]
+    python -m predictionio_torch.tools.console run MODULE[:CALLABLE] \\
+        [ARGS ...]
 
 As in the reference, the verbs work against the storage that
 ``PIO_STORAGE_*`` configures (by default ``pio.db`` and ``models/``
@@ -44,6 +49,11 @@ and takes no `--device`: it never initialises CUDA. `template get`
 scaffolds an engine directory from the registry
 (`templates/registry.py`), and `build` checks its engine.json: the
 factory resolves and every component's params extract.
+`train --checkpoint-dir D` saves each algorithm's trainer state under
+D/<tag> (ALS: its factors every `--checkpoint-every` epochs, default 1),
+and the same command run again resumes from the latest step of the same
+data and config. `run` calls a module's `main(args)` or a named callable
+in this process.
 """
 
 from __future__ import annotations
@@ -229,23 +239,25 @@ def cmd_build(args) -> int:
 
 
 def cmd_train(args) -> int:
-    from predictionio_torch.controller.context import WorkflowContext
-    from predictionio_torch.workflow.core_workflow import CoreWorkflow
-    from predictionio_torch.workflow.workflow_utils import (
-        extract_engine_params,
-        get_engine,
-        read_engine_json,
-    )
+    from predictionio_torch.workflow.create_workflow import run_train
 
     try:
-        variant = read_engine_json(args.engine_json)
-        engine = get_engine(variant.engine_factory)
-        engine_params = extract_engine_params(engine, variant)
-        ctx = WorkflowContext(device=args.device, seed=args.seed,
-                              events_path=args.events)
-        instance = CoreWorkflow.run_train(engine, engine_params, variant,
-                                          ctx, args.model_out,
-                                          args.engine_version)
+        instance = run_train(
+            engine_json=args.engine_json,
+            engine_version=args.engine_version,
+            batch=args.batch,
+            seed=args.seed,
+            device=args.device,
+            skip_sanity_check=args.skip_sanity_check,
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every,
+            profile_dir=args.profile_dir,
+            metrics_file=args.metrics_file,
+            debug_nans=args.debug_nans,
+            check_asserts=args.check_asserts,
+            events_path=args.events,
+            model_out=args.model_out,
+        )
     except FileNotFoundError as e:
         print(f"Cannot read input: {e}", file=sys.stderr)
         return 1
@@ -258,31 +270,18 @@ def cmd_train(args) -> int:
 
 
 def cmd_eval(args) -> int:
-    from predictionio_torch.controller.context import WorkflowContext
-    from predictionio_torch.workflow.core_workflow import CoreWorkflow
-    from predictionio_torch.workflow.workflow_utils import resolve_symbol
-
-    def instantiate(dotted: str):
-        obj = resolve_symbol(dotted)
-        return obj() if isinstance(obj, type) else obj
+    from predictionio_torch.workflow.create_workflow import run_evaluation
 
     try:
-        evaluation = instantiate(args.evaluation_class)
-        if args.generator_class:
-            generator = instantiate(args.generator_class)
-        elif hasattr(evaluation, "engine_params_list"):
-            generator = evaluation  # an Evaluation doubling as generator
-        else:
-            raise ValueError("No engine params generator: pass "
-                             "generator_class or give the Evaluation an "
-                             "engine_params_list.")
-        ctx = WorkflowContext(device=args.device, seed=args.seed,
-                              events_path=args.events)
-        instance, result = CoreWorkflow.run_evaluation(
-            evaluation, generator, ctx,
+        instance, result = run_evaluation(
             evaluation_class=args.evaluation_class,
-            generator_class=args.generator_class or args.evaluation_class,
-            out_path=args.out)
+            generator_class=args.generator_class,
+            batch=args.batch,
+            seed=args.seed,
+            device=args.device,
+            events_path=args.events,
+            out_path=args.out,
+        )
     except FileNotFoundError as e:
         print(f"Cannot read input: {e}", file=sys.stderr)
         return 1
@@ -308,6 +307,34 @@ def cmd_batchpredict(args) -> int:
         return 1
     print(f"Batch predict completed: {n} queries → {args.output}")
     return 0
+
+
+def cmd_run(args) -> int:
+    """`run MODULE[:CALLABLE] [ARGS ...]`: the callable with ARGS, or the
+    module's `main(ARGS)`, in this process; an int it returns is the exit
+    code."""
+    import importlib
+
+    module_name, _, attr = args.target.partition(":")
+    try:
+        module = importlib.import_module(module_name)
+    except ImportError as e:
+        print(f"Cannot import {module_name!r}: {e}", file=sys.stderr)
+        return 1
+    if attr:
+        fn = getattr(module, attr, None)
+        if fn is None:
+            print(f"{module_name} has no attribute {attr!r}",
+                  file=sys.stderr)
+            return 1
+        result = fn(*args.args)
+    elif hasattr(module, "main"):
+        result = module.main(args.args)
+    else:
+        print(f"{module_name} has no main(); use {module_name}:<callable>",
+              file=sys.stderr)
+        return 1
+    return result if isinstance(result, int) else 0
 
 
 def cmd_deploy(args) -> int:
@@ -441,6 +468,13 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--device", default=None,
                         help="cuda (default), cuda:N or cpu")
 
+    def add_run_args(sp):
+        sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--batch", default="",
+                        help="a label of the run, kept on its instance")
+        sp.add_argument("--verbose", type=int, default=0,
+                        help="2 or more logs at DEBUG")
+
     t = sub.add_parser("train", help="train an engine")
     t.add_argument("--engine-json", default="engine.json")
     t.add_argument("--engine-version", default="1")
@@ -451,7 +485,28 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write the trained models to this model file "
                         "instead of the model repository")
     add_device(t)
-    t.add_argument("--seed", type=int, default=0)
+    add_run_args(t)
+    t.add_argument("--skip-sanity-check", action="store_true",
+                   help="skip the sanity checks after each stage")
+    t.add_argument("--checkpoint-dir", default=None,
+                   help="checkpoint each algorithm's trainer state under "
+                        "this directory every --checkpoint-every of its "
+                        "steps (ALS: epochs); running train again resumes "
+                        "from the latest step")
+    t.add_argument("--checkpoint-every", type=int, default=None,
+                   help="default: each algorithm's own (ALS: every "
+                        "epoch)")
+    t.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the train "
+                        "(trace.json) here")
+    t.add_argument("--metrics-file", default=None,
+                   help="append per-epoch metrics here as JSON lines")
+    t.add_argument("--debug-nans", action="store_true",
+                   help="assert the factors finite after each half-epoch "
+                        "(as --check-asserts)")
+    t.add_argument("--check-asserts", action="store_true",
+                   help="assert mode: the factors checked finite after "
+                        "each half-epoch")
     t.set_defaults(fn=cmd_train)
 
     d = sub.add_parser("deploy", help="serve a trained engine")
@@ -474,7 +529,7 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--out", default=None,
                    help="also write the evaluation instance here as JSON")
     add_device(e)
-    e.add_argument("--seed", type=int, default=0)
+    add_run_args(e)
     e.set_defaults(fn=cmd_eval)
 
     b = sub.add_parser("batchpredict",
@@ -488,16 +543,25 @@ def build_parser() -> argparse.ArgumentParser:
     b.add_argument("--output", required=True)
     add_device(b)
     b.set_defaults(fn=cmd_batchpredict)
+
+    r = sub.add_parser("run", help="run a module's main() or a callable "
+                                   "in this process")
+    r.add_argument("target", help="module or module:callable to run")
+    r.add_argument("args", nargs=argparse.REMAINDER,
+                   help="arguments passed on to the target")
+    r.set_defaults(fn=cmd_run)
     return p
 
 
 def main(argv=None) -> int:
     import logging
 
-    logging.basicConfig(level=logging.INFO,
+    args = build_parser().parse_args(argv)
+    # --verbose 2 or more logs at DEBUG, as the reference's console does
+    logging.basicConfig(level=logging.DEBUG if getattr(args, "verbose", 0)
+                        >= 2 else logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
-    args = build_parser().parse_args(argv)
     opened_here = Storage._instance is None
     try:
         return args.fn(args)

@@ -29,6 +29,15 @@ Sites in the port:
   before the transaction commits
 - `events.group.pre_commit` — after a group-commit insert's
   `executemany`, before the shared transaction commits
+- `als.epoch_boundary` — in `ops.als.als_train` (its `segmented_train`) after each chunk of
+  epochs is computed, before its checkpoint save (`:N` dies after the
+  N-th chunk, which leaves step N − 1 to resume from at
+  `--checkpoint-every 1`)
+- `checkpoint.pre_replace` — in `CheckpointManager.save`, the step written
+  to its temporary directory and the old step renamed aside, before the
+  publishing `os.replace`
+- `segment.boundary` — `workflow.segmented.segmented_train`'s default
+  site, at each chunk boundary before its save
 """
 
 from __future__ import annotations

@@ -138,11 +138,13 @@ class CoreWorkflow:
         ctx: WorkflowContext,
         model_out: Optional[str] = None,
         engine_version: str = "1",
+        sanity_check: bool = True,
     ):
         """Train every algorithm of `engine_params` (with the sanity checks
-        after each stage) and persist the models: to the context's
-        storage (an engine-instance row and the model blob), or, with
-        `model_out`, to that model file. Returns the instance record."""
+        after each stage unless `sanity_check` is False) and persist the
+        models: to the context's storage (an engine-instance row and the
+        model blob), or, with `model_out`, to that model file. Returns the
+        instance record."""
         instance = storage_base.EngineInstance(
             id="",
             status="RUNNING",
@@ -152,13 +154,15 @@ class CoreWorkflow:
             engine_version=engine_version,
             engine_variant=variant.variant,
             engine_factory=variant.engine_factory,
+            batch=ctx.batch,
             env={},
             **engine_params_to_json(engine_params),
         )
         if model_out:
             with tracked_instance(None, instance,
                                   label="CoreWorkflow.run_train"):
-                models = engine.train(ctx, engine_params, sanity_check=True)
+                models = engine.train(ctx, engine_params,
+                                      sanity_check=sanity_check)
             write_model_file(model_out, instance, models)
             log.info("CoreWorkflow.run_train: instance %s trained %d "
                      "model(s) → %s", instance.id, len(models), model_out)
@@ -166,7 +170,8 @@ class CoreWorkflow:
         storage = ctx.storage
         with tracked_instance(storage.meta_engine_instances(), instance,
                               label="CoreWorkflow.run_train"):
-            models = engine.train(ctx, engine_params, sanity_check=True)
+            models = engine.train(ctx, engine_params,
+                                      sanity_check=sanity_check)
             blob = engine.serialize_models(models)
             storage.model_data_models().insert(
                 storage_base.Model(id=instance.id, models=blob))
@@ -198,6 +203,7 @@ class CoreWorkflow:
             evaluation_class=evaluation_class or type(evaluation).__name__,
             engine_params_generator_class=(generator_class
                                            or type(generator).__name__),
+            batch=ctx.batch,
         )
         instances = (None if ctx.events_path
                      else ctx.storage.meta_evaluation_instances())

@@ -1101,3 +1101,42 @@ def test_serving_plane_batch_of_128_on_card_matches_host(dev, monkeypatch):
         tied[1:] |= gaps
         for pos in np.nonzero(~tied)[0]:
             assert got[pos][0] == want[pos][0], (user, pos)
+
+
+def _hot_ratings(seed=0, n_u=600, n_i=120, nnz=60_000):
+    """Zipf-ish items: the popular ones hold many more ratings than the
+    split cap below, so a bucket chunk holds several segments of a row."""
+    rng = np.random.default_rng(seed)
+    ui = rng.integers(0, n_u, nnz).astype(np.int32)
+    ii = np.minimum(rng.zipf(1.3, nnz) - 1, n_i - 1).astype(np.int32)
+    r = rng.uniform(1, 5, nnz).astype(np.float32)
+    return ui, ii, r, n_u, n_i
+
+
+@pytest.mark.parametrize("implicit", [False, True])
+def test_split_rows_train_twice_bitwise_on_card(dev, implicit):
+    """Two trains with split rows give the same bits on the card: split
+    rows sum their segments in a fixed order (a float index_add_ with
+    repeated indices would not)."""
+    ui, ii, r, n_u, n_i = _hot_ratings()
+    cfg = als.ALSConfig(rank=64, iterations=3, reg=0.05, split_cap=64,
+                        implicit=implicit)
+    _, split = als.bucket_ragged_split(ii, ui, r, n_i, 8, cfg.split_cap)
+    assert len(split) > 10
+    a = als.als_train(ui, ii, r, n_u, n_i, cfg, device=dev)
+    b = als.als_train(ui, ii, r, n_u, n_i, cfg, device=dev)
+    np.testing.assert_array_equal(a.user_factors, b.user_factors)
+    np.testing.assert_array_equal(a.item_factors, b.item_factors)
+
+
+def test_checkpointed_resume_bitwise_on_card(dev, tmp_path):
+    ui, ii, r, n_u, n_i = _hot_ratings(seed=1)
+    cfg = als.ALSConfig(rank=64, iterations=4, reg=0.05, split_cap=64)
+    want = als.als_train(ui, ii, r, n_u, n_i, cfg, device=dev)
+    als.als_train(ui, ii, r, n_u, n_i, dataclasses.replace(cfg, iterations=2),
+                  device=dev, checkpoint_dir=str(tmp_path))
+    got = als.als_train(ui, ii, r, n_u, n_i, cfg, device=dev,
+                        checkpoint_dir=str(tmp_path))
+    assert got.start_epoch == 2
+    np.testing.assert_array_equal(got.user_factors, want.user_factors)
+    np.testing.assert_array_equal(got.item_factors, want.item_factors)

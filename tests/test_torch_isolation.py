@@ -471,3 +471,86 @@ def test_native_tier_with_jax_and_reference_blocked():
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NATIVE-ISOLATED-OK" in proc.stdout
+
+
+_RUNTIME_RUN = textwrap.dedent("""
+    import importlib.abc, json, os, sys, tempfile
+
+    BLOCKED = {blocked!r}
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError("blocked import of " + name)
+            return None
+
+    before = {{m for m in sys.modules if m.split(".")[0] in BLOCKED}}
+    sys.meta_path.insert(0, Block())
+
+    from predictionio_torch.controller import WorkflowContext
+    from predictionio_torch.tools import console
+    from predictionio_torch.workflow.fake import run_fake_workflow
+    from predictionio_torch.workflow.segmented import segmented_train
+
+    tmp = tempfile.mkdtemp()
+    os.environ["PIO_FS_BASEDIR"] = os.path.join(tmp, "base")
+    os.environ["PIO_BUCKET_CACHE"] = "1"
+    events = os.path.join(tmp, "events.jsonl")
+    with open(events, "w") as f:
+        for n in range(300):
+            f.write(json.dumps({{
+                "event": "rate", "entityType": "user",
+                "entityId": "u%d" % (n % 13), "targetEntityType": "item",
+                "targetEntityId": "i%d" % (n * 7 % 31),
+                "properties": {{"rating": 1 + n % 5}},
+                "eventTime": "2026-01-01T00:%02d:%02dZ" % (n // 60, n % 60)
+            }}) + "\\n")
+    engine_json = os.path.join({repo!r}, "predictionio_torch", "templates",
+                               "recommendation", "engine.json")
+    train = ["train", "--engine-json", engine_json, "--events", events,
+             "--device", "cpu", "--model-out", os.path.join(tmp, "m.pio"),
+             "--checkpoint-dir", os.path.join(tmp, "ckpt"),
+             "--metrics-file", os.path.join(tmp, "metrics.jsonl")]
+    os.environ["PIO_FAULTS"] = "als.epoch_boundary:3=error"
+    assert console.main(train) == 1
+    os.environ["PIO_FAULTS"] = ""
+    assert sorted(os.listdir(os.path.join(tmp, "ckpt", "als"))) == [
+        "step_1", "step_2"]
+    assert console.main(train + ["--check-asserts", "--profile-dir",
+                                 os.path.join(tmp, "prof")]) == 0
+    assert os.path.exists(os.path.join(tmp, "prof", "trace.json"))
+    assert sorted(os.listdir(os.path.join(tmp, "base", "cache", "als")))
+    assert console.main(["eval", "predictionio_torch.templates."
+                         "recommendation.evaluation.RecommendationEvaluation",
+                         "--events", events, "--device", "cpu"]) == 0
+    assert console.main(["app", "new", "MyApp1"]) == 0
+    assert run_fake_workflow(lambda ctx: 7,
+                             WorkflowContext(device="cpu")) == 7
+    state, hist, start = segmented_train(
+        total_steps=4, init_state=lambda: 0,
+        run_chunk=lambda s, n, d: (s + n, [float(d + k) for k in range(n)]),
+        state_to_host=lambda s: {{"s": s}},
+        state_from_host=lambda t: int(t["s"]), fingerprint="f",
+        checkpoint_dir=os.path.join(tmp, "seg"), checkpoint_every=3)
+    assert (state, hist, start) == (4, [0.0, 1.0, 2.0, 3.0], 0)
+    import torch
+    assert not torch.cuda.is_initialized()
+    after = {{m for m in sys.modules if m.split(".")[0] in BLOCKED}}
+    assert after == before, sorted(after - before)
+    print("RUNTIME-ISOLATED-OK")
+""")
+
+
+def test_train_runtime_with_jax_and_reference_blocked():
+    """The train runtime (`--checkpoint-dir` killed and resumed, the bucket
+    cache, `--metrics-file`, `--profile-dir`, `--check-asserts`, the eval
+    grid, `run_fake_workflow`, `segmented_train`) imports neither JAX nor
+    the reference."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("PIO_TORCH_DEVICE", None)
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         _RUNTIME_RUN.format(blocked=BLOCKED, repo=REPO)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "RUNTIME-ISOLATED-OK" in proc.stdout
