@@ -293,6 +293,37 @@ Phases (any failure exits non-zero and prints no result line):
              `index_add_`, atomics) against the port's fixed-order one on
              the item side's buckets: ms, and whether each repeats its
              bits.
+12. classify — the classification ops (`ops/classify.py`) and the
+             classification and leadscoring templates, run last; a child
+             started with the run writes their store (`console import`,
+             the native importer): 2,000,000 `$set` / `$unset` / `$delete`
+             property events of 200,000 users in a 90 / 8 / 2 mix (the
+             reference's bench_aggprops shape; attr0-attr2 and the "plan"
+             label) and 200,000 `view` sessions with about 10 % `buy`s.
+             (a) Config 2's shape, 1,000,000 × 128 f32 → 10 classes, made
+             on the card, linearly separable: `logreg_train` at 200 Adam
+             iterations (wall, upload ms, device ms a step by CUDA events,
+             peak memory, training accuracy), again and with
+             `checkpoint_every` 50 (bars: the same bits), the first
+             100,000 rows on the card against the CPU (rtol 2e-4 / atol
+             1e-5), `naive_bayes_train` on |x|. (b) 8-cell grids at
+             200,000 × 16 → 4: `logreg_train_grid` with mixed horizons
+             (≤ 200) and `naive_bayes_train_grid`, each beside its 8
+             sequential fits, every cell within rtol 2e-4 / atol 1e-5
+             (NB 1e-6 / 1e-7) of its fit. (c) `console template get` and
+             `build` of classification, `console train` of its `naive`
+             default and of a `logisticregression` variant (store read,
+             fit, wall; the points must be the writer's), `console
+             deploy` of each, 100 queries each equal to the in-process
+             model's answer. (d) leadscoring: `console train` at 300
+             iterations, deploy, 100 queries equal to the in-process
+             answer, `console eval` of LeadScoringEvaluation (AUC by
+             regParam, each > 0.6). (e) The drill: `console train
+             --checkpoint-dir D --model-out M` of leadscoring with
+             PIO_FAULTS=logreg.step_boundary:3 dies (exit 137) after its
+             3rd chunk of 30 steps; the same command again resumes from
+             step 60, and M's model bytes equal (d)'s uninterrupted
+             model's. Each line carries the card's name and power limit.
 
 Launch counts are zeroed just before each path (phases 3-4: train →
 serve; phase 5: eval → batchpredict; phase 6: fold; phase 7: online,
@@ -300,11 +331,13 @@ with the deployed child's counts added; phase 8: serving, with the four
 children's counts added; phase 9: eventserver, with the deploy child's
 counts added; phase 10: templates, with every console child's counts
 added; phase 11: runtime, with its console children's counts added, the
-killed train's lost with it) and read just after;
+killed train's lost with it; phase 12: classify, with every console
+child's counts added) and read just after;
 every kernel of a path must have launched there (on the serving path,
 `gj_aug_reg` in (d)'s child alone), and `gj_aug`, `gj_packed`
 and `gj_blocked2` (K > 256 only) and `gj_aug_multi` (K > 128 with M > 1
-only) on none. The eval path's counts add the console
+only) on none; phase 12's path solves no system and launches no solve
+kernel. The eval path's counts add the console
 children's own to the grids'; the sequential trains phase 5a compares
 with run before its counts are zeroed. `--report PATH` also writes a JSON report
 with every number (the ptxas output, the profile's kernel table). The last
@@ -322,6 +355,7 @@ import io
 import json
 import logging
 import os
+import pickle
 import queue
 import re
 import subprocess
@@ -523,6 +557,43 @@ RATINGS_RESULT = "ratings.json"
 RUNTIME_ITERATIONS = 10
 RUNTIME_KILL = 4
 RUNTIME_SPLIT_CAP = 1024
+# 12: config 2's shape (BASELINE.md: LogReg 1 M × 128 → 10 classes, 200
+# Adam iterations) for `logreg_train` and `naive_bayes_train`; the chunk
+# of the checkpointed fit; the rows of the fit held against the CPU's
+CONFIG2_N, CONFIG2_D, CONFIG2_C, CONFIG2_ITERS = 1_000_000, 128, 10, 200
+CONFIG2_LR = 0.1
+CONFIG2_CHUNK = 50
+CONFIG2_CPU_N = 100_000
+# the bars of the reference's tests/test_classify_grid.py
+LOGREG_TOL = {"rtol": 2e-4, "atol": 1e-5}
+NB_TOL = {"rtol": 1e-6, "atol": 1e-7}
+# 12b: the grid of BASELINE.md's grid receipt, 8 cells at N 200 000, D 16,
+# C 4, up to 200 Adam iterations: (stepSize, regParam, iterations) a cell
+GRID_N, GRID_D, GRID_C = 200_000, 16, 4
+GRID_CELLS = ((0.05, 0.0, 200), (0.1, 0.0, 150), (0.2, 0.0, 100),
+              (0.4, 0.0, 50), (0.05, 0.01, 200), (0.1, 0.01, 175),
+              (0.2, 0.01, 125), (0.4, 0.01, 75))
+GRID_SMOOTHINGS = (0.01, 0.1, 0.5, 1.0, 2.0, 5.0, 10.0, 25.0)
+# 12c-12e: the classification store (the shape of the reference's
+# bench.py::bench_aggprops: $set / $unset / $delete 90 / 8 / 2 over
+# 200 000 entities) and the leadscoring sessions, by scale: (property
+# events, users, sessions); written by a child started with the run
+CLASSIFY_SCALES = {"2m": (2_000_000, 200_000, 200_000),
+                   "20k": (20_000, 2_000, 2_000)}
+CLASSIFY_MIX = (90, 8, 2)
+CLASSIFY_APP, LEAD_APP = "Attr2m", "Lead200k"
+CLASSIFY_RESULT = "classify.json"
+CLASSIFY_QUERIES = 100
+LEAD_PAGES, LEAD_REFERRERS = 20, 10
+LEAD_BROWSERS = ("Chrome", "Firefox", "Safari", "Edge")
+# the leadscoring train killed after its 3rd chunk of 30 Adam steps
+# (checkpoint_every_or(300 // 10)), before that chunk's save: it resumes
+# from step 60
+LEAD_KILL = 3
+LEAD_CHUNK = 30
+CLASSIFY_TEMPLATE_NAMES = ("classification", "leadscoring")
+LEAD_EVAL_CLASS = ("predictionio_torch.templates.leadscoring.evaluation."
+                   "LeadScoringEvaluation")
 # deploys the console in a child process and writes, when it exits, its
 # launch counts to the file named by its first argument
 _DEPLOY_CHILD = (
@@ -3352,6 +3423,11 @@ def _store_at(base: str):
     return Storage(StorageConfig(metadata=src, modeldata=src, eventdata=src))
 
 
+def _stamp(t0, seconds: int) -> str:
+    """`t0` + `seconds` as an event time."""
+    return (t0 + timedelta(seconds=seconds)).strftime("%Y-%m-%dT%H:%M:%S.%fZ")
+
+
 def _template_events(data, rng) -> tuple:
     """10a's events as JSON-lines dicts: synth_implicit's training pairs
     as `view`s one second apart, a seeded one in BUY_EVERY of them also
@@ -3368,15 +3444,11 @@ def _template_events(data, rng) -> tuple:
     t0 = datetime(2026, 1, 1, tzinfo=timezone.utc)
     train_u, train_i = data.train_u.tolist(), data.train_i.tolist()
 
-    def stamp(seconds):
-        return (t0 + timedelta(seconds=seconds)).strftime(
-            "%Y-%m-%dT%H:%M:%S.%fZ")
-
     def pair(name, k, seconds):
         return {"event": name, "entityType": "user",
                 "entityId": users[train_u[k]], "targetEntityType": "item",
                 "targetEntityId": items[train_i[k]],
-                "eventTime": stamp(seconds)}
+                "eventTime": _stamp(t0, seconds)}
 
     events = [pair("view", k, k) for k in range(n)]
     events += [pair("buy", k, n + j) for j, k in enumerate(buys.tolist())]
@@ -3386,14 +3458,14 @@ def _template_events(data, rng) -> tuple:
         for item in items}
     events += [{"event": "$set", "entityType": "item", "entityId": item,
                 "properties": {"categories": cats},
-                "eventTime": stamp(t_props)}
+                "eventTime": _stamp(t0, t_props)}
                for item, cats in item_cats.items()]
     unavailable = sorted(items[i] for i in rng.choice(
         np.unique(data.train_i), UNAVAILABLE, replace=False))
     events.append({"event": "$set", "entityType": "constraint",
                    "entityId": "unavailableItems",
                    "properties": {"items": unavailable},
-                   "eventTime": stamp(t_props + 1)})
+                   "eventTime": _stamp(t0, t_props + 1)})
     return events, n, len(buys), item_cats, unavailable
 
 
@@ -4110,7 +4182,8 @@ def phase_templates(report: dict, device, tmp: str, served: dict,
     emit(dict(phase="templates_eval", **evaluation))
     report.setdefault("templates_log", {})["eval"] = \
         eval_log.splitlines()[-40:]
-    if sorted(evaluation["templates_listed"]) != sorted(TEMPLATE_NAMES):
+    if sorted(evaluation["templates_listed"]) != sorted(
+            TEMPLATE_NAMES + CLASSIFY_TEMPLATE_NAMES):
         raise AssertionError(f"console template list printed "
                              f"{evaluation['templates_listed']}")
     wall = time.perf_counter() - t_all
@@ -4158,17 +4231,18 @@ def write_ratings_store(base: str, scale: str) -> None:
                    "write_s": time.perf_counter() - t_start}, f)
 
 
-def _await_ratings(writer, base: str) -> dict:
-    """The ratings writer's result once it has exited; raises with its
-    log's tail if it failed or fell back from the native tier."""
+def _await_ratings(writer, base: str, result: str = RATINGS_RESULT,
+                   who: str = "the ratings store's writer") -> dict:
+    """The writer's result (`result` under `base`) once it has exited;
+    raises with its log's tail if it failed or fell back from the native
+    tier."""
     rc = writer.wait(timeout=1_200)
-    path = os.path.join(base, RATINGS_RESULT)
+    path = os.path.join(base, result)
     with open(os.path.join(base, "writer.log")) as f:
         log = f.read()
     if rc != 0 or not os.path.exists(path):
-        raise AssertionError(f"the ratings store's writer exited {rc}:\n"
-                             f"{log[-3000:]}")
-    _require_native_log(log, "the ratings store's writer")
+        raise AssertionError(f"{who} exited {rc}:\n{log[-3000:]}")
+    _require_native_log(log, who)
     with open(path) as f:
         return json.load(f)
 
@@ -4322,14 +4396,16 @@ def _start_child(args: list, base: str, env_extra: dict = None):
                             text=True, cwd=HERE, env=env)
 
 
-def _finish(proc, who: str, want_rc: int = 0, timeout_s: float = 900.0):
-    """(stdout, stderr, launch record or None) once `proc` exits with
-    `want_rc`; raises otherwise, or on a native fallback line."""
+def _finish(proc, who: str, want_rc: int = 0, timeout_s: float = 900.0,
+            phase: str = "11"):
+    """(stdout, stderr, launch record or None) once `proc` (a child of
+    `phase`) exits with `want_rc`; raises otherwise, or on a native
+    fallback line."""
     out, err = proc.communicate(timeout=timeout_s)
     if proc.returncode != want_rc:
-        raise AssertionError(f"11 {who} exited {proc.returncode}, want "
+        raise AssertionError(f"{phase} {who} exited {proc.returncode}, want "
                              f"{want_rc}:\n{err[-4000:]}")
-    _require_native_log(err, f"11 {who}")
+    _require_native_log(err, f"{phase} {who}")
     record = (json.loads(out.strip().splitlines()[-1]) if want_rc == 0
               else None)
     return out, err, record
@@ -4575,6 +4651,562 @@ def phase_runtime(report: dict, device, tmp: str, served: dict, data,
             "profiled": done["profiled"][2]}
 
 
+# -- phase 12 ----------------------------------------------------------------
+
+def _classify_events(n_events: int, n_users: int, rng) -> tuple:
+    """12c's property events, the shape of the reference's
+    bench.py::bench_aggprops: `n_events` `$set` / `$unset` / `$delete` of
+    users drawn from `n_users`, in CLASSIFY_MIX, one second apart. Each
+    user's plan (its class c) is drawn once; a `$set` sets attr0-attr2 to
+    onehot(c)·4 + a draw of {0, 1} and the plan, an `$unset` removes one
+    attribute. Returns (an iterator of the event dicts, the count of each
+    kind, the users the fold keeps: those whose last event is a
+    `$set`)."""
+    import numpy as np
+
+    mix = np.asarray(CLASSIFY_MIX, dtype=np.float64)
+    kinds = rng.choice(3, n_events, p=mix / mix.sum())
+    users = rng.integers(0, n_users, n_events)
+    plans = rng.integers(0, 3, n_users)
+    noise = rng.integers(0, 2, (n_events, 3))
+    unset = rng.integers(0, 3, n_events)
+    last = np.full(n_users, -1)
+    np.maximum.at(last, users, np.arange(n_events))
+    labeled = int(((last >= 0) & (kinds[np.maximum(last, 0)] == 0)).sum())
+    names = ("$set", "$unset", "$delete")
+    t0 = datetime(2026, 1, 1, tzinfo=timezone.utc)
+
+    def events():
+        for k in range(n_events):
+            kind, user = int(kinds[k]), int(users[k])
+            event = {"event": names[kind], "entityType": "user",
+                     "entityId": f"u{user}", "eventTime": _stamp(t0, k)}
+            if kind == 0:
+                plan = int(plans[user])
+                event["properties"] = {
+                    **{f"attr{j}": 4.0 * (plan == j) + float(noise[k, j])
+                       for j in range(3)},
+                    "plan": float(plan)}
+            elif kind == 1:
+                event["properties"] = {f"attr{int(unset[k])}": None}
+            yield event
+
+    counts = {name: int((kinds == i).sum()) for i, name in enumerate(names)}
+    return events(), counts, labeled
+
+
+def _lead_events(n_sessions: int, rng) -> tuple:
+    """12d's sessions: a `view` of user v{n} opening session s{n} from one
+    of LEAD_PAGES landing pages, LEAD_REFERRERS referrers and the
+    LEAD_BROWSERS, and for some a `buy` in the session, drawn with a
+    conversion logit planted per page, referrer and browser (about 10 % in
+    all). Returns (the event dicts, the sessions, the buys)."""
+    import numpy as np
+
+    pages = rng.integers(0, LEAD_PAGES, n_sessions)
+    refs = rng.integers(0, LEAD_REFERRERS, n_sessions)
+    browsers = rng.integers(0, len(LEAD_BROWSERS), n_sessions)
+    logit = (rng.normal(0.0, 1.0, LEAD_PAGES)[pages]
+             + rng.normal(0.0, 0.5, LEAD_REFERRERS)[refs]
+             + rng.normal(0.0, 0.3, len(LEAD_BROWSERS))[browsers] - 2.3)
+    buyers = np.nonzero(rng.random(n_sessions)
+                        < 1.0 / (1.0 + np.exp(-logit)))[0].tolist()
+    t0 = datetime(2026, 2, 1, tzinfo=timezone.utc)
+    events = [{"event": "view", "entityType": "user", "entityId": f"v{n}",
+               "properties": {"sessionId": f"s{n}",
+                              "landingPageId": f"lp{pages[n]}",
+                              "referrerId": f"r{refs[n]}",
+                              "browser": LEAD_BROWSERS[browsers[n]]},
+               "eventTime": _stamp(t0, n)} for n in range(n_sessions)]
+    events += [{"event": "buy", "entityType": "user", "entityId": f"v{n}",
+                "targetEntityType": "item", "targetEntityId": f"i{n % 50}",
+                "properties": {"sessionId": f"s{n}"},
+                "eventTime": _stamp(t0, n_sessions + j)}
+               for j, n in enumerate(buyers)]
+    return events, n_sessions, len(buyers)
+
+
+def write_classify_store(base: str, scale: str) -> None:
+    """12, in a writer child started with the run: CLASSIFY_APP's property
+    events (`_classify_events`) and LEAD_APP's sessions (`_lead_events`)
+    at CLASSIFY_SCALES[scale], each written as a JSON-lines file and
+    `console import`ed (the native importer) into a sqlite pio.db under
+    `base`, the file deleted after; then CLASSIFY_RESULT under `base`:
+    the counts and each file's and import's seconds."""
+    import numpy as np
+
+    from predictionio_torch.tools import console
+
+    t_start = time.perf_counter()
+    n_events, n_users, n_sessions = CLASSIFY_SCALES[scale]
+    rng = np.random.default_rng(12)
+    props, kinds, labeled = _classify_events(n_events, n_users, rng)
+    lead, sessions, buys = _lead_events(n_sessions, rng)
+    os.environ["PIO_FS_BASEDIR"] = base
+    row = {"scale": scale}
+    for app, events, n in ((CLASSIFY_APP, props, n_events),
+                           (LEAD_APP, lead, len(lead))):
+        path = os.path.join(base, f"{app}.jsonl")
+        t0 = time.perf_counter()
+        with open(path, "w") as f:
+            for event in events:
+                f.write(json.dumps(event) + "\n")
+        file_s = time.perf_counter() - t0
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            if console.main(["app", "new", app]) != 0:
+                raise AssertionError(f"console app new {app} failed")
+            t0 = time.perf_counter()
+            if console.main(["import", "--appname", app, "--input",
+                             path]) != 0:
+                raise AssertionError(f"console import of {app} failed")
+            import_s = time.perf_counter() - t0
+        os.unlink(path)
+        imported = said.getvalue().strip().splitlines()[-1]
+        if imported != f"Imported {n} events.":
+            raise AssertionError(f"console import said {imported!r}")
+        row[app] = {"events": n, "file_s": file_s, "import_s": import_s,
+                    "import_events_per_s": n / import_s}
+    row[CLASSIFY_APP].update(users=n_users, kinds=kinds,
+                             labeled_users=labeled)
+    row[LEAD_APP].update(sessions=sessions, buys=buys)
+    row["write_s"] = time.perf_counter() - t_start
+    with open(os.path.join(base, CLASSIFY_RESULT), "w") as f:
+        json.dump(row, f)
+
+
+def _separable(device, n: int, d: int, c: int, seed: int) -> tuple:
+    """Features x ~ N(0, 1) [n, d] f32 and labels argmax(x @ W) of a seeded
+    W [d, c] (linearly separable), made on `device`; host numpy."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((n, d), generator=gen, device=device)
+    w = torch.randn((d, c), generator=gen, device=device)
+    y = (x @ w).argmax(1).int()
+    return x.cpu().numpy(), y.cpu().numpy()
+
+
+def _same_bits(a, b) -> bool:
+    import numpy as np
+
+    return bool(np.array_equal(a.weights, b.weights)
+                and np.array_equal(a.bias, b.bias)
+                and a.loss_history == b.loss_history)
+
+
+def _within(pairs, tol: dict) -> tuple:
+    """(max abs error over the (got, want) array pairs, all within `tol`)."""
+    import numpy as np
+
+    err, ok = 0.0, True
+    for got, want in pairs:
+        got, want = np.asarray(got), np.asarray(want)
+        err = max(err, float(np.abs(got - want).max()) if got.size else 0.0)
+        ok = ok and got.shape == want.shape and bool(
+            np.allclose(got, want, **tol))
+    return err, ok
+
+
+def _logreg_pairs(got, want) -> list:
+    return [(got.weights, want.weights), (got.bias, want.bias),
+            (got.loss_history, want.loss_history)]
+
+
+def _steps_ms(inputs, device, n_steps: int) -> float:
+    """Device ms an Adam step of `ops.classify`'s fit, by CUDA events
+    around `n_steps` steps on uploaded `inputs` (one cell at CONFIG2_LR)."""
+    import torch
+
+    from predictionio_torch.ops import classify
+
+    lrs = torch.tensor([CONFIG2_LR], device=device)
+    regs = torch.zeros(1, device=device)
+    state = classify._init_state(inputs[0].shape[1], 1, CONFIG2_C, device)
+    classify._logreg_steps(state, inputs, lrs, regs, 2)  # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    classify._logreg_steps(state, inputs, lrs, regs, n_steps)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n_steps
+
+
+def _classify_config2(device) -> dict:
+    """12a: `logreg_train` at config 2's shape on the card (wall, upload,
+    device ms a step, peak memory, training accuracy), twice and chunked
+    (bits), `naive_bayes_train` at the same shape on |x|, and the fit of
+    the first CONFIG2_CPU_N rows on the card against the CPU's."""
+    import numpy as np
+    import torch
+
+    from predictionio_torch.device import synchronize
+    from predictionio_torch.ops import classify
+
+    n, d, c = CONFIG2_N, CONFIG2_D, CONFIG2_C
+    t0 = time.perf_counter()
+    x, y = _separable(device, n, d, c, seed=12)
+    make_s = time.perf_counter() - t0
+
+    def timed(fn):
+        synchronize(device)
+        t = time.perf_counter()
+        out = fn()
+        synchronize(device)
+        return out, time.perf_counter() - t
+
+    def fit(rows=n, dev=device, **kw):
+        return timed(lambda: classify.logreg_train(
+            x[:rows], y[:rows], c, iterations=CONFIG2_ITERS,
+            learning_rate=CONFIG2_LR, device=dev, **kw))
+
+    # the fit's upload alone (pageable host memory, as the fit's)
+    uploaded, upload_s = timed(lambda: torch.from_numpy(x).to(device))
+    del uploaded
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    first, first_s = fit()
+    peak = torch.cuda.max_memory_allocated(device) if on_card else None
+    second, second_s = fit()
+    with tempfile.TemporaryDirectory() as ckpt:
+        chunked, chunked_s = fit(checkpoint_dir=ckpt,
+                                 checkpoint_every=CONFIG2_CHUNK)
+        steps = sorted(os.listdir(ckpt))
+    inputs = classify._logreg_inputs(x, y, c, device)
+    step_ms = _steps_ms(inputs, device, CONFIG2_ITERS)
+    weights = torch.from_numpy(first.weights).to(device)
+    bias = torch.from_numpy(first.bias).to(device)
+    accuracy = float(((inputs[0][:n] @ weights + bias).argmax(1)
+                      == inputs[1][:n]).float().mean())
+    del inputs
+    counts = np.abs(x)
+    _, nb_s = timed(lambda: classify.naive_bayes_train(counts, y, c,
+                                                       device=device))
+    card, card_s = fit(rows=CONFIG2_CPU_N)
+    host, host_s = fit(rows=CONFIG2_CPU_N, dev=torch.device("cpu"))
+    cpu_err, cpu_ok = _within(_logreg_pairs(card, host), LOGREG_TOL)
+    return {"shape": [n, d, c], "iterations": CONFIG2_ITERS,
+            "learning_rate": CONFIG2_LR, "make_s": make_s,
+            "upload_ms": upload_s * 1e3, "fit_s": first_s,
+            "fit_again_s": second_s, "fit_chunked_s": chunked_s,
+            "step_ms": step_ms, "peak_bytes": peak,
+            "train_accuracy": accuracy,
+            "loss_first_last": [first.loss_history[0],
+                                first.loss_history[-1]],
+            "bitwise_again": _same_bits(first, second),
+            "bitwise_chunked": _same_bits(first, chunked),
+            "chunk": CONFIG2_CHUNK, "checkpoint_steps": steps,
+            "nb_fit_s": nb_s,
+            "cpu_rows": CONFIG2_CPU_N, "card_fit_s": card_s,
+            "cpu_fit_s": host_s, "card_cpu_max_abs": cpu_err,
+            "card_cpu_within_bars": cpu_ok}
+
+
+def _classify_grid(device) -> dict:
+    """12b: `logreg_train_grid` over GRID_CELLS (mixed horizons) and
+    `naive_bayes_train_grid` over GRID_SMOOTHINGS at GRID_N × GRID_D →
+    GRID_C, each timed against its cells' sequential fits in this run and
+    every cell held against its sequential fit at the reference's bars."""
+    import numpy as np
+
+    from predictionio_torch.device import synchronize
+    from predictionio_torch.ops import classify
+
+    x, y = _separable(device, GRID_N, GRID_D, GRID_C, seed=13)
+    counts = np.abs(x)
+
+    def timed(fn):
+        synchronize(device)
+        t = time.perf_counter()
+        out = fn()
+        synchronize(device)
+        return out, time.perf_counter() - t
+
+    grid, grid_s = timed(lambda: classify.logreg_train_grid(
+        x, y, GRID_C, [n for _, _, n in GRID_CELLS],
+        [lr for lr, _, _ in GRID_CELLS], [rg for _, rg, _ in GRID_CELLS],
+        device=device))
+    seq, seq_s = timed(lambda: [classify.logreg_train(
+        x, y, GRID_C, iterations=n, learning_rate=lr, reg=rg, device=device)
+        for lr, rg, n in GRID_CELLS])
+    nb_grid, nb_grid_s = timed(lambda: classify.naive_bayes_train_grid(
+        counts, y, GRID_C, GRID_SMOOTHINGS, device=device))
+    nb_seq, nb_seq_s = timed(lambda: [classify.naive_bayes_train(
+        counts, y, GRID_C, smoothing=s, device=device)
+        for s in GRID_SMOOTHINGS])
+    logreg = [_within(_logreg_pairs(g, s), LOGREG_TOL)
+              for g, s in zip(grid, seq)]
+    nb = [_within([(g.log_prior, s.log_prior), (g.log_theta, s.log_theta)],
+                  NB_TOL) for g, s in zip(nb_grid, nb_seq)]
+    return {"shape": [GRID_N, GRID_D, GRID_C], "cells": GRID_CELLS,
+            "history_lengths": [len(g.loss_history) for g in grid],
+            "logreg_grid_s": grid_s, "logreg_sequential_s": seq_s,
+            "nb_grid_s": nb_grid_s, "nb_sequential_s": nb_seq_s,
+            "logreg_cell_max_abs": [e for e, _ in logreg],
+            "logreg_cells_within": all(ok for _, ok in logreg),
+            "nb_cell_max_abs": [e for e, _ in nb],
+            "nb_cells_within": all(ok for _, ok in nb),
+            "smoothings": GRID_SMOOTHINGS}
+
+
+def _served_equal(url: str, queries: list, predict) -> dict:
+    """Every query POSTed to `url` answers as `predict` (the in-process
+    model) does; the answers' ms."""
+    import numpy as np
+
+    ms, differ = [], []
+    for q in queries:
+        t0 = time.perf_counter()
+        got = _post(url, q)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if got != predict(q):
+            differ.append((q, got))
+    return {"queries": len(queries), "differ": differ[:5],
+            "equal": len(queries) - len(differ),
+            "ms_p50": float(np.percentile(ms, 50)),
+            "ms_p99": float(np.percentile(ms, 99))}
+
+
+def _count_logged(stderr: str, pattern: str) -> list:
+    """The integers that `pattern`'s groups match in the last log line it
+    matches ([] when none does)."""
+    found = re.findall(pattern, stderr)
+    if not found:
+        return []
+    last = found[-1]
+    return [int(v) for v in (last if isinstance(last, tuple) else (last,))]
+
+
+def _finish_together(started: dict, t_start: dict, want_rc: dict) -> tuple:
+    """`_finish` of every child of `started` (name → process) on threads of
+    its own, so that no child waits on a full pipe: ({name: (stdout,
+    stderr, launch record)}, {name: seconds from its start, `t_start[name]`,
+    to its exit}). `want_rc` names the children that must exit with
+    another code than 0."""
+    def finish(name, proc):
+        out = _finish(proc, name, want_rc.get(name, 0), phase="12")
+        return out, time.perf_counter() - t_start[name]
+
+    with concurrent.futures.ThreadPoolExecutor(len(started)) as pool:
+        futures = {name: pool.submit(finish, name, proc)
+                   for name, proc in started.items()}
+        results = {name: fut.result() for name, fut in futures.items()}
+    return ({name: out for name, (out, _) in results.items()},
+            {name: wall for name, (_, wall) in results.items()})
+
+
+def phase_classify(report: dict, device, tmp: str, writer,
+                   base: str) -> dict:
+    """Phase 12: (a) the classification ops at config 2's shape, (b) their
+    grids, (c) the classification template over the property store, (d)
+    the leadscoring template (train, serve, AUC eval), (e) its crash
+    drill. `writer` is the child writing the store under `base`
+    (`write_classify_store`). Returns each console child's launch
+    record."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    card = report["card"]
+    a_row = _classify_config2(device)
+    emit(dict(phase="classify", part="a_config2", card=card, **a_row))
+    if not (a_row["bitwise_again"] and a_row["bitwise_chunked"]
+            and a_row["card_cpu_within_bars"]
+            and a_row["checkpoint_steps"] == [
+                f"step_{s}" for s in range(CONFIG2_ITERS - 2 * CONFIG2_CHUNK,
+                                           CONFIG2_ITERS + 1, CONFIG2_CHUNK)]
+            and a_row["train_accuracy"] > 0.8):
+        raise AssertionError(f"12a: config 2's fits failed their bars: "
+                             f"{a_row}")
+    b_row = _classify_grid(device)
+    emit(dict(phase="classify", part="b_grid", card=card, **b_row))
+    if not (b_row["logreg_cells_within"] and b_row["nb_cells_within"]
+            and b_row["history_lengths"] == [n for _, _, n in GRID_CELLS]):
+        raise AssertionError(f"12b: a grid cell left its bar: {b_row}")
+
+    t0 = time.perf_counter()
+    written = _await_ratings(writer, base, CLASSIFY_RESULT,
+                             "the classification store's writer")
+    waited_s = time.perf_counter() - t0
+    dev = str(device)
+    cls_json = _scaffolded("classification",
+                           os.path.join(tmp, "Classification"), CLASSIFY_APP)
+    with open(cls_json) as f:
+        variant = json.load(f)
+    variant.update(id="classification-lr", algorithms=[
+        {"name": "logisticregression",
+         "params": {"iterations": CONFIG2_ITERS, "stepSize": CONFIG2_LR,
+                    "regParam": 0.0}}])
+    lr_json = os.path.join(tmp, "Classification", "engine-lr.json")
+    with open(lr_json, "w") as f:
+        json.dump(variant, f, indent=2)
+    lead_json = _scaffolded("leadscoring", os.path.join(tmp, "LeadScoring"),
+                            LEAD_APP)
+    ckpt = os.path.join(tmp, "lead-ckpt")
+    drill_model = os.path.join(tmp, "lead-drill.pio")
+
+    def train(engine_json: str, *extra) -> list:
+        return ["train", "--engine-json", engine_json, "--device", dev,
+                *extra]
+
+    drill = train(lead_json, "--checkpoint-dir", ckpt, "--model-out",
+                  drill_model)
+    deploys, later = {}, {}
+    storage = None
+    try:
+        # the three trains, the drill's killed one and the evaluation start
+        # together; the evaluation runs on beside the servers
+        eval_out = os.path.join(tmp, "lead-eval.json")
+        t0 = time.perf_counter()
+        t_start = {name: t0 for name in (
+            "train_naive", "train_lr", "train_lead", "killed", "eval")}
+        later = {"eval": _start_child(
+            ["eval", LEAD_EVAL_CLASS, "--device", dev, "--out", eval_out],
+            base, {"PIO_EVAL_APP_NAME": LEAD_APP})}
+        started = {
+            "train_naive": _start_child(train(cls_json), base),
+            "train_lr": _start_child(train(lr_json), base),
+            "train_lead": _start_child(train(lead_json), base),
+            "killed": _start_child(drill, base, {
+                "PIO_FAULTS": f"logreg.step_boundary:{LEAD_KILL}"})}
+        done, walls = _finish_together(started, t_start, {"killed": 137})
+        trains_s = time.perf_counter() - t0
+        killed_err = done["killed"][1]
+        killed_steps = sorted(os.listdir(os.path.join(ckpt, "lr")))
+        if ("dying at logreg.step_boundary" not in killed_err
+                or killed_steps != [f"step_{LEAD_CHUNK * k}"
+                                    for k in range(1, LEAD_KILL)]):
+            raise AssertionError(f"12e: the killed train did not die at its "
+                                 f"step boundary ({killed_steps}):\n"
+                                 f"{killed_err[-3000:]}")
+        rows = {}
+        for name in ("train_naive", "train_lr", "train_lead"):
+            _, err, rec = done[name]
+            rows[name] = dict(_stage_seconds(err), wall_s=walls[name],
+                              launches=rec["by_rank"])
+            report.setdefault("classify_log", {})[name] = \
+                err.splitlines()[-30:]
+        points = _count_logged(done["train_naive"][1],
+                               r"DataSource: (\d+) labeled points")
+        sessions = _count_logged(
+            done["train_lead"][1],
+            r"DataSource: (\d+) sessions \((\d+) converted")
+        store = written[CLASSIFY_APP]
+        lead_store = written[LEAD_APP]
+        if (points != [store["labeled_users"]]
+                or _count_logged(done["train_lr"][1],
+                                 r"DataSource: (\d+) labeled points") != points
+                or sessions != [lead_store["sessions"], lead_store["buys"]]):
+            raise AssertionError(f"12c/d: the trains read {points} points and "
+                                 f"{sessions} sessions, the writer wrote "
+                                 f"{written}")
+
+        # the servers and the resumed drill, beside the evaluation
+        launch_paths = {name: os.path.join(tmp, f"classify-{name}.json")
+                        for name in ("naive", "lr", "lead")}
+        deploys = {name: _start_deploy(
+            ["--engine-json", path, "--ip", "127.0.0.1", "--port", "0",
+             "--device", dev], {"PIO_FS_BASEDIR": base}, launch_paths[name])
+            for name, path in (("naive", cls_json), ("lr", lr_json),
+                               ("lead", lead_json))}
+        t0 = time.perf_counter()
+        t_start["resumed"] = t0
+        later["resumed"] = _start_child(drill, base)
+        urls = {}
+        for name, proc in deploys.items():
+            line = _read_deployed_line(proc, 300.0)
+            urls[name] = f"http://127.0.0.1:{int(line.rsplit(':', 1)[1])}"
+        ready_s = time.perf_counter() - t0
+        rng = np.random.default_rng(14)
+        plans = rng.integers(0, 3, CLASSIFY_QUERIES)
+        cls_queries = [
+            {f"attr{j}": 4.0 * (int(p) == j) + float(rng.integers(0, 2))
+             for j in range(3)} for p in plans]
+        lead_queries = [
+            {"landingPageId": f"lp{rng.integers(0, LEAD_PAGES)}",
+             "referrerId": f"r{rng.integers(0, LEAD_REFERRERS)}",
+             "browser": LEAD_BROWSERS[rng.integers(0, len(LEAD_BROWSERS))]}
+            for _ in range(CLASSIFY_QUERIES - 1)]
+        lead_queries.append({"landingPageId": "lp-new", "referrerId": "r-new",
+                             "browser": "Lynx"})
+        storage = _store_at(base)
+        served = {}
+        for name, path, queries in (("naive", cls_json, cls_queries),
+                                    ("lr", lr_json, cls_queries),
+                                    ("lead", lead_json, lead_queries)):
+            predict = _latest_model(storage, path)
+            served[name] = _served_equal(urls[name], queries, predict)
+            if name != "lead":
+                served[name]["planted_class_share"] = float(np.mean(
+                    [predict(q)["label"] == float(p)
+                     for q, p in zip(queries, plans)]))
+        finished, later_walls = _finish_together(later, t_start, {})
+        done.update(finished)
+        walls.update(later_walls)
+        later_s = time.perf_counter() - t0
+        uninterrupted = storage.model_data_models().get(
+            _completed_instance(base, lead_json)).models
+    finally:
+        for proc in list(deploys.values()) + list(later.values()):
+            if proc.poll() is None:
+                _stop(proc)
+        if storage is not None:
+            storage.close()
+    for name, path in launch_paths.items():
+        with open(path) as f:
+            done[f"deploy_{name}"] = (None, None, json.load(f))
+    for name, path in (("naive", cls_json), ("lr", lr_json)):
+        emit(dict(phase="classify", part="c_classification", card=card,
+                  algorithm=name, points=points[0], store=store,
+                  waited_s=waited_s, trains_s=trains_s,
+                  **rows[f"train_{name}"], serve=served[name],
+                  ready_s=ready_s))
+    with open(drill_model, "rb") as f:
+        resumed_models = pickle.load(f)["models"]
+    resumed_err = done["resumed"][1]
+    start = _count_logged(resumed_err,
+                          r"logreg_train: resumed from checkpoint step (\d+)")
+    with open(eval_out) as f:
+        record = json.load(f)
+    results = json.loads(record["evaluator_results_json"])
+    aucs = [{"regParam": r["engineParams"]["algorithms"][0]["params"][
+                 "regParam"], "auc": r["scores"]["AUC"]}
+            for r in results["results"]]
+    metrics_line = re.findall(r"metrics\[train/leadscoring\] (.*)",
+                              done["train_lead"][1])
+    d_row = dict(rows["train_lead"], sessions=lead_store,
+                 metrics_line=metrics_line[-1:], serve=served["lead"],
+                 eval={"status": record["status"], "aucs": aucs,
+                       "best": results["bestScore"]},
+                 eval_launches=done["eval"][2]["by_rank"],
+                 eval_wall_s=walls["eval"], later_s=later_s)
+    emit(dict(phase="classify", part="d_leadscoring", card=card, **d_row))
+    e_row = {"kill_at_chunk": LEAD_KILL, "chunk": LEAD_CHUNK,
+             "steps_after_kill": killed_steps, "resumed_from": start,
+             "killed_wall_s": walls["killed"],
+             "resumed_wall_s": walls["resumed"],
+             "model_bytes": len(resumed_models),
+             "model_bytes_equal": resumed_models == uninterrupted}
+    emit(dict(phase="classify", part="e_drill", card=card, **e_row))
+    bad = [name for name, row in served.items()
+           if row["equal"] != row["queries"]]
+    if bad or record["status"] != "EVALCOMPLETED" or not all(
+            a["auc"] > 0.6 for a in aucs) or not metrics_line:
+        raise AssertionError(f"12c/d: served answers differ in {bad}, or "
+                             f"the evaluation failed: {aucs}")
+    if start != [LEAD_CHUNK * (LEAD_KILL - 1)] or not e_row[
+            "model_bytes_equal"]:
+        raise AssertionError(f"12e: the drill did not resume to the "
+                             f"uninterrupted model: {e_row}")
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "classify", "wall_s": wall, "card": card})
+    report["classify"] = {"a": a_row, "b": b_row, "c": {
+        "store": store, "trains": rows, "served": served},
+        "d": d_row, "e": e_row, "wall_s": wall}
+    return {name: rec for name, (_, _, rec) in done.items()
+            if rec is not None}
+
+
 def _require_runtime_launches(children: dict, profiled: dict) -> None:
     """Phase 11's launch bars (card only): the resumed train launched
     `gj_aug_reg` (RUNTIME_ITERATIONS − RUNTIME_KILL + 1) / RUNTIME_ITERATIONS
@@ -4688,33 +5320,40 @@ def main(argv=None) -> int:
     fallbacks = _NativeFallbacks()
     report["native"] = native_build()
     emit(dict(phase="native", **report["native"]))
-    # the stores of phases 10 and 11 are written by children from here on,
+    # the stores of phases 10-12 are written by children from here on,
     # beside the phases before them (they take minutes; those phases leave
     # host cores idle)
     shop = tempfile.TemporaryDirectory()
     ratings = tempfile.TemporaryDirectory()
+    props = tempfile.TemporaryDirectory()
     writer = _start_store_writer(shop.name)
     ratings_writer = _start_store_writer(ratings.name, "2m",
                                          "write_ratings_store")
+    props_writer = _start_store_writer(props.name, "2m",
+                                       "write_classify_store")
     # the run's PIO_FS_BASEDIR (the bucket cache of a console child that
     # names no store lives under it), unless a phase sets its own
     basedir = tempfile.TemporaryDirectory()
     os.environ.setdefault("PIO_FS_BASEDIR", basedir.name)
     try:
         return _run(args, report, card, device, t_all, writer, shop.name,
-                    fallbacks, ratings_writer, ratings.name)
+                    fallbacks, ratings_writer, ratings.name, props_writer,
+                    props.name)
     finally:
         _stop(writer)
         _stop(ratings_writer)
+        _stop(props_writer)
         shop.cleanup()
         ratings.cleanup()
+        props.cleanup()
         basedir.cleanup()
 
 
 def _run(args, report: dict, card: str, device, t_all: float, writer,
-         shop: str, fallbacks, ratings_writer, ratings: str) -> int:
-    """Phases 1-11 and the kernels line (`main`'s body, with the store
-    writers of phases 10 and 11 started)."""
+         shop: str, fallbacks, ratings_writer, ratings: str, props_writer,
+         props: str) -> int:
+    """Phases 1-12 and the kernels line (`main`'s body, with the store
+    writers of phases 10-12 started)."""
     import torch
 
     from predictionio_torch.ops import spd_solve
@@ -4783,6 +5422,14 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
         templates_launches = {
             k: v + sum(c["launches"][k] for c in template_children.values())
             for k, v in spd_solve.launches.items()}
+        spd_solve.reset_launches()  # the classify path starts here
+        classify_children = phase_classify(report, device, tmp,
+                                           props_writer, props)
+        # ... and ends here: this process's launches (12a-12b) and every
+        # console child's (trains, deploys, eval, the drill's re-run)
+        classify_launches = {
+            k: v + sum(c["launches"][k] for c in classify_children.values())
+            for k, v in spd_solve.launches.items()}
     _require_launches("fold", fold_launches, FOLD_KERNEL.values())
     # the runtime path: gj_aug_reg at rank 64, the Schur base at 128
     _require_launches("runtime", runtime_launches, FOLD_KERNEL.values())
@@ -4805,6 +5452,10 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
     if any(v for k, v in templates_launches.items() if k != "gj_aug_reg"):
         raise AssertionError(f"on the templates path: kernels other than "
                              f"gj_aug_reg launched ({templates_launches})")
+    # the classification ops solve no system: no solve kernel launches
+    if any(classify_launches.values()):
+        raise AssertionError(f"on the classify path: solve kernels launched "
+                             f"({classify_launches})")
     # the path's launches: the grids in this process and the console
     # children's (each child's counts start at 0 with the process)
     children = [run["launches"] for run in eval_runs.values()]
@@ -4818,7 +5469,8 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
                           "serving": serving_launches,
                           "eventserver": eventserver_launches,
                           "templates": templates_launches,
-                          "runtime": runtime_launches}
+                          "runtime": runtime_launches,
+                          "classify": classify_launches}
 
     kernels = []
     for name, (replaces, source) in KERNELS.items():
@@ -4834,7 +5486,8 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
                          + serving_launches[name]
                          + eventserver_launches[name]
                          + templates_launches[name]
-                         + runtime_launches[name]),
+                         + runtime_launches[name]
+                         + classify_launches[name]),
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -4848,6 +5501,7 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
             "launches_eventserver": eventserver_launches[name],
             "launches_templates": templates_launches[name],
             "launches_runtime": runtime_launches[name],
+            "launches_classify": classify_launches[name],
             "launches_per_epoch_2m": per_epoch,
             "launches_console_eval": {layout: run["launches"][name]
                                       for layout, run in eval_runs.items()},

@@ -20,17 +20,22 @@ from predictionio_torch.controller.evaluation import (
     MetricEvaluator,
 )
 from predictionio_torch.controller.metrics import (
+    AUC,
     AverageMetric,
     MAPatK,
     Metric,
     OptionAverageMetric,
+    StdevMetric,
+    SumMetric,
+    ZeroMetric,
 )
 from predictionio_torch.controller.params import EmptyParams, Params, ParamsError
 
 __all__ = [
-    "Algorithm", "AverageMetric", "DataSource", "Doer", "EmptyParams",
+    "AUC", "Algorithm", "AverageMetric", "DataSource", "Doer", "EmptyParams",
     "Engine", "EngineFactory", "EngineParams", "EngineParamsGenerator",
     "Evaluation", "EvaluationResult", "FirstServing", "IdentityPreparator",
     "MAPatK", "Metric", "MetricEvaluator", "OptionAverageMetric", "Params",
-    "ParamsError", "Preparator", "SanityCheck", "Serving", "WorkflowContext",
+    "ParamsError", "Preparator", "SanityCheck", "Serving", "StdevMetric",
+    "SumMetric", "WorkflowContext", "ZeroMetric",
 ]

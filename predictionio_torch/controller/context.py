@@ -73,6 +73,13 @@ class WorkflowContext:
             self._metrics = NullMetricsLogger()
         return self._metrics
 
+    def checkpoint_every_or(self, default: int) -> int:
+        """`checkpoint_every` when the run set one, else the algorithm's
+        own `default` (its step unit varies: an ALS epoch runs long enough
+        to save after each, a 200-step Adam loop saving every step would
+        be 200 saves)."""
+        return self.checkpoint_every if self.checkpoint_every else default
+
     @contextlib.contextmanager
     def algo_checkpoint_scope(self, suffix: str):
         """`algo_ckpt_suffix` set to `suffix` inside the block: how the

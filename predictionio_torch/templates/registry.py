@@ -73,6 +73,19 @@ BUILTIN_TEMPLATES: dict[str, TemplateInfo] = {
             sample_query={"items": ["i1"], "num": 4},
         ),
         TemplateInfo(
+            name="classification",
+            description="Attribute classification (NaiveBayes / logistic "
+                        "regression on $set entity properties)",
+            engine_factory=(
+                "predictionio_torch.templates.classification."
+                "ClassificationEngine"),
+            engine_json={
+                "datasource": {"params": {"appName": "MyApp"}},
+                "algorithms": [{"name": "naive", "params": {"lambda": 1.0}}],
+            },
+            sample_query={"attr0": 2.0, "attr1": 0.0, "attr2": 0.0},
+        ),
+        TemplateInfo(
             name="ecommerce",
             description="E-commerce recommendation (implicit ALS + "
                         "serve-time business rules: seen/unavailable "
@@ -102,6 +115,21 @@ BUILTIN_TEMPLATES: dict[str, TemplateInfo] = {
                     "seed": 3}}],
             },
             sample_query={"user": "u1", "items": ["i1", "i2", "i3"]},
+        ),
+        TemplateInfo(
+            name="leadscoring",
+            description="Lead Scoring (conversion probability from session "
+                        "features via softmax regression)",
+            engine_factory=("predictionio_torch.templates.leadscoring."
+                            "LeadScoringEngine"),
+            engine_json={
+                "datasource": {"params": {"appName": "MyApp"}},
+                "algorithms": [{"name": "leadscoring", "params": {
+                    "iterations": 300, "stepSize": 0.1,
+                    "regParam": 0.01}}],
+            },
+            sample_query={"landingPageId": "lp1", "referrerId": "r1",
+                          "browser": "Chrome"},
         ),
     ]
 }

@@ -45,13 +45,13 @@ PredictedResult = dict
 
 
 def store_of(ctx: WorkflowContext) -> PEventStore:
-    """The context's event store. These templates read item properties
-    (`aggregate_properties`), which an events file does not carry, so a
-    context that names one is refused."""
+    """The context's event store. The templates that read properties
+    (item or user `$set`s, a view's session fields), which an events file
+    does not carry, refuse a context that names one."""
     if ctx.events_path:
-        raise ValueError("this template reads the event store (item "
-                         "properties included); train it from an app, "
-                         "not an events file")
+        raise ValueError("this template reads the event store (entity and "
+                         "event properties included); train it from an "
+                         "app, not an events file")
     return PEventStore(ctx.storage)
 
 

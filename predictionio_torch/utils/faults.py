@@ -33,6 +33,9 @@ Sites in the port:
   epochs is computed, before its checkpoint save (`:N` dies after the
   N-th chunk, which leaves step N − 1 to resume from at
   `--checkpoint-every 1`)
+- `logreg.step_boundary` — in `ops.classify.logreg_train` (its
+  `segmented_train`) after each chunk of Adam steps is computed, before
+  its checkpoint save (`:N` dies after the N-th chunk)
 - `checkpoint.pre_replace` — in `CheckpointManager.save`, the step written
   to its temporary directory and the old step renamed aside, before the
   publishing `os.replace`

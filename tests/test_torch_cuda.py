@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from predictionio_torch.ops import als, ranking, spd_solve
+from predictionio_torch.ops import als, classify, ranking, spd_solve
 
 pytestmark = pytest.mark.cuda
 
@@ -1140,3 +1140,64 @@ def test_checkpointed_resume_bitwise_on_card(dev, tmp_path):
     assert got.start_epoch == 2
     np.testing.assert_array_equal(got.user_factors, want.user_factors)
     np.testing.assert_array_equal(got.item_factors, want.item_factors)
+
+
+def _separable(dev, n=200_000, d=64, c=10, seed=0):
+    """Labels that a linear rule of the features decides (argmax x @ W)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, d), generator=gen, device=dev)
+    w = torch.randn((d, c), generator=gen, device=dev)
+    return x.cpu().numpy(), (x @ w).argmax(1).int().cpu().numpy(), c
+
+
+def test_logreg_fits_bitwise_on_card(dev, tmp_path):
+    """Two identical `logreg_train` fits, a chunked one and a resumed one
+    give the same bits on the card: ops/classify.py accumulates through
+    no atomics, and cuBLAS repeats its GEMMs on one stream."""
+    x, y, c = _separable(dev)
+    a = classify.logreg_train(x, y, c, iterations=60, device=dev)
+    b = classify.logreg_train(x, y, c, iterations=60, device=dev)
+    chunked = classify.logreg_train(x, y, c, iterations=60, device=dev,
+                                    checkpoint_dir=str(tmp_path / "c"),
+                                    checkpoint_every=7)
+    classify.logreg_train(x, y, c, iterations=30, device=dev,
+                          checkpoint_dir=str(tmp_path / "r"),
+                          checkpoint_every=10)
+    resumed = classify.logreg_train(x, y, c, iterations=60, device=dev,
+                                    checkpoint_dir=str(tmp_path / "r"),
+                                    checkpoint_every=10)
+    for got in (b, chunked, resumed):
+        np.testing.assert_array_equal(got.weights, a.weights)
+        np.testing.assert_array_equal(got.bias, a.bias)
+        assert got.loss_history == a.loss_history
+    assert a.loss_history[-1] < 0.5 * a.loss_history[0]
+
+
+def test_classify_grids_on_card_match_sequential(dev):
+    """Each grid cell within the reference's bars of its sequential fit
+    (LogReg rtol 2e-4 / atol 1e-5 with mixed horizons; NB rtol 1e-6 /
+    atol 1e-7), and the card's fit within them of the CPU's."""
+    x, y, _ = _separable(dev, n=20_000, d=16, c=4, seed=1)
+    cells = [(0.1, 0.0, 40), (0.3, 0.01, 25), (0.05, 0.1, 10)]
+    grid = classify.logreg_train_grid(
+        x, y, 4, [n for *_, n in cells], [lr for lr, _, _ in cells],
+        [rg for _, rg, _ in cells], device=dev)
+    for (lr, rg, n), m in zip(cells, grid):
+        seq = classify.logreg_train(x, y, 4, iterations=n, learning_rate=lr,
+                                    reg=rg, device=dev)
+        for name in ("weights", "bias", "loss_history"):
+            np.testing.assert_allclose(getattr(m, name), getattr(seq, name),
+                                       rtol=2e-4, atol=1e-5)
+    host = classify.logreg_train(x, y, 4, iterations=40, device="cpu")
+    np.testing.assert_allclose(host.weights, grid[0].weights, rtol=2e-4,
+                               atol=1e-5)
+    counts = np.abs(x)
+    nbs = classify.naive_bayes_train_grid(counts, y, 4, [0.5, 2.0],
+                                          device=dev)
+    for s, m in zip((0.5, 2.0), nbs):
+        seq = classify.naive_bayes_train(counts, y, 4, smoothing=s,
+                                         device=dev)
+        np.testing.assert_allclose(m.log_theta, seq.log_theta, rtol=1e-6,
+                                   atol=1e-7)
+        np.testing.assert_allclose(m.log_prior, seq.log_prior, rtol=1e-6,
+                                   atol=1e-7)

@@ -363,7 +363,8 @@ def test_tf32_is_off():
 
 
 @pytest.mark.parametrize("name", ["similarproduct", "ecommerce",
-                                  "productranking"])
+                                  "productranking", "classification",
+                                  "leadscoring"])
 def test_new_templates_console_without_a_device_fails(name, no_cuda,
                                                       tmp_path, monkeypatch,
                                                       capsys):
@@ -554,3 +555,105 @@ def test_train_runtime_with_jax_and_reference_blocked():
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "RUNTIME-ISOLATED-OK" in proc.stdout
+
+
+_CLASSIFY_RUN = textwrap.dedent("""
+    import importlib.abc, json, os, sys, tempfile, threading, urllib.request
+
+    BLOCKED = {blocked!r}
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError("blocked import of " + name)
+            return None
+
+    before = {{m for m in sys.modules if m.split(".")[0] in BLOCKED}}
+    sys.meta_path.insert(0, Block())
+
+    from predictionio_torch.storage.registry import Storage
+    from predictionio_torch.tools import console
+    from predictionio_torch.workflow.create_server import PredictionServer
+
+    tmp = tempfile.mkdtemp()
+    os.environ["PIO_FS_BASEDIR"] = os.path.join(tmp, "base")
+    events = os.path.join(tmp, "events.jsonl")
+    with open(events, "w") as f:
+        for n in range(60):
+            c = n % 3
+            attrs = [4.0 * (c == j) + (n * 7 + j) % 2 for j in range(3)]
+            f.write(json.dumps({{
+                "event": "$set", "entityType": "user",
+                "entityId": "c%d" % n, "properties": {{
+                    "attr0": attrs[0], "attr1": attrs[1],
+                    "attr2": attrs[2], "plan": float(c)}}}}) + "\\n")
+        for n in range(90):
+            props = {{"sessionId": "s%d" % n,
+                      "landingPageId": "promo" if n % 2 else "home",
+                      "referrerId": "r%d" % (n % 3), "browser": "Chrome"}}
+            f.write(json.dumps({{"event": "view", "entityType": "user",
+                                 "entityId": "v%d" % n,
+                                 "properties": props}}) + "\\n")
+            if n % 2 and n % 5:
+                f.write(json.dumps({{
+                    "event": "buy", "entityType": "user",
+                    "entityId": "v%d" % n, "targetEntityType": "item",
+                    "targetEntityId": "i1",
+                    "properties": {{"sessionId": "s%d" % n}}}}) + "\\n")
+    assert console.main(["app", "new", "MyApp1"]) == 0
+    assert console.main(["import", "--appname", "MyApp1", "--input",
+                         events]) == 0
+    answers = {{}}
+    for name, query, extra in (
+            ("classification", {{"attr0": 4.0, "attr1": 0.0,
+                                 "attr2": 0.0}}, []),
+            ("leadscoring", {{"landingPageId": "promo", "referrerId": "r1",
+                              "browser": "Chrome"}},
+             ["--checkpoint-dir", os.path.join(tmp, "ckpt")])):
+        engine_dir = os.path.join(tmp, name)
+        assert console.main(["template", "get", name, engine_dir,
+                             "--app-name", "MyApp1"]) == 0
+        engine_json = os.path.join(engine_dir, "engine.json")
+        assert console.main(["build", "--engine-json", engine_json]) == 0
+        assert console.main(["train", "--engine-json", engine_json,
+                             "--device", "cpu", *extra]) == 0
+        server = PredictionServer(engine_json, ip="127.0.0.1", port=0,
+                                  device="cpu", storage=Storage.get())
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        req = urllib.request.Request(
+            "http://127.0.0.1:%d/queries.json" % server.port,
+            data=json.dumps(query).encode())
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            answers[name] = json.loads(resp.read())
+        server.shutdown()
+        server.server_close()
+    assert answers["classification"] == {{"label": 0.0}}, answers
+    assert 0.5 < answers["leadscoring"]["score"] <= 1.0, answers
+    assert sorted(os.listdir(os.path.join(tmp, "ckpt", "lr"))) == [
+        "step_240", "step_270", "step_300"]
+    os.environ["PIO_EVAL_APP_NAME"] = "MyApp1"
+    assert console.main(["eval", "predictionio_torch.templates."
+                         "leadscoring.evaluation.LeadScoringEvaluation",
+                         "--device", "cpu"]) == 0
+    Storage.get().close()
+    import torch
+    assert not torch.cuda.is_initialized()
+    after = {{m for m in sys.modules if m.split(".")[0] in BLOCKED}}
+    assert after == before, sorted(after - before)
+    print("CLASSIFY-ISOLATED-OK")
+""")
+
+
+def test_classify_templates_with_jax_and_reference_blocked():
+    """The classification and leadscoring templates, scaffolded, built,
+    trained (leadscoring with `--checkpoint-dir`) from a store, served
+    over HTTP and evaluated (AUC), import neither JAX nor the
+    reference."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("PIO_TORCH_DEVICE", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLASSIFY_RUN.format(blocked=BLOCKED)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "CLASSIFY-ISOLATED-OK" in proc.stdout

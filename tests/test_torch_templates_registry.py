@@ -1,6 +1,6 @@
 """The port's template registry, its scaffolding and the console verbs
 `template list|get`, `new` and `build` (the reference's
-tests/test_templates_registry.py against the port's four templates), and
+tests/test_templates_registry.py against the port's six templates), and
 the reference's quickstart of the similarproduct and ecommerce templates
 (tests/test_quickstart_e2e.py::test_similarproduct_and_ecommerce) through
 the port's console on the CPU: `template get` → `app new` → `import` →
@@ -36,7 +36,8 @@ from predictionio_torch.workflow.workflow_utils import (
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NAMES = ("ecommerce", "productranking", "recommendation", "similarproduct")
+NAMES = ("classification", "ecommerce", "leadscoring", "productranking",
+         "recommendation", "similarproduct")
 
 torch.set_num_threads(1)
 
@@ -60,7 +61,8 @@ def test_entry_matches_the_references(name):
 
 
 def test_unknown_template_raises():
-    with pytest.raises(KeyError, match="available: ecommerce, "
+    with pytest.raises(KeyError, match="available: classification, "
+                                       "ecommerce, leadscoring, "
                                        "productranking, recommendation, "
                                        "similarproduct"):
         get_template("nope")
