@@ -324,6 +324,37 @@ Phases (any failure exits non-zero and prints no result line):
              3rd chunk of 30 steps; the same command again resumes from
              step 60, and M's model bytes equal (d)'s uninterrupted
              model's. Each line carries the card's name and power limit.
+13. text   — the text ops (`ops/text.py`) and the textclassification
+             template, run last; a child started with the run writes its
+             store (`console import`): 50,000 `$set` content documents
+             of 8 categories, 8-24 tokens each from a 20,000-word Zipf
+             vocabulary and 100 words a category (app Text50k). (a) The
+             SGNS loop at the JAX package's benchmarks/w2v_roofline.py
+             shape: V 100,000 × dim 128, batch 16,384, 5 negatives,
+             1,000,000 seeded pairs, 500 steps through
+             `word2vec_fit_pairs`: wall, peak memory, the step's device
+             ms by CUDA events and pairs/s, its bound (each row a step
+             touches read and written once; beside it every gathered row
+             read, then read and written by the scatter); a second fit, a
+             fit in chunks of 100 and one resumed from step 300 bitwise
+             the first; the fixed-order scatter against `index_add_` and
+             `index_put_(accumulate=True)` on the same batches (ms, and
+             whether each repeats its bits); 50 steps on the card and on
+             the CPU from the same tables and draws (rtol 1e-5 /
+             atol 1e-6). (b) `console template get` and `build`, `console
+             train` of the shipped `nb` (numFeatures 1024), of `lr` (200
+             iterations) and of `word2vec` (dim 128, window 2, 5
+             negatives, batch 16,384, 500 steps, head 200 iterations):
+             read, prepare and fit seconds; `console deploy` of each, 100
+             queries each equal to the in-process answer (p50, p99);
+             `console eval` of TextEvaluation (NB, 3 folds, accuracy).
+             (c) The drills: a `word2vec` train with `--checkpoint-dir`
+             killed (exit 137) by PIO_FAULTS=w2v.step_boundary:2 resumes
+             from step 50 and runs 450 SGNS steps; one killed by
+             logreg.step_boundary:2 in its head resumes the embeddings
+             from step 500 (no SGNS step) and the head from step 20; both
+             models' bytes equal (b)'s uninterrupted train's. Each line
+             carries the card's name and power limit.
 
 Launch counts are zeroed just before each path (phases 3-4: train →
 serve; phase 5: eval → batchpredict; phase 6: fold; phase 7: online,
@@ -332,12 +363,12 @@ children's counts added; phase 9: eventserver, with the deploy child's
 counts added; phase 10: templates, with every console child's counts
 added; phase 11: runtime, with its console children's counts added, the
 killed train's lost with it; phase 12: classify, with every console
-child's counts added) and read just after;
+child's counts added; phase 13: text, likewise) and read just after;
 every kernel of a path must have launched there (on the serving path,
 `gj_aug_reg` in (d)'s child alone), and `gj_aug`, `gj_packed`
 and `gj_blocked2` (K > 256 only) and `gj_aug_multi` (K > 128 with M > 1
-only) on none; phase 12's path solves no system and launches no solve
-kernel. The eval path's counts add the console
+only) on none; phase 12's and phase 13's paths solve no system and
+launch no solve kernel. The eval path's counts add the console
 children's own to the grids'; the sequential trains phase 5a compares
 with run before its counts are zeroed. `--report PATH` also writes a JSON report
 with every number (the ptxas output, the profile's kernel table). The last
@@ -594,6 +625,40 @@ LEAD_CHUNK = 30
 CLASSIFY_TEMPLATE_NAMES = ("classification", "leadscoring")
 LEAD_EVAL_CLASS = ("predictionio_torch.templates.leadscoring.evaluation."
                    "LeadScoringEvaluation")
+# 13a: the SGNS loop at the JAX package's benchmarks/w2v_roofline.py
+# defaults (:38-41, :55): vocabulary V, dim K, batch B, negatives N, a
+# table of W2V_PAIRS uniform pairs from a seeded numpy generator, and
+# W2V_STEPS steps at the reference's default learning rate; chunks of
+# W2V_CHUNK, a resume from step W2V_RESUME_AT; the steps timed by CUDA
+# events; the card against the CPU on W2V_CPU_STEPS steps of the same
+# draws, at the reference's loop bar; the scatters timed on
+# W2V_SCATTER_BATCHES batches
+W2V_V, W2V_K, W2V_B, W2V_N = 100_000, 128, 16_384, 5
+W2V_PAIRS, W2V_STEPS, W2V_LR = 1_000_000, 500, 0.05
+W2V_CHUNK, W2V_RESUME_AT, W2V_CPU_STEPS = 100, 300, 50
+W2V_TIMED_STEPS, W2V_SCATTER_BATCHES = 100, 20
+W2V_TOL = {"rtol": 1e-5, "atol": 1e-6}
+# 13b-13c: the text store, by scale: (documents, shared words); each
+# document one of TEXT_CATEGORIES categories and 8-24 tokens, a token
+# with TEXT_OWN_SHARE one of its category's TEXT_OWN_WORDS words, else a
+# shared word (both Zipf); written by a child started with the run
+TEXT_SCALES = {"50k": (50_000, 20_000), "2k": (2_000, 2_000)}
+TEXT_CATEGORIES, TEXT_OWN_WORDS, TEXT_OWN_SHARE = 8, 100, 0.3
+TEXT_APP = "Text50k"
+TEXT_RESULT = "text.json"
+TEXT_QUERIES = 100
+# the template's variants beside its shipped `nb` (numFeatures 1024): `lr`
+# and `word2vec` (its head `iterations` Adam steps)
+TEXT_LR_PARAMS = {"iterations": 200, "stepSize": 0.1, "numFeatures": 1024}
+TEXT_W2V_PARAMS = {"dim": 128, "window": 2, "negatives": 5,
+                   "batchSize": 16_384, "steps": 500, "iterations": 200,
+                   "stepSize": 0.1}
+# the drills: a word2vec train killed after its TEXT_KILL-th chunk of
+# steps // 10 SGNS steps, and one killed after its head's TEXT_KILL-th
+# chunk of iterations // 10 Adam steps, both before that chunk's save
+TEXT_KILL = 2
+# 13b's evaluation (`chip_smoke.TextEvaluation`): NB at these λ, k folds
+TEXT_EVAL_LAMBDAS, TEXT_EVAL_K = (0.25, 1.0), 3
 # deploys the console in a child process and writes, when it exits, its
 # launch counts to the file named by its first argument
 _DEPLOY_CHILD = (
@@ -651,15 +716,17 @@ _STORE_CHILD = (
     "import chip_smoke\n"
     "getattr(chip_smoke, sys.argv[4])(sys.argv[2], sys.argv[3])\n")
 # runs the console in a child process and prints, as its last line, its
-# launch counts and its grid trains (als_grid.grid_log)
+# launch counts, its grid trains (als_grid.grid_log) and its SGNS steps
 _CONSOLE_CHILD = (
     "import json, sys\n"
-    "from predictionio_torch.ops import als_grid, spd_solve\n"
+    "from predictionio_torch.ops import als_grid, spd_solve, text\n"
     "from predictionio_torch.tools import console\n"
     "rc = console.main(sys.argv[1:])\n"
     "print(json.dumps({'launches': spd_solve.launches,\n"
     "                  'by_rank': spd_solve.launches_by_rank,\n"
-    "                  'grids': als_grid.grid_log}), flush=True)\n"
+    "                  'grids': als_grid.grid_log,\n"
+    "                  'sgns_steps': text.sampler_calls['sgns']}),\n"
+    "      flush=True)\n"
     "sys.exit(rc)\n")
 
 
@@ -4183,7 +4250,8 @@ def phase_templates(report: dict, device, tmp: str, served: dict,
     report.setdefault("templates_log", {})["eval"] = \
         eval_log.splitlines()[-40:]
     if sorted(evaluation["templates_listed"]) != sorted(
-            TEMPLATE_NAMES + CLASSIFY_TEMPLATE_NAMES):
+            TEMPLATE_NAMES + CLASSIFY_TEMPLATE_NAMES
+            + ("textclassification",)):
         raise AssertionError(f"console template list printed "
                              f"{evaluation['templates_listed']}")
     wall = time.perf_counter() - t_all
@@ -4248,11 +4316,14 @@ def _await_ratings(writer, base: str, result: str = RATINGS_RESULT,
 
 
 def __getattr__(name):
-    """`HoldoutEvaluation`, which `console eval chip_smoke.HoldoutEvaluation`
-    names: built on first use, since it subclasses the port's classes and
-    this module imports the port only inside functions."""
-    if name == "HoldoutEvaluation":
-        globals()[name] = cls = _holdout_evaluation()
+    """`HoldoutEvaluation` and `TextEvaluation`, which `console eval
+    chip_smoke.HoldoutEvaluation` (and `.TextEvaluation`) name: built on
+    first use, since they subclass the port's classes and this module
+    imports the port only inside functions."""
+    factories = {"HoldoutEvaluation": _holdout_evaluation,
+                 "TextEvaluation": _text_evaluation}
+    if name in factories:
+        globals()[name] = cls = factories[name]()
         return cls
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
@@ -4865,6 +4936,7 @@ def _classify_config2(device) -> dict:
     del uploaded
     on_card = device.type == "cuda"
     if on_card:
+        torch.cuda.init()  # the peak counters exist once CUDA is up
         torch.cuda.reset_peak_memory_stats(device)
     first, first_s = fit()
     peak = torch.cuda.max_memory_allocated(device) if on_card else None
@@ -4978,14 +5050,15 @@ def _count_logged(stderr: str, pattern: str) -> list:
     return [int(v) for v in (last if isinstance(last, tuple) else (last,))]
 
 
-def _finish_together(started: dict, t_start: dict, want_rc: dict) -> tuple:
+def _finish_together(started: dict, t_start: dict, want_rc: dict,
+                     phase: str = "12") -> tuple:
     """`_finish` of every child of `started` (name → process) on threads of
     its own, so that no child waits on a full pipe: ({name: (stdout,
     stderr, launch record)}, {name: seconds from its start, `t_start[name]`,
     to its exit}). `want_rc` names the children that must exit with
     another code than 0."""
     def finish(name, proc):
-        out = _finish(proc, name, want_rc.get(name, 0), phase="12")
+        out = _finish(proc, name, want_rc.get(name, 0), phase=phase)
         return out, time.perf_counter() - t_start[name]
 
     with concurrent.futures.ThreadPoolExecutor(len(started)) as pool:
@@ -5207,6 +5280,569 @@ def phase_classify(report: dict, device, tmp: str, writer,
             if rec is not None}
 
 
+# -- phase 13: the text ops and the textclassification template -------------
+
+def _text_evaluation():
+    """An evaluation of the Text Classification template: NB (numFeatures
+    1024) at TEXT_EVAL_LAMBDAS over TEXT_EVAL_K folds of TEXT_APP, scored
+    by accuracy. The λ cells share one featurization, so each fold trains
+    them as one grid (`NBAlgorithm.train_grid`)."""
+    from predictionio_torch.controller import AverageMetric
+    from predictionio_torch.controller.engine import EngineParams
+    from predictionio_torch.controller.evaluation import (
+        EngineParamsGenerator,
+        Evaluation,
+    )
+    from predictionio_torch.templates.textclassification import engine as tc
+
+    class Accuracy(AverageMetric):
+        def calculate(self, query, predicted, actual):
+            return 1.0 if predicted["category"] == actual["category"] else 0.0
+
+    class TextEvaluation(Evaluation, EngineParamsGenerator):
+        def __init__(self):
+            self.engine = tc.TextClassificationEngine().apply()
+            self.metric = Accuracy()
+            self.engine_params_list = [EngineParams(
+                data_source_params=tc.DataSourceParams(
+                    appName=TEXT_APP, evalK=TEXT_EVAL_K),
+                algorithm_params_list=[("nb", tc.NBParams(
+                    lambda_=lam, numFeatures=1024))])
+                for lam in TEXT_EVAL_LAMBDAS]
+
+    return TextEvaluation
+
+
+def _text_events(n_docs: int, n_words: int, rng) -> tuple:
+    """13b's documents: `n_docs` `$set`s of content entities doc{i}, one
+    second apart, each of a category drawn from TEXT_CATEGORIES and 8-24
+    tokens; a token is, with TEXT_OWN_SHARE, one of its category's
+    TEXT_OWN_WORDS words, else one of `n_words` shared words, each Zipf
+    (p ∝ 1/rank). Returns (the event dicts, the documents a category, the
+    tokens)."""
+    import numpy as np
+
+    cats = rng.integers(0, TEXT_CATEGORIES, n_docs)
+    lengths = rng.integers(8, 25, n_docs)
+    total = int(lengths.sum())
+    doc = np.repeat(np.arange(n_docs), lengths)
+
+    def zipf(n: int, size: int):
+        p = 1.0 / np.arange(1, n + 1)
+        return rng.choice(n, size, p=p / p.sum())
+
+    shared = np.asarray([f"w{j}" for j in range(n_words)])
+    own = np.asarray([[f"c{c}w{j}" for j in range(TEXT_OWN_WORDS)]
+                      for c in range(TEXT_CATEGORIES)])
+    tokens = np.where(rng.random(total) < TEXT_OWN_SHARE,
+                      own[cats[doc], zipf(TEXT_OWN_WORDS, total)],
+                      shared[zipf(n_words, total)])
+    t0 = datetime(2026, 3, 1, tzinfo=timezone.utc)
+    events = [{"event": "$set", "entityType": "content",
+               "entityId": f"doc{i:06d}",
+               "properties": {"text": " ".join(words).capitalize() + ".",
+                              "category": f"cat{cats[i]}"},
+               "eventTime": _stamp(t0, i)}
+              for i, words in enumerate(np.split(tokens,
+                                                 np.cumsum(lengths)[:-1]))]
+    counts = np.bincount(cats, minlength=TEXT_CATEGORIES).tolist()
+    return events, counts, total
+
+
+def write_text_store(base: str, scale: str) -> None:
+    """13, in a writer child started with the run: TEXT_APP's documents
+    (`_text_events`) at TEXT_SCALES[scale], written as a JSON-lines file
+    and `console import`ed (the native importer) into a sqlite pio.db
+    under `base`, the file deleted after; then TEXT_RESULT under `base`:
+    the counts and the file's and the import's seconds."""
+    import numpy as np
+
+    from predictionio_torch.tools import console
+
+    t_start = time.perf_counter()
+    n_docs, n_words = TEXT_SCALES[scale]
+    events, per_category, tokens = _text_events(n_docs, n_words,
+                                                np.random.default_rng(13))
+    os.environ["PIO_FS_BASEDIR"] = base
+    path = os.path.join(base, f"{TEXT_APP}.jsonl")
+    t0 = time.perf_counter()
+    with open(path, "w") as f:
+        for event in events:
+            f.write(json.dumps(event) + "\n")
+    file_s = time.perf_counter() - t0
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        if console.main(["app", "new", TEXT_APP]) != 0:
+            raise AssertionError(f"console app new {TEXT_APP} failed")
+        t0 = time.perf_counter()
+        if console.main(["import", "--appname", TEXT_APP, "--input",
+                         path]) != 0:
+            raise AssertionError(f"console import of {TEXT_APP} failed")
+        import_s = time.perf_counter() - t0
+    os.unlink(path)
+    imported = said.getvalue().strip().splitlines()[-1]
+    if imported != f"Imported {n_docs} events.":
+        raise AssertionError(f"console import said {imported!r}")
+    row = {"scale": scale, "documents": n_docs, "shared_words": n_words,
+           "tokens": tokens, "per_category": per_category,
+           "file_s": file_s, "import_s": import_s,
+           "import_events_per_s": n_docs / import_s,
+           "write_s": time.perf_counter() - t_start}
+    with open(os.path.join(base, TEXT_RESULT), "w") as f:
+        json.dump(row, f)
+
+
+def _w2v_cfg(steps: int = None):
+    from predictionio_torch.ops import text
+
+    return text.Word2VecConfig(dim=W2V_K, negatives=W2V_N,
+                               steps=W2V_STEPS if steps is None else steps,
+                               batch_size=W2V_B, learning_rate=W2V_LR,
+                               seed=13)
+
+
+def _w2v_bound(pairs, draws) -> dict:
+    """The least bytes and operations of the SGNS steps of `draws` (a
+    step's (pair idx, negatives)), from the code: each embedding row a
+    step touches read once and written once (emb_in at the distinct
+    centers; emb_out at the distinct contexts and negatives), the draws
+    and the drawn pair rows read once; operations the step's
+    multiply-adds (scores, gradients, the -lr scale, the row sums), the
+    (N + 1)·B sigmoids counted 8 each. Beside them the bytes with every
+    one of the B·(N + 2) rows gathered, then read and written again by
+    the scatter (no row merged)."""
+    import numpy as np
+    import torch
+
+    unique_rows = []
+    for idx, neg in draws:
+        batch = pairs.index_select(0, idx)
+        u_in = int(torch.unique(batch[:, 0]).numel())
+        u_out = int(torch.unique(torch.cat([batch[:, 1],
+                                            neg.reshape(-1)])).numel())
+        unique_rows.append(u_in + u_out)
+    rows = float(np.mean(unique_rows))
+    b, n, k = W2V_B, W2V_N, W2V_K
+    index_bytes = b * 8 + b * n * 8 + b * 2 * pairs.element_size()
+    least = 2 * rows * k * 4 + index_bytes
+    every_row = 3 * b * (n + 2) * k * 4 + index_bytes
+    flops = (6 * n + 9) * b * k + 8 * b * (n + 1)
+    bound, by = bound_ms(least, flops)
+    return {"rows_touched": b * (n + 2), "distinct_rows_mean": rows,
+            "bytes_least": least, "bytes_every_row": every_row,
+            "operations": flops, "bound_ms": bound, "bound_by": by,
+            "bound_ms_every_row": bound_ms(every_row, flops)[0]}
+
+
+def _scatter_ab(pairs, device) -> dict:
+    """13a: the negatives' scatter of W2V_SCATTER_BATCHES of the loop's
+    batches (B·N rows of K a call, seeded values) into a [V, K] table by
+    `text.scatter_add_rows` (fixed order), `index_add_` (atomics) and
+    `index_put_(accumulate=True)`: ms a call of each, and whether each
+    gives the same bits twice."""
+    import torch
+
+    from predictionio_torch.ops import text
+
+    gen = torch.Generator(device=device).manual_seed(21)
+    sampler = text.TorchSampler(gen, len(pairs), W2V_V, _w2v_cfg())
+    batches = []
+    for _ in range(W2V_SCATTER_BATCHES):
+        _, neg = sampler()
+        batches.append((neg.reshape(-1), torch.randn(
+            (neg.numel(), W2V_K), generator=gen, device=device)))
+    table0 = torch.randn((W2V_V, W2V_K), generator=gen, device=device)
+
+    def apply(kind, table):
+        for ids, rows in batches:
+            if kind == "fixed_order":
+                text.scatter_add_rows(table, ids, rows)
+            elif kind == "index_add":
+                table.index_add_(0, ids, rows)
+            else:
+                table.index_put_((ids,), rows, accumulate=True)
+        return table
+
+    row = {"batches": W2V_SCATTER_BATCHES, "rows_a_call": W2V_B * W2V_N}
+    ends = {}
+    for kind in ("fixed_order", "index_add", "index_put_accumulate"):
+        table = table0.clone()
+        row[f"{kind}_ms"] = time_ms(lambda: apply(kind, table),
+                                    5) / W2V_SCATTER_BATCHES
+        first = apply(kind, table0.clone())
+        second = apply(kind, table0.clone())
+        ends[kind] = first
+        row[f"{kind}_bitwise_repeat"] = bool(torch.equal(first, second))
+    row["max_abs_fixed_vs_index_add"] = float(
+        (ends["fixed_order"] - ends["index_add"]).abs().max())
+    return row
+
+
+def _w2v_card_cpu(pairs, device) -> dict:
+    """13a: W2V_CPU_STEPS steps on the card and on the CPU from the same
+    tables with the same draws (made on the card: the CPU's generator
+    gives another stream), tables and losses held at W2V_TOL."""
+    import numpy as np
+    import torch
+
+    from predictionio_torch.ops import text
+
+    cfg = _w2v_cfg()
+    gen = torch.Generator(device=device).manual_seed(22)
+    sampler = text.TorchSampler(gen, len(pairs), W2V_V, cfg)
+    draws = [sampler() for _ in range(W2V_CPU_STEPS)]
+    rng = np.random.default_rng(23)
+    emb_in0 = (rng.random((W2V_V, W2V_K), dtype=np.float32) - 0.5) / W2V_K
+    out, walls = {}, {}
+    for where in (device, torch.device("cpu")):
+        emb_in = torch.tensor(emb_in0, device=where)
+        emb_out = torch.zeros_like(emb_in)
+        moved = iter([(i.to(where), n.to(where)) for i, n in draws])
+        on = pairs.to(where)
+        t0 = time.perf_counter()
+        losses = text.sgns_loop(emb_in, emb_out, on, moved.__next__,
+                                W2V_CPU_STEPS, cfg).cpu()
+        walls[where.type] = time.perf_counter() - t0
+        out[where.type] = [t.cpu().numpy() for t in (emb_in, emb_out)]
+        out[where.type].append(losses.numpy())
+    err, ok = _within(zip(out[device.type], out["cpu"]), W2V_TOL)
+    return {"steps": W2V_CPU_STEPS, "card_s": walls[device.type],
+            "cpu_s": walls["cpu"], "max_abs_err": err, "within_bars": ok}
+
+
+def _w2v_loop(device) -> dict:
+    """13a: `word2vec_fit_pairs` at W2V_V × W2V_K over W2V_PAIRS seeded
+    pairs, W2V_STEPS steps: the first fit's wall and peak memory, a second
+    fit, one in chunks of W2V_CHUNK and one resumed from W2V_RESUME_AT
+    (bitwise against the first); the step's device ms by CUDA events over
+    W2V_TIMED_STEPS steps (draws included) and pairs/s; the step's bound
+    from the timed steps' draws; the scatter A/B; the card against the
+    CPU."""
+    import numpy as np
+    import torch
+
+    from predictionio_torch.device import synchronize
+    from predictionio_torch.ops import text
+
+    rng = np.random.default_rng(13)
+    pairs = rng.integers(0, W2V_V, (W2V_PAIRS, 2), dtype=np.int32)
+    cfg = _w2v_cfg()
+    on_card = device.type == "cuda"
+
+    def fit(cfg=cfg, **kw):
+        synchronize(device)
+        t = time.perf_counter()
+        out = text.word2vec_fit_pairs(pairs, W2V_V, cfg, device=device, **kw)
+        synchronize(device)
+        return out, time.perf_counter() - t
+
+    if on_card:
+        torch.cuda.init()  # the peak counters exist once CUDA is up
+        torch.cuda.reset_peak_memory_stats(device)
+    first, first_s = fit()
+    peak = torch.cuda.max_memory_allocated(device) if on_card else None
+    second, second_s = fit()
+    with tempfile.TemporaryDirectory() as ckpt:
+        chunked, chunked_s = fit(checkpoint_dir=ckpt,
+                                 checkpoint_every=W2V_CHUNK)
+        chunk_steps = sorted(os.listdir(ckpt))
+    with tempfile.TemporaryDirectory() as ckpt:
+        fit(cfg=_w2v_cfg(W2V_RESUME_AT), checkpoint_dir=ckpt,
+            checkpoint_every=W2V_CHUNK)
+        text.reset_sampler_calls()
+        resumed, resumed_s = fit(checkpoint_dir=ckpt,
+                                 checkpoint_every=W2V_CHUNK)
+        resumed_steps = text.sampler_calls["sgns"]
+
+    def same(a, b) -> bool:
+        return (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                and a[2] == b[2])
+
+    # the step on the card: fresh tables, the fit's sampler, CUDA events
+    pairs_dev = torch.from_numpy(pairs).to(device).long()
+    emb_in = torch.tensor(first[0], device=device)
+    emb_out = torch.tensor(first[1], device=device)
+    gen = torch.Generator(device=device).manual_seed(24)
+    sampler = text.TorchSampler(gen, W2V_PAIRS, W2V_V, cfg)
+    text.sgns_loop(emb_in, emb_out, pairs_dev, sampler, 5, cfg)  # warm-up
+    state = gen.get_state()
+    synchronize(device)
+    if on_card:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    text.sgns_loop(emb_in, emb_out, pairs_dev, sampler, W2V_TIMED_STEPS,
+                   cfg)
+    if on_card:
+        end.record()
+    synchronize(device)
+    host_ms = (time.perf_counter() - t0) * 1e3 / W2V_TIMED_STEPS
+    step_ms = (start.elapsed_time(end) / W2V_TIMED_STEPS if on_card
+               else None)
+    replay = torch.Generator(device=device)
+    replay.set_state(state)
+    replayed = text.TorchSampler(replay, W2V_PAIRS, W2V_V, cfg)
+    bound = _w2v_bound(pairs_dev, [replayed()
+                                   for _ in range(W2V_TIMED_STEPS)])
+    del emb_in, emb_out
+    return {"shape": {"vocab": W2V_V, "dim": W2V_K, "batch": W2V_B,
+                      "negatives": W2V_N, "pairs": W2V_PAIRS,
+                      "steps": W2V_STEPS, "learning_rate": W2V_LR},
+            "fit_s": first_s, "fit_again_s": second_s,
+            "fit_chunked_s": chunked_s, "fit_resumed_s": resumed_s,
+            "peak_bytes": peak,
+            "loss_first_last": [first[2][0], first[2][-1]],
+            "step_ms": step_ms, "step_host_ms": host_ms,
+            "pairs_per_s": (W2V_B / step_ms * 1e3 if step_ms else None),
+            "bound": bound,
+            "bitwise_again": same(first, second),
+            "bitwise_chunked": same(first, chunked),
+            "bitwise_resumed": same(first, resumed),
+            "chunk": W2V_CHUNK, "checkpoint_steps": chunk_steps,
+            "resumed_from": W2V_RESUME_AT, "resumed_steps_run": resumed_steps,
+            "scatter_ab": _scatter_ab(pairs_dev, device),
+            "card_vs_cpu": _w2v_card_cpu(pairs_dev, device)}
+
+
+def _text_variants(tmp: str) -> dict:
+    """13b: the textclassification template scaffolded and built for
+    TEXT_APP (its shipped `nb`, numFeatures 1024) and two variants of its
+    engine.json beside it, `lr` and `word2vec`: name → engine.json."""
+    nb_json = _scaffolded("textclassification", os.path.join(tmp, "Text"),
+                          TEXT_APP)
+    with open(nb_json) as f:
+        variant = json.load(f)
+    paths = {"nb": nb_json}
+    for name, algo, params in (("lr", "lr", TEXT_LR_PARAMS),
+                               ("w2v", "word2vec", TEXT_W2V_PARAMS)):
+        variant.update(id=f"text-{name}", algorithms=[
+            {"name": algo, "params": params}])
+        paths[name] = os.path.join(tmp, "Text", f"engine-{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(variant, f, indent=2)
+    return paths
+
+
+def _text_queries(rng, n: int) -> list:
+    """`n` queries in the store's words: a few of a category's own words
+    and shared ones, some all shared, one empty and one of unseen words."""
+    queries = []
+    for j in range(n - 2):
+        c = int(rng.integers(0, TEXT_CATEGORIES))
+        words = [f"w{int(rng.integers(0, 50))}" for _ in range(4)]
+        if j % 4:
+            words += [f"c{c}w{int(rng.integers(0, 10))}" for _ in range(2)]
+        queries.append({"text": " ".join(words)})
+    return queries + [{"text": ""}, {"text": "entirely unseen words"}]
+
+
+def phase_text(report: dict, device, tmp: str, writer, base: str) -> dict:
+    """Phase 13: (a) the SGNS loop at benchmarks/w2v_roofline.py's shape,
+    (b) the textclassification template on the store that `writer` (the
+    child running `write_text_store`) writes under `base`: three `console
+    train` variants, their servers and `console eval` of TextEvaluation,
+    (c) the two drills. Returns each console child's launch record."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    card = report["card"]
+    a_row = _w2v_loop(device)
+    emit(dict(phase="text", part="a_loop", card=card, **a_row))
+    scatter = a_row["scatter_ab"]
+    if not (a_row["bitwise_again"] and a_row["bitwise_chunked"]
+            and a_row["bitwise_resumed"]
+            and a_row["resumed_steps_run"] == W2V_STEPS - W2V_RESUME_AT
+            and a_row["checkpoint_steps"] == [
+                f"step_{s}" for s in range(W2V_STEPS - 2 * W2V_CHUNK,
+                                           W2V_STEPS + 1, W2V_CHUNK)]
+            and scatter["fixed_order_bitwise_repeat"]
+            and a_row["card_vs_cpu"]["within_bars"]
+            and np.isfinite(a_row["loss_first_last"]).all()):
+        raise AssertionError(f"13a: the SGNS loop failed its bars: {a_row}")
+
+    t0 = time.perf_counter()
+    written = _await_ratings(writer, base, TEXT_RESULT,
+                             "the text store's writer")
+    waited_s = time.perf_counter() - t0
+    dev = str(device)
+    paths = _text_variants(tmp)
+    ckpts = {name: os.path.join(tmp, f"text-ckpt-{name}")
+             for name in ("w2v", "head")}
+    drill_models = {name: os.path.join(tmp, f"text-drill-{name}.pio")
+                    for name in ckpts}
+
+    def train(engine_json: str, *extra) -> list:
+        return ["train", "--engine-json", engine_json, "--device", dev,
+                *extra]
+
+    drills = {name: train(paths["w2v"], "--checkpoint-dir", ckpts[name],
+                          "--model-out", drill_models[name])
+              for name in ckpts}
+    faults = {"w2v": f"w2v.step_boundary:{TEXT_KILL}",
+              "head": f"logreg.step_boundary:{TEXT_KILL}"}
+    deploys, later = {}, {}
+    storage = None
+    try:
+        # the trains, the two killed drills and the evaluation start
+        # together; the evaluation runs on beside the servers
+        eval_out = os.path.join(tmp, "text-eval.json")
+        t0 = time.perf_counter()
+        t_start = {name: t0 for name in (
+            "train_nb", "train_lr", "train_w2v", "killed_w2v",
+            "killed_head", "eval")}
+        later = {"eval": _start_child(
+            ["eval", "chip_smoke.TextEvaluation", "--device", dev, "--out",
+             eval_out], base)}
+        started = {f"train_{name}": _start_child(train(path), base)
+                   for name, path in paths.items()}
+        started.update({f"killed_{name}": _start_child(
+            drills[name], base, {"PIO_FAULTS": faults[name]})
+            for name in ckpts})
+        done, walls = _finish_together(
+            started, t_start, {"killed_w2v": 137, "killed_head": 137}, "13")
+        trains_s = time.perf_counter() - t0
+        chunk = max(1, TEXT_W2V_PARAMS["steps"] // 10)
+        head_chunk = max(1, TEXT_W2V_PARAMS["iterations"] // 10)
+        killed = {name: {
+            "w2v": sorted(os.listdir(os.path.join(ckpts[name], "w2v"))),
+            "w2v-head": sorted(os.listdir(os.path.join(ckpts[name],
+                                                       "w2v-head")))
+            if os.path.isdir(os.path.join(ckpts[name], "w2v-head"))
+            else None} for name in ckpts}
+        want_killed = {
+            "w2v": {"w2v": [f"step_{chunk * (TEXT_KILL - 1)}"],
+                    "w2v-head": None},
+            "head": {"w2v": [f"step_{TEXT_W2V_PARAMS['steps'] - chunk * j}"
+                             for j in (2, 1, 0)],
+                     "w2v-head": [f"step_{head_chunk * (TEXT_KILL - 1)}"]}}
+        for name in ckpts:
+            err = done[f"killed_{name}"][1]
+            if (f"dying at {faults[name].split(':')[0]}" not in err
+                    or killed[name] != want_killed[name]):
+                raise AssertionError(
+                    f"13c: the killed {name} train did not die at its step "
+                    f"boundary ({killed[name]}):\n{err[-3000:]}")
+        rows = {}
+        for name in paths:
+            _, err, rec = done[f"train_{name}"]
+            rows[name] = dict(_stage_seconds(err), wall_s=walls[f"train_{name}"],
+                              launches=rec["by_rank"],
+                              sgns_steps=rec["sgns_steps"])
+            report.setdefault("text_log", {})[name] = err.splitlines()[-30:]
+        docs = [_count_logged(done[f"train_{name}"][1],
+                              r"DataSource: (\d+) documents, (\d+) "
+                              r"categories") for name in paths]
+        w2v_log = _count_logged(done["train_w2v"][1],
+                                r"word2vec_train: vocab (\d+), (\d+) pairs")
+        want_docs = [written["documents"], TEXT_CATEGORIES]
+        if (docs != [want_docs] * len(paths) or len(w2v_log) != 2
+                or rows["w2v"]["sgns_steps"] != TEXT_W2V_PARAMS["steps"]):
+            raise AssertionError(f"13b: the trains read {docs} documents "
+                                 f"and ran {rows['w2v']['sgns_steps']} SGNS "
+                                 f"steps; the writer wrote {written}")
+
+        # the servers and the resumed drills, beside the evaluation
+        launch_paths = {name: os.path.join(tmp, f"text-{name}.json")
+                        for name in paths}
+        deploys = {name: _start_deploy(
+            ["--engine-json", path, "--ip", "127.0.0.1", "--port", "0",
+             "--device", dev], {"PIO_FS_BASEDIR": base}, launch_paths[name])
+            for name, path in paths.items()}
+        t0 = time.perf_counter()
+        for name in ckpts:
+            t_start[f"resumed_{name}"] = t0
+            later[f"resumed_{name}"] = _start_child(drills[name], base)
+        urls = {}
+        for name, proc in deploys.items():
+            line = _read_deployed_line(proc, 300.0)
+            urls[name] = f"http://127.0.0.1:{int(line.rsplit(':', 1)[1])}"
+        ready_s = time.perf_counter() - t0
+        queries = _text_queries(np.random.default_rng(15), TEXT_QUERIES)
+        storage = _store_at(base)
+        served = {}
+        for name, path in paths.items():
+            served[name] = _served_equal(urls[name], queries,
+                                         _latest_model(storage, path))
+        finished, later_walls = _finish_together(later, t_start, {}, "13")
+        done.update(finished)
+        walls.update(later_walls)
+        later_s = time.perf_counter() - t0
+        uninterrupted = storage.model_data_models().get(
+            _completed_instance(base, paths["w2v"])).models
+    finally:
+        for proc in list(deploys.values()) + list(later.values()):
+            if proc.poll() is None:
+                _stop(proc)
+        if storage is not None:
+            storage.close()
+    for name, path in launch_paths.items():
+        with open(path) as f:
+            done[f"deploy_{name}"] = (None, None, json.load(f))
+    for name in paths:
+        emit(dict(phase="text", part="b_template", card=card,
+                  algorithm=name, documents=docs[0][0], store=written,
+                  waited_s=waited_s, trains_s=trains_s, **rows[name],
+                  w2v_vocab_pairs=w2v_log if name == "w2v" else None,
+                  serve=served[name], ready_s=ready_s))
+    with open(eval_out) as f:
+        record = json.load(f)
+    results = json.loads(record["evaluator_results_json"])
+    accuracies = [{"lambda": r["engineParams"]["algorithms"][0]["params"].get(
+                       "lambda", r["engineParams"]["algorithms"][0][
+                           "params"].get("lambda_")),
+                   "accuracy": r["scores"]["Accuracy"]}
+                  for r in results["results"]]
+    emit({"phase": "text", "part": "b_eval", "card": card,
+          "status": record["status"], "folds": TEXT_EVAL_K,
+          "accuracies": accuracies, "best": results["bestScore"],
+          "wall_s": walls["eval"],
+          "launches": done["eval"][2]["by_rank"]})
+    c_row = {}
+    for name in ckpts:
+        with open(drill_models[name], "rb") as f:
+            resumed_models = pickle.load(f)["models"]
+        err = done[f"resumed_{name}"][1]
+        c_row[name] = {
+            "fault": faults[name], "after_kill": killed[name],
+            "w2v_resumed_from": _count_logged(
+                err, r"word2vec_train: resumed from checkpoint step (\d+)"),
+            "head_resumed_from": _count_logged(
+                err, r"logreg_train: resumed from checkpoint step (\d+)"),
+            "sgns_steps_after_resume": done[f"resumed_{name}"][2][
+                "sgns_steps"],
+            "killed_wall_s": walls[f"killed_{name}"],
+            "resumed_wall_s": walls[f"resumed_{name}"],
+            "model_bytes": len(resumed_models),
+            "model_bytes_equal": resumed_models == uninterrupted}
+    emit(dict(phase="text", part="c_drills", card=card, later_s=later_s,
+              **c_row))
+    bad = [name for name, row in served.items()
+           if row["equal"] != row["queries"]]
+    if bad or record["status"] != "EVALCOMPLETED" or not all(
+            a["accuracy"] > 0.5 for a in accuracies):
+        raise AssertionError(f"13b: served answers differ in {bad}, or the "
+                             f"evaluation failed: {accuracies}")
+    steps = TEXT_W2V_PARAMS["steps"]
+    want_c = {"w2v": ([chunk * (TEXT_KILL - 1)], [],
+                      steps - chunk * (TEXT_KILL - 1)),
+              "head": ([steps], [head_chunk * (TEXT_KILL - 1)], 0)}
+    wrong = {name: row for name, row in c_row.items()
+             if (row["w2v_resumed_from"], row["head_resumed_from"],
+                 row["sgns_steps_after_resume"]) != want_c[name]
+             or not row["model_bytes_equal"]}
+    if wrong:
+        raise AssertionError(f"13c: a drill did not resume to the "
+                             f"uninterrupted model: {wrong}")
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "text", "wall_s": wall, "card": card})
+    report["text"] = {"a": a_row, "b": {"store": written, "trains": rows,
+                                        "served": served,
+                                        "eval": accuracies},
+                      "c": c_row, "wall_s": wall}
+    return {name: rec for name, (_, _, rec) in done.items()
+            if rec is not None}
+
+
 def _require_runtime_launches(children: dict, profiled: dict) -> None:
     """Phase 11's launch bars (card only): the resumed train launched
     `gj_aug_reg` (RUNTIME_ITERATIONS − RUNTIME_KILL + 1) / RUNTIME_ITERATIONS
@@ -5320,17 +5956,19 @@ def main(argv=None) -> int:
     fallbacks = _NativeFallbacks()
     report["native"] = native_build()
     emit(dict(phase="native", **report["native"]))
-    # the stores of phases 10-12 are written by children from here on,
+    # the stores of phases 10-13 are written by children from here on,
     # beside the phases before them (they take minutes; those phases leave
     # host cores idle)
     shop = tempfile.TemporaryDirectory()
     ratings = tempfile.TemporaryDirectory()
     props = tempfile.TemporaryDirectory()
+    texts = tempfile.TemporaryDirectory()
     writer = _start_store_writer(shop.name)
     ratings_writer = _start_store_writer(ratings.name, "2m",
                                          "write_ratings_store")
     props_writer = _start_store_writer(props.name, "2m",
                                        "write_classify_store")
+    text_writer = _start_store_writer(texts.name, "50k", "write_text_store")
     # the run's PIO_FS_BASEDIR (the bucket cache of a console child that
     # names no store lives under it), unless a phase sets its own
     basedir = tempfile.TemporaryDirectory()
@@ -5338,22 +5976,24 @@ def main(argv=None) -> int:
     try:
         return _run(args, report, card, device, t_all, writer, shop.name,
                     fallbacks, ratings_writer, ratings.name, props_writer,
-                    props.name)
+                    props.name, text_writer, texts.name)
     finally:
         _stop(writer)
         _stop(ratings_writer)
         _stop(props_writer)
+        _stop(text_writer)
         shop.cleanup()
         ratings.cleanup()
         props.cleanup()
+        texts.cleanup()
         basedir.cleanup()
 
 
 def _run(args, report: dict, card: str, device, t_all: float, writer,
          shop: str, fallbacks, ratings_writer, ratings: str, props_writer,
-         props: str) -> int:
-    """Phases 1-12 and the kernels line (`main`'s body, with the store
-    writers of phases 10-12 started)."""
+         props: str, text_writer, texts: str) -> int:
+    """Phases 1-13 and the kernels line (`main`'s body, with the store
+    writers of phases 10-13 started)."""
     import torch
 
     from predictionio_torch.ops import spd_solve
@@ -5430,6 +6070,13 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
         classify_launches = {
             k: v + sum(c["launches"][k] for c in classify_children.values())
             for k, v in spd_solve.launches.items()}
+        spd_solve.reset_launches()  # the text path starts here
+        text_children = phase_text(report, device, tmp, text_writer, texts)
+        # ... and ends here: this process's launches (13a) and every
+        # console child's (trains, deploys, eval, the drills' re-runs)
+        text_launches = {
+            k: v + sum(c["launches"][k] for c in text_children.values())
+            for k, v in spd_solve.launches.items()}
     _require_launches("fold", fold_launches, FOLD_KERNEL.values())
     # the runtime path: gj_aug_reg at rank 64, the Schur base at 128
     _require_launches("runtime", runtime_launches, FOLD_KERNEL.values())
@@ -5456,6 +6103,11 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
     if any(classify_launches.values()):
         raise AssertionError(f"on the classify path: solve kernels launched "
                              f"({classify_launches})")
+    # nor do the text ops: no kernel of OFF_PATH, and none at all
+    _require_launches("text", text_launches, [])
+    if any(text_launches.values()):
+        raise AssertionError(f"on the text path: solve kernels launched "
+                             f"({text_launches})")
     # the path's launches: the grids in this process and the console
     # children's (each child's counts start at 0 with the process)
     children = [run["launches"] for run in eval_runs.values()]
@@ -5470,7 +6122,8 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
                           "eventserver": eventserver_launches,
                           "templates": templates_launches,
                           "runtime": runtime_launches,
-                          "classify": classify_launches}
+                          "classify": classify_launches,
+                          "text": text_launches}
 
     kernels = []
     for name, (replaces, source) in KERNELS.items():
@@ -5487,7 +6140,8 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
                          + eventserver_launches[name]
                          + templates_launches[name]
                          + runtime_launches[name]
-                         + classify_launches[name]),
+                         + classify_launches[name]
+                         + text_launches[name]),
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -5502,6 +6156,7 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
             "launches_templates": templates_launches[name],
             "launches_runtime": runtime_launches[name],
             "launches_classify": classify_launches[name],
+            "launches_text": text_launches[name],
             "launches_per_epoch_2m": per_epoch,
             "launches_console_eval": {layout: run["launches"][name]
                                       for layout, run in eval_runs.items()},

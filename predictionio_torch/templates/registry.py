@@ -103,6 +103,18 @@ BUILTIN_TEMPLATES: dict[str, TemplateInfo] = {
             sample_query={"user": "u1", "num": 4},
         ),
         TemplateInfo(
+            name="textclassification",
+            description="Text classification (tf-idf + NaiveBayes/LogReg, "
+                        "Word2Vec variant)",
+            engine_factory=("predictionio_torch.templates.textclassification."
+                            "TextClassificationEngine"),
+            engine_json={
+                "datasource": {"params": {"appName": "MyApp"}},
+                "algorithms": [{"name": "nb", "params": {"lambda": 0.25}}],
+            },
+            sample_query={"text": "a great product"},
+        ),
+        TemplateInfo(
             name="productranking",
             description="Product Ranking (re-order a given item list for "
                         "a user via ALS)",

@@ -36,6 +36,9 @@ Sites in the port:
 - `logreg.step_boundary` — in `ops.classify.logreg_train` (its
   `segmented_train`) after each chunk of Adam steps is computed, before
   its checkpoint save (`:N` dies after the N-th chunk)
+- `w2v.step_boundary` — in `ops.text.word2vec_fit_pairs` (its
+  `segmented_train`) after each chunk of SGNS steps is computed, before
+  its checkpoint save (`:N` dies after the N-th chunk)
 - `checkpoint.pre_replace` — in `CheckpointManager.save`, the step written
   to its temporary directory and the old step renamed aside, before the
   publishing `os.replace`

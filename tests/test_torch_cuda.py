@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from predictionio_torch.ops import als, classify, ranking, spd_solve
+from predictionio_torch.ops import als, classify, ranking, spd_solve, text
 
 pytestmark = pytest.mark.cuda
 
@@ -1201,3 +1201,78 @@ def test_classify_grids_on_card_match_sequential(dev):
                                    atol=1e-7)
         np.testing.assert_allclose(m.log_prior, seq.log_prior, rtol=1e-6,
                                    atol=1e-7)
+
+
+def _w2v_pairs(v=5_000, p=60_000, seed=0):
+    return np.random.default_rng(seed).integers(0, v, (p, 2)).astype(
+        np.int32), v
+
+
+def test_word2vec_fits_bitwise_on_card(dev, tmp_path):
+    """Two identical SGNS fits, a chunked one and one resumed from a
+    checkpoint give the same bits on the card: the scatter sums repeated
+    rows in a fixed order, and the draws' generator state is carried."""
+    pairs, v = _w2v_pairs()
+    cfg = text.Word2VecConfig(dim=128, negatives=5, steps=60,
+                              batch_size=4_096, seed=3)
+    a = text.word2vec_fit_pairs(pairs, v, cfg, device=dev)
+    b = text.word2vec_fit_pairs(pairs, v, cfg, device=dev)
+    chunked = text.word2vec_fit_pairs(pairs, v, cfg, device=dev,
+                                      checkpoint_dir=str(tmp_path / "c"),
+                                      checkpoint_every=7)
+    text.word2vec_fit_pairs(pairs, v, dataclasses.replace(cfg, steps=30),
+                            device=dev, checkpoint_dir=str(tmp_path / "r"),
+                            checkpoint_every=10)
+    text.reset_sampler_calls()
+    resumed = text.word2vec_fit_pairs(pairs, v, cfg, device=dev,
+                                      checkpoint_dir=str(tmp_path / "r"),
+                                      checkpoint_every=10)
+    assert text.sampler_calls["sgns"] == 30
+    for got in (b, chunked, resumed):
+        np.testing.assert_array_equal(got[0], a[0])
+        np.testing.assert_array_equal(got[1], a[1])
+        assert got[2] == a[2]
+    assert len(a[2]) == 60 and np.isfinite(a[2]).all()
+
+
+def test_sgns_loop_card_matches_cpu_on_the_same_draws(dev):
+    """50 steps on the card and on the CPU from the same tables and the
+    same draws (made on the card, copied to the CPU: the two devices'
+    generators give different streams) within rtol 1e-5 / atol 1e-6."""
+    pairs, v = _w2v_pairs(seed=1)
+    cfg = text.Word2VecConfig(dim=128, negatives=5, batch_size=4_096)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sampler = text.TorchSampler(gen, len(pairs), v, cfg)
+    draws = [sampler() for _ in range(50)]
+    rng = np.random.default_rng(2)
+    emb_in0 = ((rng.random((v, cfg.dim), dtype=np.float32) - 0.5)
+               / cfg.dim)
+    tables = {}
+    for where in (dev, torch.device("cpu")):
+        emb_in = torch.tensor(emb_in0, device=where)
+        emb_out = torch.zeros_like(emb_in)
+        moved = iter([(i.to(where), n.to(where)) for i, n in draws])
+        losses = text.sgns_loop(emb_in, emb_out,
+                                torch.from_numpy(pairs).long().to(where),
+                                moved.__next__, 50, cfg)
+        tables[where.type] = [t.cpu().numpy()
+                              for t in (emb_in, emb_out, losses)]
+    for got, want in zip(tables["cuda"], tables["cpu"]):
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_scatter_add_rows_repeats_its_bits_on_card(dev):
+    """The fixed-order scatter gives the same bits twice on rows that
+    repeat (a Zipf-like draw), and agrees with `index_add_` within f32
+    rounding."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ranks = torch.rand(81_920, generator=gen, device=dev)
+    ids = (ranks.pow(4) * 20_000).long()  # low ids repeat often
+    rows = torch.randn((81_920, 128), generator=gen, device=dev)
+    table0 = torch.randn((20_000, 128), generator=gen, device=dev)
+    a, b = table0.clone(), table0.clone()
+    text.scatter_add_rows(a, ids, rows)
+    text.scatter_add_rows(b, ids, rows)
+    assert torch.equal(a, b)
+    atomics = table0.clone().index_add_(0, ids, rows)
+    torch.testing.assert_close(a, atomics, rtol=1e-4, atol=1e-3)

@@ -657,3 +657,98 @@ def test_classify_templates_with_jax_and_reference_blocked():
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "CLASSIFY-ISOLATED-OK" in proc.stdout
+
+
+_TEXT_RUN = textwrap.dedent("""
+    import importlib.abc, json, os, sys, tempfile, threading, urllib.request
+
+    BLOCKED = {blocked!r}
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError("blocked import of " + name)
+            return None
+
+    before = {{m for m in sys.modules if m.split(".")[0] in BLOCKED}}
+    sys.meta_path.insert(0, Block())
+
+    from predictionio_torch.ops import text
+    from predictionio_torch.storage.registry import Storage
+    from predictionio_torch.tools import console
+    from predictionio_torch.workflow.create_server import PredictionServer
+
+    tmp = tempfile.mkdtemp()
+    os.environ["PIO_FS_BASEDIR"] = os.path.join(tmp, "base")
+    words = {{"spam": ["cheap", "pills", "win", "money", "offer", "deal"],
+              "ham": ["meeting", "report", "team", "review", "lunch",
+                      "quarterly"]}}
+    events = os.path.join(tmp, "events.jsonl")
+    with open(events, "w") as f:
+        for n in range(40):
+            cat = "spam" if n % 2 else "ham"
+            tokens = [words[cat][(n * 7 + j * 3) % 6] for j in range(6)]
+            f.write(json.dumps({{
+                "event": "$set", "entityType": "content",
+                "entityId": "doc%d" % n, "properties": {{
+                    "text": "The " + " ".join(tokens) + ".",
+                    "category": cat}}}}) + "\\n")
+    assert console.main(["app", "new", "MyApp1"]) == 0
+    assert console.main(["import", "--appname", "MyApp1", "--input",
+                         events]) == 0
+    engine_dir = os.path.join(tmp, "text")
+    assert console.main(["template", "get", "textclassification",
+                         engine_dir, "--app-name", "MyApp1"]) == 0
+    engine_json = os.path.join(engine_dir, "engine.json")
+    assert console.main(["build", "--engine-json", engine_json]) == 0
+    assert console.main(["train", "--engine-json", engine_json,
+                         "--device", "cpu"]) == 0
+    with open(engine_json) as f:
+        variant = json.load(f)
+    variant["id"] = "text-w2v"
+    variant["algorithms"] = [{{"name": "word2vec", "params": {{
+        "dim": 8, "window": 2, "steps": 40, "batchSize": 64,
+        "iterations": 40, "stepSize": 0.3}}}}]
+    w2v_json = os.path.join(engine_dir, "engine-w2v.json")
+    with open(w2v_json, "w") as f:
+        json.dump(variant, f)
+    assert console.main(["train", "--engine-json", w2v_json, "--device",
+                         "cpu", "--checkpoint-dir",
+                         os.path.join(tmp, "ckpt")]) == 0
+    assert text.sampler_calls["sgns"] == 40
+    assert sorted(os.listdir(os.path.join(tmp, "ckpt", "w2v"))) == [
+        "step_32", "step_36", "step_40"]
+    answers = []
+    for path in (engine_json, w2v_json):
+        server = PredictionServer(path, ip="127.0.0.1", port=0,
+                                  device="cpu", storage=Storage.get())
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        req = urllib.request.Request(
+            "http://127.0.0.1:%d/queries.json" % server.port,
+            data=json.dumps({{"text": "cheap pills offer"}}).encode())
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            answers.append(json.loads(resp.read()))
+        server.shutdown()
+        server.server_close()
+    assert [a["category"] for a in answers] == ["spam", "spam"], answers
+    Storage.get().close()
+    import torch
+    assert not torch.cuda.is_initialized()
+    after = {{m for m in sys.modules if m.split(".")[0] in BLOCKED}}
+    assert after == before, sorted(after - before)
+    print("TEXT-ISOLATED-OK")
+""")
+
+
+def test_text_template_with_jax_and_reference_blocked():
+    """The text template, scaffolded, built, trained from a store (NB,
+    and the Word2Vec variant with `--checkpoint-dir`) and served over
+    HTTP, imports neither JAX nor the reference."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("PIO_TORCH_DEVICE", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _TEXT_RUN.format(blocked=BLOCKED)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "TEXT-ISOLATED-OK" in proc.stdout

@@ -1,6 +1,6 @@
 """The port's template registry, its scaffolding and the console verbs
 `template list|get`, `new` and `build` (the reference's
-tests/test_templates_registry.py against the port's six templates), and
+tests/test_templates_registry.py against the port's seven templates), and
 the reference's quickstart of the similarproduct and ecommerce templates
 (tests/test_quickstart_e2e.py::test_similarproduct_and_ecommerce) through
 the port's console on the CPU: `template get` → `app new` → `import` →
@@ -37,7 +37,7 @@ from predictionio_torch.workflow.workflow_utils import (
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAMES = ("classification", "ecommerce", "leadscoring", "productranking",
-         "recommendation", "similarproduct")
+         "recommendation", "similarproduct", "textclassification")
 
 torch.set_num_threads(1)
 
@@ -64,7 +64,8 @@ def test_unknown_template_raises():
     with pytest.raises(KeyError, match="available: classification, "
                                        "ecommerce, leadscoring, "
                                        "productranking, recommendation, "
-                                       "similarproduct"):
+                                       "similarproduct, "
+                                       "textclassification"):
         get_template("nope")
 
 
