@@ -355,6 +355,34 @@ Phases (any failure exits non-zero and prints no result line):
              from step 500 (no SGNS step) and the head from step 20; both
              models' bytes equal (b)'s uninterrupted train's. Each line
              carries the card's name and power limit.
+14. basket — the basket ops (`ops/basket.py`) and the
+             complementarypurchase template, run last; a child started
+             with the run writes its store (`console import`): 200,000
+             `buy` events of 20,000 users over 2,000 Zipf items, in
+             baskets of 1 + Poisson(9) items 60-300 s apart, a user's
+             baskets 6 h apart (app Cart200k). (b) `console template get`
+             and `build`, then `console train` (the shipped defaults) in a
+             child beside (a): (a) `mine_rules` with the template's
+             defaults at its dense bound, 8,192 items × 200,000 seeded
+             baskets of 1 + Poisson(9) Zipf items (the public Instacart
+             data's ~10-item mean order), 20 of them "bot" baskets of
+             600-2,000 distinct items with repeats: wall, peak memory,
+             the dense path taken (its cap warning, no fallback line);
+             the same call in its pieces (host pre-pass, upload, the Gram
+             by the host's clock and by CUDA events, C's copy back, the
+             host rule pass), its rules bitwise the first's; C equal,
+             entry for entry, to an independent count (the deduped and
+             capped in-basket pairs enumerated with numpy and counted by
+             `np.bincount`); the Gram's bound (2·baskets·items² int8
+             operations at 1,979 TOP/s, beside bf16's and f32's); at
+             1,024 × 20,000 the card's C and rules bitwise the CPU's; at
+             300 × 3,000 the host fallback (`max_dense_items=1`) with the
+             dense path's rules. (b) The train's read, prepare and train
+             seconds (its log: every event read, every basket formed),
+             `console deploy`, 100 carts of 1-3 items (some unknown,
+             `num` 1-10) each equal to the persisted model's in-process
+             answer (p50, p99). Each line carries the card's name and
+             power limit.
 
 Launch counts are zeroed just before each path (phases 3-4: train →
 serve; phase 5: eval → batchpredict; phase 6: fold; phase 7: online,
@@ -363,12 +391,13 @@ children's counts added; phase 9: eventserver, with the deploy child's
 counts added; phase 10: templates, with every console child's counts
 added; phase 11: runtime, with its console children's counts added, the
 killed train's lost with it; phase 12: classify, with every console
-child's counts added; phase 13: text, likewise) and read just after;
+child's counts added; phases 13 and 14: text and basket, likewise) and
+read just after;
 every kernel of a path must have launched there (on the serving path,
 `gj_aug_reg` in (d)'s child alone), and `gj_aug`, `gj_packed`
 and `gj_blocked2` (K > 256 only) and `gj_aug_multi` (K > 128 with M > 1
-only) on none; phase 12's and phase 13's paths solve no system and
-launch no solve kernel. The eval path's counts add the console
+only) on none; the paths of phases 12-14 solve no system and launch no
+solve kernel. The eval path's counts add the console
 children's own to the grids'; the sequential trains phase 5a compares
 with run before its counts are zeroed. `--report PATH` also writes a JSON report
 with every number (the ptxas output, the profile's kernel table). The last
@@ -659,6 +688,31 @@ TEXT_W2V_PARAMS = {"dim": 128, "window": 2, "negatives": 5,
 TEXT_KILL = 2
 # 13b's evaluation (`chip_smoke.TextEvaluation`): NB at these λ, k folds
 TEXT_EVAL_LAMBDAS, TEXT_EVAL_K = (0.25, 1.0), 3
+# 14a: the co-occurrence Gram at the template's dense bound (maxDenseItems
+# 8 192) over BASKET_BASKETS seeded baskets of 1 + Poisson(BASKET_MEAN)
+# Zipf-drawn items (the ~10-item mean order of the public Instacart Market
+# Basket data), BASKET_BOTS of them "bot" baskets of BASKET_BOT_SIZES
+# distinct items with repeats; the template's default rules
+BASKET_ITEMS, BASKET_BASKETS, BASKET_MEAN = 8_192, 200_000, 9
+BASKET_BOTS, BASKET_BOT_SIZES = 20, (600, 2_000)
+BASKET_RULES = {"min_support": 0.001, "min_confidence": 0.05,
+                "min_lift": 1.0, "top_k": 10, "score": "lift"}
+BASKET_CAP, BASKET_CHUNK = 512, 1024  # mine_rules' max_basket_items, chunk
+BASKET_GRAM_REPS = 3
+# the card against the CPU, and the dense path against the host fallback,
+# at these (items, baskets, bots)
+BASKET_CPU_SHAPE = (1_024, 20_000, 2)
+BASKET_FALLBACK_SHAPE = (300, 3_000, 0)
+# 14b: the store, by scale: (buy events, users, items), written by a child
+# started with the run; a user's baskets BASKET_SPACING s apart, a
+# basket's purchases 60-300 s apart, the template's basketWindow 3 600 s
+BASKET_SCALES = {"200k": (200_000, 20_000, 2_000), "2k": (2_000, 200, 100)}
+BASKET_SPACING = 6 * 3_600
+BASKET_APP = "Cart200k"
+BASKET_RESULT = "basket.json"
+BASKET_QUERIES = 100
+# the card's published dense peaks (the on-chip guide's table)
+PEAK_INT8_OPS, PEAK_BF16_FLOPS = 1_979e12, 989e12
 # deploys the console in a child process and writes, when it exits, its
 # launch counts to the file named by its first argument
 _DEPLOY_CHILD = (
@@ -4251,7 +4305,7 @@ def phase_templates(report: dict, device, tmp: str, served: dict,
         eval_log.splitlines()[-40:]
     if sorted(evaluation["templates_listed"]) != sorted(
             TEMPLATE_NAMES + CLASSIFY_TEMPLATE_NAMES
-            + ("textclassification",)):
+            + ("textclassification", "complementarypurchase")):
         raise AssertionError(f"console template list printed "
                              f"{evaluation['templates_listed']}")
     wall = time.perf_counter() - t_all
@@ -5843,6 +5897,447 @@ def phase_text(report: dict, device, tmp: str, writer, base: str) -> dict:
             if rec is not None}
 
 
+# -- phase 14: the basket ops and the complementarypurchase template --------
+
+RULE_FIELDS = ("cond_items", "cons_items", "scores", "support", "confidence",
+               "lift")
+
+
+def _basket_data(n_items: int, n_baskets: int, n_bots: int, seed: int):
+    """(basket idx, item idx) int32 purchases: each basket 1 +
+    Poisson(BASKET_MEAN) items drawn Zipf (p ∝ 1/rank, so repeats occur),
+    and `n_bots` baskets given besides BASKET_BOT_SIZES distinct items
+    (at most the catalog) and a quarter as many repeats of them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, n_items + 1)
+    sizes = 1 + rng.poisson(BASKET_MEAN, n_baskets)
+    b = [np.repeat(np.arange(n_baskets), sizes)]
+    i = [rng.choice(n_items, len(b[0]), p=p / p.sum())]
+    hi = min(BASKET_BOT_SIZES[1], n_items)
+    for bot in rng.choice(n_baskets, n_bots, replace=False):
+        distinct = rng.choice(n_items, int(rng.integers(
+            min(BASKET_BOT_SIZES[0], hi), hi + 1)), replace=False)
+        items = np.concatenate([distinct,
+                                rng.choice(distinct, len(distinct) // 4)])
+        b.append(np.full(len(items), bot))
+        i.append(items)
+    return (np.concatenate(b).astype(np.int32),
+            np.concatenate(i).astype(np.int32))
+
+
+def _exact_counts(b, i, n_baskets: int, n_items: int, cap: int) -> tuple:
+    """An independent count of C: (basket, item) pairs deduped, each
+    basket cut to its `cap` lowest item ids, then every ordered pair of
+    one basket's items (its diagonal included) enumerated with numpy and
+    counted by `np.bincount`. Returns (C as int64 [n_items, n_items], the
+    pairs enumerated, the largest support of an item inside one
+    BASKET_CHUNK-basket chunk)."""
+    import numpy as np
+
+    key = np.unique(b.astype(np.int64) * n_items + i)
+    bb, ii = key // n_items, key % n_items
+    k = np.bincount(bb, minlength=n_baskets)
+    start = np.cumsum(k) - k
+    keep = np.arange(len(bb)) - start[bb] < cap
+    bb, ii = bb[keep], ii[keep]
+    k = np.bincount(bb, minlength=n_baskets)
+    start = np.cumsum(k) - k
+    per = k[bb]  # an entry pairs with every entry of its basket
+    first = np.repeat(np.arange(len(bb)), per)
+    second = start[bb[first]] + np.arange(len(first)) - np.repeat(
+        np.cumsum(per) - per, per)
+    counts = np.bincount(ii[first] * n_items + ii[second],
+                         minlength=n_items * n_items)
+    chunk_support = np.bincount((bb // BASKET_CHUNK) * n_items + ii).max()
+    return (counts.reshape(n_items, n_items), int(len(first)),
+            int(chunk_support))
+
+
+def _rules_equal(a, b) -> bool:
+    """Every BasketRules array of `a` and `b` the same bits (and dtype)."""
+    import numpy as np
+
+    return a.n_baskets == b.n_baskets and all(
+        getattr(a, f).dtype == getattr(b, f).dtype
+        and np.array_equal(getattr(a, f), getattr(b, f)) for f in RULE_FIELDS)
+
+
+def _gram_alternatives(walk_d, n_items: int, C, device) -> dict:
+    """14a: the Gram by the other exact formulations of `cooccurrence_
+    matrix`'s docstring, each timed once by CUDA events over the whole
+    walk and held against C: int8 → int32 one chunk a GEMM
+    (GROUP_BYTES 1), an f32 GEMM a chunk (TF32 off) and, on CUDA, bf16
+    inputs with an f32 output (`out_dtype`) a chunk, cuBLAS's bf16
+    reduced-precision reduction turned off around it. {name: (ms, C
+    equal)}; bf16 None off CUDA."""
+    import numpy as np
+    import torch
+
+    from predictionio_torch.ops import basket
+
+    rows, cols, valid = walk_d
+    n_pad = max(24, -(-n_items // 8) * 8)
+
+    def per_chunk(dtype, mm):
+        one = torch.ones((), dtype=dtype, device=device)
+        acc = torch.zeros((n_pad, n_pad), dtype=torch.float32, device=device)
+        for c in range(rows.shape[0]):
+            m = torch.zeros((n_pad + 1, BASKET_CHUNK), dtype=dtype,
+                            device=device)
+            item = torch.where(valid[c], cols[c].long(), n_pad)
+            m.index_put_((item, rows[c].long()), one)
+            m = m[:n_pad]
+            acc += mm(m, m.t())
+        return acc
+
+    def one_chunk_a_gemm():
+        old, basket.GROUP_BYTES = basket.GROUP_BYTES, 1
+        try:
+            return basket._gram(rows, cols, valid, n_items, BASKET_CHUNK)
+        finally:
+            basket.GROUP_BYTES = old
+
+    matmul = torch.backends.cuda.matmul
+
+    def bf16_out_f32():
+        flag = matmul.allow_bf16_reduced_precision_reduction
+        matmul.allow_bf16_reduced_precision_reduction = False
+        try:
+            return per_chunk(torch.bfloat16, lambda a, b: torch.mm(
+                a, b, out_dtype=torch.float32))
+        finally:
+            matmul.allow_bf16_reduced_precision_reduction = flag
+
+    runs = {"int8_one_chunk_a_gemm": one_chunk_a_gemm,
+            "f32_a_chunk": lambda: per_chunk(torch.float32, torch.mm),
+            "bf16_out_f32_a_chunk": bf16_out_f32}
+    out = {}
+    for name, fn in runs.items():
+        if name.startswith("bf16") and device.type != "cuda":
+            out[name] = None
+            continue
+        got = []
+        ms = time_ms(lambda: got.append(fn()), 1, warmup=0)
+        out[name] = (ms, bool(np.array_equal(
+            got[-1][:n_items, :n_items].float().cpu().numpy(), C)))
+        del got
+    return out
+
+
+def _basket_gram(device) -> dict:
+    """14a at BASKET_ITEMS × BASKET_BASKETS: `mine_rules` with the
+    template's defaults (wall, peak memory, its log: the dense path's
+    cap warning and no host fallback), then the same call in its pieces
+    (host pre-pass, upload, the Gram by the host's clock and by CUDA
+    events over BASKET_GRAM_REPS calls, C's copy back, the host rule
+    pass) whose rules must equal the first's bit for bit, the Gram's
+    other formulations (`_gram_alternatives`); C against `_exact_counts`
+    entry for entry; the bound of the Gram."""
+    import numpy as np
+    import torch
+
+    from predictionio_torch.device import synchronize
+    from predictionio_torch.ops import basket
+
+    n_items, n_baskets = BASKET_ITEMS, BASKET_BASKETS
+    t0 = time.perf_counter()
+    b, i = _basket_data(n_items, n_baskets, BASKET_BOTS, 14)
+    data_s = time.perf_counter() - t0
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.init()  # the peak counters exist once CUDA is up
+        torch.cuda.reset_peak_memory_stats(device)
+    with _Lines(basket.__name__) as logged:
+        t0 = time.perf_counter()
+        first = basket.mine_rules(b, i, n_baskets, n_items, device=device,
+                                  **BASKET_RULES)
+        whole_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) if on_card else None
+    dense = (logged.lines == [f"cooccurrence_matrix: truncating "
+                              f"{BASKET_BOTS} basket(s) larger than "
+                              f"{BASKET_CAP} distinct items"])
+
+    t0 = time.perf_counter()
+    b_sorted, i_sorted = basket._dedup_and_cap(b, i, n_baskets, BASKET_CAP,
+                                               "chip_smoke")
+    walk = basket._chunk_walk(b_sorted, i_sorted, n_baskets, BASKET_CHUNK)
+    prepass_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    walk_d = [torch.from_numpy(a).to(device) for a in walk]
+    synchronize(device)
+    upload_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    acc = basket._gram(*walk_d, n_items, BASKET_CHUNK)
+    synchronize(device)
+    gram_host_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    C = acc[:n_items, :n_items].float().cpu().numpy()
+    copy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    second = basket._rules_from_dense(C, n_baskets, *BASKET_RULES.values())
+    rules_s = time.perf_counter() - t0
+    del acc
+    gram_ms = time_ms(lambda: basket._gram(*walk_d, n_items, BASKET_CHUNK),
+                      BASKET_GRAM_REPS, warmup=0)
+    alternatives = _gram_alternatives(walk_d, n_items, C, device)
+
+    t0 = time.perf_counter()
+    exact, n_pairs, chunk_support = _exact_counts(b, i, n_baskets, n_items,
+                                                  BASKET_CAP)
+    exact_s = time.perf_counter() - t0
+    # the Gram's least work on these inputs: 2·baskets·items² int8
+    # operations; each walk entry read once and C written once (f32)
+    ops = 2.0 * n_baskets * n_items * n_items
+    moved = sum(a.nbytes for a in walk) + 4 * n_items * n_items
+    t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT8_OPS * 1e3
+    k_chunk = -(-BASKET_CHUNK // 8) * 8
+    return {
+        "items": n_items, "baskets": n_baskets,
+        "purchases": int(len(b)), "deduped_capped": int(len(b_sorted)),
+        "walk": list(walk[0].shape), "data_s": data_s,
+        "mine_rules_s": whole_s, "peak_bytes": peak, "dense_path": dense,
+        "logged": logged.lines[:5],
+        "rules": int((first.cons_items >= 0).sum()),
+        "cond_items": int(len(first.cond_items)),
+        "split_s": {"prepass": prepass_s, "upload": upload_s,
+                    "gram": gram_host_ms / 1e3, "copy_back": copy_s,
+                    "rules": rules_s},
+        "gram_ms": gram_ms, "gram_host_ms": gram_host_ms,
+        "alternatives": alternatives,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_bf16_ms": ops / PEAK_BF16_FLOPS * 1e3,
+        "bound_f32_ms": ops / PEAK_FP32_FLOPS * 1e3,
+        "gemm_operations": 2.0 * len(walk[0]) * k_chunk
+        * (-(-n_items // 8) * 8) ** 2,
+        "operations": ops, "bytes": moved,
+        "rules_bitwise_again": _rules_equal(first, second),
+        "c_equals_exact": bool(np.array_equal(C, exact)),
+        "exact_pairs": n_pairs, "exact_s": exact_s,
+        "c_max_offdiag": float((C - np.diag(np.diag(C))).max()),
+        "c_entries_over_256": int((C > 256).sum()),
+        "max_chunk_support": chunk_support}
+
+
+def _basket_card_cpu(device) -> dict:
+    """14a: at BASKET_CPU_SHAPE, the card's C and rules against the
+    CPU's (bitwise); at BASKET_FALLBACK_SHAPE, `max_dense_items=1` (the
+    host fallback, logged) against the dense path: the same condition
+    items, and each one's consequents and scores to 5 decimals (the
+    reference's own bar), with whether every array is equal."""
+    import numpy as np
+
+    from predictionio_torch.ops import basket
+
+    n_items, n_baskets, bots = BASKET_CPU_SHAPE
+    b, i = _basket_data(n_items, n_baskets, bots, 15)
+    grams, rules, secs = {}, {}, {}
+    for where in (device, "cpu"):
+        t0 = time.perf_counter()
+        grams[str(where)] = basket.cooccurrence_matrix(
+            b, i, n_baskets, n_items, device=where)
+        rules[str(where)] = basket.mine_rules(b, i, n_baskets, n_items,
+                                              device=where, **BASKET_RULES)
+        secs[str(where)] = time.perf_counter() - t0
+    card, cpu = str(device), "cpu"
+    n_items, n_baskets, bots = BASKET_FALLBACK_SHAPE
+    b, i = _basket_data(n_items, n_baskets, bots, 16)
+    kw = dict(BASKET_RULES, min_support=0.0, min_lift=0.0)
+    dense = basket.mine_rules(b, i, n_baskets, n_items, device=device, **kw)
+    with _Lines(basket.__name__) as logged:
+        host = basket.mine_rules(b, i, n_baskets, n_items, device=device,
+                                 max_dense_items=1, **kw)
+    same_rows = np.array_equal(dense.cond_items, host.cond_items) and all(
+        {(int(j), round(float(s), 5)) for j, s in zip(
+            dense.cons_items[r], dense.scores[r]) if j >= 0}
+        == {(int(j), round(float(s), 5)) for j, s in zip(
+            host.cons_items[r], host.scores[r]) if j >= 0}
+        for r in range(len(dense.cond_items)))
+    return {"shape": list(BASKET_CPU_SHAPE),
+            "c_bitwise": bool(np.array_equal(grams[card], grams[cpu])),
+            "rules_bitwise": _rules_equal(rules[card], rules[cpu]),
+            "rules": int((rules[cpu].cons_items >= 0).sum()),
+            "card_s": secs[card], "cpu_s": secs[cpu],
+            "fallback_shape": list(BASKET_FALLBACK_SHAPE),
+            "fallback_logged": any("sparse host count" in line
+                                   for line in logged.lines),
+            "fallback_rules": int((host.cons_items >= 0).sum()),
+            "fallback_same_rules": bool(same_rows),
+            "fallback_arrays_equal": _rules_equal(dense, host)}
+
+
+def _basket_events(n_events: int, n_users: int, n_items: int, rng) -> tuple:
+    """14b's `buy` events: baskets of 1 + Poisson(BASKET_MEAN) Zipf-drawn
+    items (the last cut at `n_events`), each of a random user; a user's
+    k-th basket starts k·BASKET_SPACING s after the start (plus up to
+    half an hour), its purchases 60-300 s apart, so that only the
+    baskets' gaps pass the template's basketWindow. Returns (the event
+    dicts, the baskets)."""
+    import numpy as np
+
+    sizes = 1 + rng.poisson(BASKET_MEAN, n_events // BASKET_MEAN + 16)
+    sizes = sizes[:int(np.searchsorted(np.cumsum(sizes), n_events)) + 1]
+    sizes[-1] -= int(sizes.sum()) - n_events
+    users = rng.integers(0, n_users, len(sizes))
+    order = np.argsort(users, kind="stable")
+    nth = np.empty(len(sizes), np.int64)  # the basket's rank in its user's
+    nth[order] = np.arange(len(sizes)) - np.searchsorted(users[order],
+                                                         users[order])
+    p = 1.0 / np.arange(1, n_items + 1)
+    items = rng.choice(n_items, n_events, p=p / p.sum())
+    basket = np.repeat(np.arange(len(sizes)), sizes)
+    start = nth * BASKET_SPACING + rng.integers(0, 1_800, len(sizes))
+    offsets = rng.integers(60, 301, n_events)
+    first = np.cumsum(sizes) - sizes
+    offsets[first] = 0
+    seconds = start[basket] + np.cumsum(offsets) - np.repeat(
+        np.cumsum(offsets)[first], sizes)
+    t0 = datetime(2026, 4, 1, tzinfo=timezone.utc)
+    events = [{"event": "buy", "entityType": "user",
+               "entityId": f"u{users[bk]}", "targetEntityType": "item",
+               "targetEntityId": f"i{it}", "eventTime": _stamp(t0, int(t))}
+              for bk, it, t in zip(basket, items, seconds)]
+    return events, len(sizes)
+
+
+def write_basket_store(base: str, scale: str) -> None:
+    """14, in a writer child started with the run: BASKET_APP's purchases
+    (`_basket_events`) at BASKET_SCALES[scale], written as a JSON-lines
+    file and `console import`ed (the native importer) into a sqlite
+    pio.db under `base`, the file deleted after; then BASKET_RESULT under
+    `base`: the counts and the file's and the import's seconds."""
+    import numpy as np
+
+    from predictionio_torch.tools import console
+
+    t_start = time.perf_counter()
+    n_events, n_users, n_items = BASKET_SCALES[scale]
+    events, n_baskets = _basket_events(n_events, n_users, n_items,
+                                       np.random.default_rng(14))
+    os.environ["PIO_FS_BASEDIR"] = base
+    path = os.path.join(base, f"{BASKET_APP}.jsonl")
+    t0 = time.perf_counter()
+    with open(path, "w") as f:
+        for event in events:
+            f.write(json.dumps(event) + "\n")
+    file_s = time.perf_counter() - t0
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        if console.main(["app", "new", BASKET_APP]) != 0:
+            raise AssertionError(f"console app new {BASKET_APP} failed")
+        t0 = time.perf_counter()
+        if console.main(["import", "--appname", BASKET_APP, "--input",
+                         path]) != 0:
+            raise AssertionError(f"console import of {BASKET_APP} failed")
+        import_s = time.perf_counter() - t0
+    os.unlink(path)
+    imported = said.getvalue().strip().splitlines()[-1]
+    if imported != f"Imported {n_events} events.":
+        raise AssertionError(f"console import said {imported!r}")
+    row = {"scale": scale, "events": n_events, "users": n_users,
+           "items": n_items, "baskets": n_baskets, "file_s": file_s,
+           "import_s": import_s, "write_s": time.perf_counter() - t_start}
+    with open(os.path.join(base, BASKET_RESULT), "w") as f:
+        json.dump(row, f)
+
+
+def _basket_queries(rng, n: int, n_items: int) -> list:
+    """`n` carts of 1-3 items (every other one among the 50 commonest),
+    every seventh with an unknown item besides, `num` 1-10."""
+    queries = []
+    for j in range(n):
+        top = 50 if j % 2 else n_items
+        items = [f"i{int(rng.integers(0, top))}"
+                 for _ in range(int(rng.integers(1, 4)))]
+        if j % 7 == 0:
+            items.append(f"unknown{j}")
+        queries.append({"items": items, "num": int(rng.integers(1, 11))})
+    return queries
+
+
+def phase_basket(report: dict, device, tmp: str, writer, base: str) -> dict:
+    """Phase 14: (b) `console template get` and `build` of
+    complementarypurchase on the store that `writer` (the child running
+    `write_basket_store`) writes under `base`, its `console train`
+    started in a child, then (a) in this process meanwhile, then (b) its
+    `console deploy` and BASKET_QUERIES queries against the in-process
+    answers. Returns each console child's launch record."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    card = report["card"]
+    written = _await_ratings(writer, base, BASKET_RESULT,
+                             "the basket store's writer")
+    waited_s = time.perf_counter() - t_phase
+    engine_json = _scaffolded("complementarypurchase",
+                              os.path.join(tmp, "Cart"), BASKET_APP)
+    dev = str(device)
+    t0 = time.perf_counter()
+    started = {"train": _start_child(["train", "--engine-json", engine_json,
+                                      "--device", dev], base)}
+    a_row = _basket_gram(device)
+    emit(dict(phase="basket", part="a_gram", card=card, **a_row))
+    a_cpu = _basket_card_cpu(device)
+    emit(dict(phase="basket", part="a_card_cpu", card=card, **a_cpu))
+    if not (a_row["c_equals_exact"] and a_row["dense_path"]
+            and a_row["rules_bitwise_again"] and a_row["rules"] > 0
+            and a_cpu["c_bitwise"] and a_cpu["rules_bitwise"]
+            and a_cpu["fallback_logged"] and a_cpu["fallback_same_rules"]
+            and a_cpu["fallback_rules"] > 0):
+        raise AssertionError(f"14a: the Gram or the rules failed their "
+                             f"bars: {a_row} {a_cpu}")
+    done, walls = _finish_together(started, {"train": t0}, {}, "14")
+    _, err, train_rec = done["train"]
+    stages = _stage_seconds(err)
+    read = _count_logged(err, r"DataSource: (\d+) buy events")
+    prepared = _count_logged(err, r"Preparator: (\d+) baskets over (\d+) "
+                                  r"purchases \((\d+) items\)")
+    mined = _count_logged(err, r"AssociationAlgorithm: (\d+) rules over "
+                               r"(\d+) condition items")
+    if (read != [written["events"]] or prepared[:1] != [written["baskets"]]
+            or not mined or mined[0] <= 0):
+        raise AssertionError(f"14b: the train read {read} events into "
+                             f"{prepared} baskets and mined {mined}; the "
+                             f"writer wrote {written}")
+    launch_path = os.path.join(tmp, "basket-deploy.json")
+    deploy = _start_deploy(["--engine-json", engine_json, "--ip",
+                            "127.0.0.1", "--port", "0", "--device", dev],
+                           {"PIO_FS_BASEDIR": base}, launch_path)
+    storage = None
+    try:
+        t0 = time.perf_counter()
+        line = _read_deployed_line(deploy, 300.0)
+        ready_s = time.perf_counter() - t0
+        url = f"http://127.0.0.1:{int(line.rsplit(':', 1)[1])}"
+        queries = _basket_queries(np.random.default_rng(14), BASKET_QUERIES,
+                                  written["items"])
+        storage = _store_at(base)
+        predict = _latest_model(storage, engine_json)
+        served = _served_equal(url, queries, predict)
+        served["answered"] = sum(bool(predict(q)["rules"]) for q in queries)
+    finally:
+        _stop(deploy)
+        if storage is not None:
+            storage.close()
+    with open(launch_path) as f:
+        deploy_rec = json.load(f)
+    b_row = dict(stages, wall_s=walls["train"], store=written,
+                 waited_s=waited_s, events=read[0], baskets=prepared[0],
+                 purchases=prepared[1], items=prepared[2], rules=mined[0],
+                 cond_items=mined[1], ready_s=ready_s, serve=served)
+    emit(dict(phase="basket", part="b_template", card=card, **b_row))
+    if served["equal"] != served["queries"] or served["answered"] < 10:
+        raise AssertionError(f"14b: served answers differ from the "
+                             f"in-process model's: {served}")
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "basket", "wall_s": wall, "card": card})
+    report["basket"] = {"a": a_row, "a_card_cpu": a_cpu, "b": b_row,
+                        "log": err.splitlines()[-30:], "wall_s": wall}
+    return {"train": train_rec, "deploy": deploy_rec}
+
+
 def _require_runtime_launches(children: dict, profiled: dict) -> None:
     """Phase 11's launch bars (card only): the resumed train launched
     `gj_aug_reg` (RUNTIME_ITERATIONS − RUNTIME_KILL + 1) / RUNTIME_ITERATIONS
@@ -5956,19 +6451,22 @@ def main(argv=None) -> int:
     fallbacks = _NativeFallbacks()
     report["native"] = native_build()
     emit(dict(phase="native", **report["native"]))
-    # the stores of phases 10-13 are written by children from here on,
+    # the stores of phases 10-14 are written by children from here on,
     # beside the phases before them (they take minutes; those phases leave
     # host cores idle)
     shop = tempfile.TemporaryDirectory()
     ratings = tempfile.TemporaryDirectory()
     props = tempfile.TemporaryDirectory()
     texts = tempfile.TemporaryDirectory()
+    baskets = tempfile.TemporaryDirectory()
     writer = _start_store_writer(shop.name)
     ratings_writer = _start_store_writer(ratings.name, "2m",
                                          "write_ratings_store")
     props_writer = _start_store_writer(props.name, "2m",
                                        "write_classify_store")
     text_writer = _start_store_writer(texts.name, "50k", "write_text_store")
+    basket_writer = _start_store_writer(baskets.name, "200k",
+                                        "write_basket_store")
     # the run's PIO_FS_BASEDIR (the bucket cache of a console child that
     # names no store lives under it), unless a phase sets its own
     basedir = tempfile.TemporaryDirectory()
@@ -5976,24 +6474,28 @@ def main(argv=None) -> int:
     try:
         return _run(args, report, card, device, t_all, writer, shop.name,
                     fallbacks, ratings_writer, ratings.name, props_writer,
-                    props.name, text_writer, texts.name)
+                    props.name, text_writer, texts.name, basket_writer,
+                    baskets.name)
     finally:
         _stop(writer)
         _stop(ratings_writer)
         _stop(props_writer)
         _stop(text_writer)
+        _stop(basket_writer)
         shop.cleanup()
         ratings.cleanup()
         props.cleanup()
         texts.cleanup()
+        baskets.cleanup()
         basedir.cleanup()
 
 
 def _run(args, report: dict, card: str, device, t_all: float, writer,
          shop: str, fallbacks, ratings_writer, ratings: str, props_writer,
-         props: str, text_writer, texts: str) -> int:
-    """Phases 1-13 and the kernels line (`main`'s body, with the store
-    writers of phases 10-13 started)."""
+         props: str, text_writer, texts: str, basket_writer,
+         baskets: str) -> int:
+    """Phases 1-14 and the kernels line (`main`'s body, with the store
+    writers of phases 10-14 started)."""
     import torch
 
     from predictionio_torch.ops import spd_solve
@@ -6077,6 +6579,14 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
         text_launches = {
             k: v + sum(c["launches"][k] for c in text_children.values())
             for k, v in spd_solve.launches.items()}
+        spd_solve.reset_launches()  # the basket path starts here
+        basket_children = phase_basket(report, device, tmp, basket_writer,
+                                       baskets)
+        # ... and ends here: this process's launches (14a) and the console
+        # children's (the train, the deploy)
+        basket_launches = {
+            k: v + sum(c["launches"][k] for c in basket_children.values())
+            for k, v in spd_solve.launches.items()}
     _require_launches("fold", fold_launches, FOLD_KERNEL.values())
     # the runtime path: gj_aug_reg at rank 64, the Schur base at 128
     _require_launches("runtime", runtime_launches, FOLD_KERNEL.values())
@@ -6108,6 +6618,11 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
     if any(text_launches.values()):
         raise AssertionError(f"on the text path: solve kernels launched "
                              f"({text_launches})")
+    # nor do the basket ops (a torch int8 GEMM, no solve)
+    _require_launches("basket", basket_launches, [])
+    if any(basket_launches.values()):
+        raise AssertionError(f"on the basket path: solve kernels launched "
+                             f"({basket_launches})")
     # the path's launches: the grids in this process and the console
     # children's (each child's counts start at 0 with the process)
     children = [run["launches"] for run in eval_runs.values()]
@@ -6123,7 +6638,8 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
                           "templates": templates_launches,
                           "runtime": runtime_launches,
                           "classify": classify_launches,
-                          "text": text_launches}
+                          "text": text_launches,
+                          "basket": basket_launches}
 
     kernels = []
     for name, (replaces, source) in KERNELS.items():
@@ -6141,7 +6657,8 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
                          + templates_launches[name]
                          + runtime_launches[name]
                          + classify_launches[name]
-                         + text_launches[name]),
+                         + text_launches[name]
+                         + basket_launches[name]),
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -6157,6 +6674,7 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
             "launches_runtime": runtime_launches[name],
             "launches_classify": classify_launches[name],
             "launches_text": text_launches[name],
+            "launches_basket": basket_launches[name],
             "launches_per_epoch_2m": per_epoch,
             "launches_console_eval": {layout: run["launches"][name]
                                       for layout, run in eval_runs.items()},

@@ -143,6 +143,22 @@ BUILTIN_TEMPLATES: dict[str, TemplateInfo] = {
             sample_query={"landingPageId": "lp1", "referrerId": "r1",
                           "browser": "Chrome"},
         ),
+        TemplateInfo(
+            name="complementarypurchase",
+            description="Complementary purchase (market-basket association "
+                        "rules from buy events)",
+            engine_factory=("predictionio_torch.templates."
+                            "complementarypurchase."
+                            "ComplementaryPurchaseEngine"),
+            engine_json={
+                "datasource": {"params": {"appName": "MyApp"}},
+                "preparator": {"params": {"basketWindow": 3600}},
+                "algorithms": [{"name": "association", "params": {
+                    "minSupport": 0.001, "minConfidence": 0.05,
+                    "minLift": 1.0, "numRulesPerCond": 10}}],
+            },
+            sample_query={"items": ["i1", "i3"], "num": 3},
+        ),
     ]
 }
 

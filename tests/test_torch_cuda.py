@@ -14,7 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from predictionio_torch.ops import als, classify, ranking, spd_solve, text
+from predictionio_torch.ops import (
+    als,
+    basket,
+    classify,
+    ranking,
+    spd_solve,
+    text,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -1276,3 +1283,43 @@ def test_scatter_add_rows_repeats_its_bits_on_card(dev):
     assert torch.equal(a, b)
     atomics = table0.clone().index_add_(0, ids, rows)
     torch.testing.assert_close(a, atomics, rtol=1e-4, atol=1e-3)
+
+
+def test_basket_counts_past_bf16_exact_on_card(dev):
+    """A pair in 1 023 baskets and one in 257 inside one 1 024-basket
+    chunk: the card's int8 Gram counts both exactly (a bf16 product's
+    output would give 1 024 and 256), as the CPU does."""
+    b = np.concatenate([np.repeat(np.arange(1023), 2), [1023],
+                        np.repeat(np.arange(257), 2)])
+    i = np.concatenate([np.tile([0, 1], 1023), [2], np.tile([2, 3], 257)])
+    got = basket.cooccurrence_matrix(b, i, 1024, 4, device=dev)
+    assert got[0, 1] == got[1, 0] == 1023
+    assert got[2, 3] == got[3, 2] == 257
+    np.testing.assert_array_equal(
+        got, basket.cooccurrence_matrix(b, i, 1024, 4, device="cpu"))
+
+
+def test_basket_rules_on_card_bitwise_equal_cpu(dev):
+    """3 000 baskets over 300 Zipf-drawn items, a bot basket capped:
+    the card's Gram and every rule array equal the CPU's bit for bit,
+    under both scores."""
+    rng = np.random.default_rng(0)
+    p = 1.0 / np.arange(1, 301)
+    sizes = 1 + rng.poisson(9, 3_000)
+    b = np.repeat(np.arange(3_000), sizes)
+    i = rng.choice(300, len(b), p=p / p.sum())
+    b = np.concatenate([b, np.full(900, 17)])
+    i = np.concatenate([i, rng.integers(0, 300, 900)])
+    np.testing.assert_array_equal(
+        basket.cooccurrence_matrix(b, i, 3_000, 300, device=dev),
+        basket.cooccurrence_matrix(b, i, 3_000, 300, device="cpu"))
+    for score in ("lift", "confidence"):
+        got, want = (basket.mine_rules(b, i, 3_000, 300, min_support=0.001,
+                                       min_confidence=0.05, score=score,
+                                       device=where)
+                     for where in (dev, "cpu"))
+        assert len(got.cond_items) > 100
+        for name in ("cond_items", "cons_items", "scores", "support",
+                     "confidence", "lift"):
+            np.testing.assert_array_equal(getattr(got, name),
+                                          getattr(want, name), err_msg=name)

@@ -319,6 +319,11 @@ def test_entry_points_without_a_device_raise(no_cuda):
     f = np.ones((80, 2), np.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
         ranking.recommend_topk(f, f, np.arange(80, dtype=np.int32), 3)
+    from predictionio_torch.ops import basket
+
+    for max_dense_items in (8192, 1):  # the dense path and the host's
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            basket.mine_rules(ui, ii, 4, 5, max_dense_items=max_dense_items)
 
 
 def test_console_without_a_device_fails(no_cuda, tmp_path, capsys):
@@ -364,7 +369,7 @@ def test_tf32_is_off():
 
 @pytest.mark.parametrize("name", ["similarproduct", "ecommerce",
                                   "productranking", "classification",
-                                  "leadscoring"])
+                                  "leadscoring", "complementarypurchase"])
 def test_new_templates_console_without_a_device_fails(name, no_cuda,
                                                       tmp_path, monkeypatch,
                                                       capsys):
@@ -752,3 +757,83 @@ def test_text_template_with_jax_and_reference_blocked():
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "TEXT-ISOLATED-OK" in proc.stdout
+
+
+_BASKET_RUN = textwrap.dedent("""
+    import importlib.abc, json, os, sys, tempfile, threading, urllib.request
+
+    BLOCKED = {blocked!r}
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError("blocked import of " + name)
+            return None
+
+    before = {{m for m in sys.modules if m.split(".")[0] in BLOCKED}}
+    sys.meta_path.insert(0, Block())
+
+    import numpy as np
+    from predictionio_torch.ops import basket
+    from predictionio_torch.storage.registry import Storage
+    from predictionio_torch.tools import console
+    from predictionio_torch.workflow.create_server import PredictionServer
+
+    b = np.repeat(np.arange(300), 2)
+    i = np.tile([0, 1], 300)
+    assert basket.cooccurrence_matrix(b, i, 300, 2, device="cpu")[0, 1] == 300
+    tmp = tempfile.mkdtemp()
+    os.environ["PIO_FS_BASEDIR"] = os.path.join(tmp, "base")
+    events = os.path.join(tmp, "events.jsonl")
+    with open(events, "w") as f:
+        for u in range(30):
+            for n, item in enumerate(["bread", "butter"] + (
+                    ["jam"] if u % 3 == 0 else [])):
+                f.write(json.dumps({{
+                    "event": "buy", "entityType": "user",
+                    "entityId": "u%d" % u, "targetEntityType": "item",
+                    "targetEntityId": item,
+                    "eventTime": "2026-02-01T%02d:%02d:00.000Z" % (
+                        u % 24, n)}}) + "\\n")
+    assert console.main(["app", "new", "MyApp1"]) == 0
+    assert console.main(["import", "--appname", "MyApp1", "--input",
+                         events]) == 0
+    engine_dir = os.path.join(tmp, "cp")
+    assert console.main(["template", "get", "complementarypurchase",
+                         engine_dir, "--app-name", "MyApp1"]) == 0
+    engine_json = os.path.join(engine_dir, "engine.json")
+    assert console.main(["build", "--engine-json", engine_json]) == 0
+    assert console.main(["train", "--engine-json", engine_json,
+                         "--device", "cpu"]) == 0
+    server = PredictionServer(engine_json, ip="127.0.0.1", port=0,
+                              device="cpu", storage=Storage.get())
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    req = urllib.request.Request(
+        "http://127.0.0.1:%d/queries.json" % server.port,
+        data=json.dumps({{"items": ["bread"], "num": 2}}).encode())
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        answer = json.loads(resp.read())
+    server.shutdown()
+    server.server_close()
+    assert answer["rules"][0]["itemScores"][0]["item"] == "butter", answer
+    Storage.get().close()
+    import torch
+    assert not torch.cuda.is_initialized()
+    after = {{m for m in sys.modules if m.split(".")[0] in BLOCKED}}
+    assert after == before, sorted(after - before)
+    print("BASKET-ISOLATED-OK")
+""")
+
+
+def test_basket_template_with_jax_and_reference_blocked():
+    """The basket ops and the complementarypurchase template, scaffolded,
+    built, trained from a store and served over HTTP, import neither JAX
+    nor the reference."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("PIO_TORCH_DEVICE", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _BASKET_RUN.format(blocked=BLOCKED)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "BASKET-ISOLATED-OK" in proc.stdout

@@ -36,8 +36,9 @@ from predictionio_torch.workflow.workflow_utils import (
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NAMES = ("classification", "ecommerce", "leadscoring", "productranking",
-         "recommendation", "similarproduct", "textclassification")
+NAMES = ("classification", "complementarypurchase", "ecommerce",
+         "leadscoring", "productranking", "recommendation", "similarproduct",
+         "textclassification")
 
 torch.set_num_threads(1)
 
@@ -62,6 +63,7 @@ def test_entry_matches_the_references(name):
 
 def test_unknown_template_raises():
     with pytest.raises(KeyError, match="available: classification, "
+                                       "complementarypurchase, "
                                        "ecommerce, leadscoring, "
                                        "productranking, recommendation, "
                                        "similarproduct, "
