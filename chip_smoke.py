@@ -241,10 +241,10 @@ Phases (any failure exits non-zero and prints no result line):
              implicit template's train ran on (saved by the child), the
              train under `auto` (epoch ms) and its RMSE trajectory under
              `auto` and chol within 2e-3. (c) Three `console deploy` children, the result
-             cache off: similarproduct 2,000 seeded one-item queries from
+             cache off: similarproduct 1,000 seeded one-item queries from
              1 and 32 keep-alive clients, byte for byte the in-process
              answer of the instance's model, and a categories, whiteList
-             and blackList query obeying its filter; ecommerce 2,000
+             and blackList query obeying its filter; ecommerce 1,000
              seeded user queries from 1 and 32 clients, none holding an
              item its user viewed or bought or an unavailable one, a
              never-seen user with three views written then answered
@@ -383,6 +383,41 @@ Phases (any failure exits non-zero and prints no result line):
              `num` 1-10) each equal to the persisted model's in-process
              answer (p50, p99). Each line carries the card's name and
              power limit.
+15. session — the attention op and the sessionrec template, run last; a
+             child started with the run writes its stores (`console
+             import`): 200,000 `view` events of 20,000 users over 2,000
+             items (app Sess200k) and 20,000 of 2,000 users over 500
+             items (app Sess2k), each user's views a walk over the
+             catalog (1-3 items ahead, else a Zipf draw), every event
+             time distinct. (d) `console template get` and `build`, then
+             `console train` of the shipped engine.json (D 16, 1 block, 2
+             heads, window 32, 30 epochs) in a child beside (a)-(c):
+             (a) the two kernels of csrc/session.cu, `session_encode` (a
+             thread block a history) and `session_readout` (a thread a
+             row and item), against their plain versions on the card at
+             V 8,192 for (D, blocks) = (16, 1), (8, 1), (16, 2), at
+             every seq tier of the default ladder (8, 16, 32) and of
+             PIO_SERVING_SEQ_TIERS=5,12 (with 32) and every batch tier 1,
+             2, 4 … 64: within rtol 1e-5 / atol 1e-6, and every row
+             bitwise the same history scored alone at its own tier; each
+             kernel's ms at [64, 32, 16, 8,192] beside its plain
+             version's, the BLAS formulation's (`encode`; `torch.matmul`)
+             and its bound; then, with the kernels' counts zeroed, (b) the
+             template's fit at 8,192 users × 8,192 items (windows of 2-32
+             distinct Zipf items), 30 epochs: ms an epoch by CUDA events,
+             wall, peak memory, losses, a second fit bitwise equal; 1,000
+             queries of 1-40 items (every third a user's window) through
+             `batch_predict` in mixed batches, each answer equal to that
+             query's alone; (c) 512 users × 256 items, 4 epochs, on the
+             card and the CPU: each epoch's loss within rtol 1e-4, the
+             top-10 ids equal wherever the CPU's scores are more than
+             1e-5 apart; (d) the train's read, prepare and train seconds
+             (its log: every user read, every item trained), `console
+             deploy`, 100 queries (half {"user"}, half {"items"}) each
+             equal to the persisted model's in-process answer (p50,
+             p99), and SessionRecEvaluation in this process on Sess2k (3
+             folds; MAP@10 of each cell of (8, 16) × (1, 2)). Each line
+             carries the card's name and power limit.
 
 Launch counts are zeroed just before each path (phases 3-4: train →
 serve; phase 5: eval → batchpredict; phase 6: fold; phase 7: online,
@@ -391,13 +426,13 @@ children's counts added; phase 9: eventserver, with the deploy child's
 counts added; phase 10: templates, with every console child's counts
 added; phase 11: runtime, with its console children's counts added, the
 killed train's lost with it; phase 12: classify, with every console
-child's counts added; phases 13 and 14: text and basket, likewise) and
-read just after;
+child's counts added; phases 13, 14 and 15: text, basket and session,
+likewise; phase 15's own kernels from 15b on) and read just after;
 every kernel of a path must have launched there (on the serving path,
 `gj_aug_reg` in (d)'s child alone), and `gj_aug`, `gj_packed`
 and `gj_blocked2` (K > 256 only) and `gj_aug_multi` (K > 128 with M > 1
-only) on none; the paths of phases 12-14 solve no system and launch no
-solve kernel. The eval path's counts add the console
+only) on none; the paths of phases 12-15 solve no system and launch no
+solve kernel, and phase 15's path launches both session kernels. The eval path's counts add the console
 children's own to the grids'; the sequential trains phase 5a compares
 with run before its counts are zeroed. `--report PATH` also writes a JSON report
 with every number (the ptxas output, the profile's kernel table). The last
@@ -574,7 +609,7 @@ TEMPLATE_APP = "Shop"
 TEMPLATE_CATEGORIES = 8
 BUY_EVERY = 8
 UNAVAILABLE = 20
-TEMPLATE_QUERIES = 2_000
+TEMPLATE_QUERIES = 1_000
 TEMPLATE_CLIENTS = (1, 32)
 RANKING_QUERIES, RANKING_CANDIDATES = 200, 10
 CONSTRAINT_TIMEOUT_S = 30.0
@@ -713,16 +748,50 @@ BASKET_RESULT = "basket.json"
 BASKET_QUERIES = 100
 # the card's published dense peaks (the on-chip guide's table)
 PEAK_INT8_OPS, PEAK_BF16_FLOPS = 1_979e12, 989e12
+# 15a: the template's published width (engine.json: embedDim 16, 1 block,
+# 2 heads, maxSeqLen 32) over phase 14's 8 192-item catalog, and the eval
+# grid's D 8 and 2 blocks; the seq-tier ladders (the default, and
+# PIO_SERVING_SEQ_TIERS=5,12 with its top tier), the batch tiers, the
+# kernels' bar against their plain versions, the timed launches
+SESSION_V, SESSION_D, SESSION_HEADS, SESSION_L = 8_192, 16, 2, 32
+SESSION_CONFIGS = ((16, 1), (8, 1), (16, 2))
+SESSION_LADDERS = ((8, 16, 32), (5, 12, 32))
+SESSION_BATCH_TIERS = (1, 2, 4, 8, 16, 32, 64)
+SESSION_TOL = {"rtol": 1e-5, "atol": 1e-6}
+SESSION_REPS = 200
+# 15b: the fit (8 192 users' windows, the template's epochs and step
+# size), the queries after it and the batch sizes they go in, cycled
+SESSION_FIT_USERS, SESSION_EPOCHS, SESSION_LR = 8_192, 30, 0.05
+SESSION_QUERIES = 1_000
+SESSION_MIXED_BATCHES = (1, 3, 64, 7, 16, 33, 2, 50, 5)
+# 15c: the card against the CPU at (users, items, epochs)
+SESSION_CPU_SHAPE = (512, 256, 4)
+# 15d: the template's store and the evaluation's, by scale: (view events,
+# users, items), written by a child started with the run; the queries
+# over HTTP, the evaluation's folds
+SESSION_SCALES = {"200k": (200_000, 20_000, 2_000), "2k": (2_000, 200, 100)}
+SESSION_EVAL_SCALES = {"200k": (20_000, 2_000, 500), "2k": (1_000, 100, 50)}
+SESSION_APP, SESSION_EVAL_APP = "Sess200k", "Sess2k"
+SESSION_RESULT = "session.json"
+SESSION_HTTP_QUERIES = 100
+SESSION_EVAL_K = 3
+# the port's session kernels (no TPU counterpart): the reference's
+# function each takes over, and the port's source
+SESSION_KERNELS = {
+    "session_encode": "predictionio_tpu/templates/sessionrec/engine.py:179",
+    "session_readout": "predictionio_tpu/templates/sessionrec/engine.py:222",
+}
 # deploys the console in a child process and writes, when it exits, its
 # launch counts to the file named by its first argument
 _DEPLOY_CHILD = (
     "import json, sys\n"
-    "from predictionio_torch.ops import spd_solve\n"
+    "from predictionio_torch.ops import session, spd_solve\n"
     "from predictionio_torch.tools import console\n"
     "rc = console.main(sys.argv[2:])\n"
     "with open(sys.argv[1], 'w') as f:\n"
     "    json.dump({'launches': spd_solve.launches,\n"
-    "               'by_rank': spd_solve.launches_by_rank}, f)\n"
+    "               'by_rank': spd_solve.launches_by_rank,\n"
+    "               'session': session.launches}, f)\n"
     "sys.exit(rc)\n")
 # serves the console's event server in a child process and writes, when
 # it exits, whether it ever initialised CUDA to the file named by its
@@ -773,13 +842,14 @@ _STORE_CHILD = (
 # launch counts, its grid trains (als_grid.grid_log) and its SGNS steps
 _CONSOLE_CHILD = (
     "import json, sys\n"
-    "from predictionio_torch.ops import als_grid, spd_solve, text\n"
+    "from predictionio_torch.ops import als_grid, session, spd_solve, text\n"
     "from predictionio_torch.tools import console\n"
     "rc = console.main(sys.argv[1:])\n"
     "print(json.dumps({'launches': spd_solve.launches,\n"
     "                  'by_rank': spd_solve.launches_by_rank,\n"
     "                  'grids': als_grid.grid_log,\n"
-    "                  'sgns_steps': text.sampler_calls['sgns']}),\n"
+    "                  'sgns_steps': text.sampler_calls['sgns'],\n"
+    "                  'session': session.launches}),\n"
     "      flush=True)\n"
     "sys.exit(rc)\n")
 
@@ -4078,9 +4148,9 @@ def _import_views(base: str, tmp: str, app_name: str, data) -> dict:
     training pairs as view events (JSON lines, one second apart) into the
     store under `base`, in child processes (the native importer). The
     same file imported under PIO_NATIVE=0 (the Python path) into a
-    scratch store: the rows equal apart from event ids and creation
-    times. `console export` of the app under both tiers: byte for
-    byte."""
+    scratch store at the same time: the rows equal apart from event ids
+    and creation times. `console export` of the app under both tiers,
+    together: byte for byte."""
     path = os.path.join(tmp, f"{app_name}.jsonl")
     t_first = datetime(2026, 1, 1, tzinfo=timezone.utc)
     with open(path, "w") as f:
@@ -4095,8 +4165,8 @@ def _import_views(base: str, tmp: str, app_name: str, data) -> dict:
     python_base = os.path.join(tmp, f"{app_name}-python")
     os.makedirs(python_base)
     seconds = {}
-    for tier, where, env in (("native", base, None),
-                             ("python", python_base, python)):
+
+    def imported(tier, where, env):
         t0 = time.perf_counter()
         _console_out(["app", "new", app_name], where, env)
         out = _console_out(["import", "--appname", app_name, "--input",
@@ -4104,19 +4174,31 @@ def _import_views(base: str, tmp: str, app_name: str, data) -> dict:
         seconds[f"import_{tier}_s"] = time.perf_counter() - t0
         if out.strip() != f"Imported {len(data.train_u)} events.":
             raise AssertionError(f"console import ({tier}) said {out!r}")
-    rows_equal = (_app_events(os.path.join(base, "pio.db"), app_name)
-                  == _app_events(os.path.join(python_base, "pio.db"),
-                                 app_name))
-    exported = {}
-    for tier, env in (("native", None), ("python", python)):
+
+    def exported(tier, env):
         out_path = os.path.join(tmp, f"{app_name}-export-{tier}.jsonl")
         t0 = time.perf_counter()
         _console_out(["export", "--appname", app_name, "--output",
                       out_path], base, env)
         seconds[f"export_{tier}_s"] = time.perf_counter() - t0
         with open(out_path, "rb") as f:
-            exported[tier] = f.read()
+            body = f.read()
         os.unlink(out_path)
+        return body
+
+    # the two tiers' imports (into two stores) run together, then the two
+    # exports of one store, each pair in its own children
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for fut in [pool.submit(imported, "native", base, None),
+                    pool.submit(imported, "python", python_base, python)]:
+            fut.result()
+        rows_equal = (_app_events(os.path.join(base, "pio.db"), app_name)
+                      == _app_events(os.path.join(python_base, "pio.db"),
+                                     app_name))
+        exported = dict(zip(("native", "python"), [
+            fut.result() for fut in [pool.submit(exported, "native", None),
+                                     pool.submit(exported, "python",
+                                                 python)]]))
     row = {"events": int(len(data.train_u)),
            "import_s": seconds["import_native_s"], **seconds,
            "rows_equal_to_python_import": rows_equal,
@@ -4305,7 +4387,8 @@ def phase_templates(report: dict, device, tmp: str, served: dict,
         eval_log.splitlines()[-40:]
     if sorted(evaluation["templates_listed"]) != sorted(
             TEMPLATE_NAMES + CLASSIFY_TEMPLATE_NAMES
-            + ("textclassification", "complementarypurchase")):
+            + ("textclassification", "complementarypurchase",
+               "sessionrec")):
         raise AssertionError(f"console template list printed "
                              f"{evaluation['templates_listed']}")
     wall = time.perf_counter() - t_all
@@ -6338,6 +6421,582 @@ def phase_basket(report: dict, device, tmp: str, writer, base: str) -> dict:
     return {"train": train_rec, "deploy": deploy_rec}
 
 
+# -- phase 15 ----------------------------------------------------------------
+
+def _session_inputs(v: int, d: int, n_blocks: int, l: int, b: int, seed: int):
+    """15a's inputs: the template's seeded init (V v, D d, n_blocks
+    blocks, a positional table of l rows) and b histories of 1..l
+    distinct items, right-padded with the pad row v (the first of length
+    1, the second of l)."""
+    import numpy as np
+
+    from predictionio_torch.templates.sessionrec import engine as sessionrec
+
+    rng = np.random.default_rng(seed)
+    params = sessionrec.init_params(v, d, n_blocks, l, rng)
+    lengths = rng.integers(1, l + 1, b).astype(np.int32)
+    lengths[:2] = (1, l)
+    seq = np.full((b, l), v, np.int32)
+    for r, n in enumerate(lengths):
+        seq[r, :n] = rng.choice(v, int(n), replace=False)
+    return params, seq, lengths
+
+
+def session_encode_work(lengths, d: int, n_blocks: int, n_heads: int,
+                        l: int) -> tuple[float, float]:
+    """(bytes, FP32 operations) the encoder's function needs on these
+    histories: each history's n = clamp(length, 1, l) embedding and
+    positional rows, its n ids, its length, every block's weights once
+    and the [B, D] output; per block and history 16·n·D² (the six
+    products), 4·D·T (scores and weighted values over the T = n(n+1)/2
+    causal pairs), 5·H·T (max, subtract, exp, sum, divide) and 7·n·D
+    (bias, relu and residual adds), plus n·D for the positional add."""
+    import numpy as np
+
+    n = np.clip(np.asarray(lengths, np.int64), 1, l)
+    t = n * (n + 1) // 2
+    per_block = 16 * n * d * d + 4 * d * t + 5 * n_heads * t + 7 * n * d
+    ops = float((n_blocks * per_block + n * d).sum())
+    weights = n_blocks * (8 * d * d + 3 * d)
+    nbytes = 4.0 * (2 * n.sum() * d + n.sum() + len(n) + weights
+                    + len(n) * d)
+    return nbytes, ops
+
+
+def _session_kernels(device) -> dict:
+    """15a: `session_encode` and `session_readout` against their plain
+    versions on the same card tensors, for each (D, blocks) of
+    SESSION_CONFIGS at V SESSION_V: every seq tier of the default ladder
+    and of PIO_SERVING_SEQ_TIERS=5,12 (each with the top tier), every
+    batch tier of SESSION_BATCH_TIERS (the rows whose history fits the
+    seq tier, repeated to fill the batch). Bars: within SESSION_TOL, and
+    every row's scores and state bitwise the same history's scored alone
+    at its smallest default tier. Then each kernel's ms at the template's
+    width, [64, 32, 16, 8 192], beside its plain version, the BLAS
+    formulation (`encode` + the last position; `torch.matmul`) and its
+    bound."""
+    import numpy as np
+    import torch
+
+    from predictionio_torch.ops import session
+    from predictionio_torch.serving.batcher import pad_to_seq_tier
+
+    b_max = max(SESSION_BATCH_TIERS)
+    checks, bitwise_misses, tol_misses = 0, [], []
+    max_err = {"session_encode": 0.0, "session_readout": 0.0}
+    ladders = sorted({t for ladder in SESSION_LADDERS for t in ladder})
+    for d, n_blocks in SESSION_CONFIGS:
+        params, seq, lengths = _session_inputs(SESSION_V, d, n_blocks,
+                                               SESSION_L, b_max, d + n_blocks)
+        p = session.params_on(params, device)
+        items = p["emb"][:-1]
+
+        def run(rows, tier):
+            s = np.full((len(rows), tier), SESSION_V, np.int32)
+            for j, r in enumerate(rows):
+                s[j, :lengths[r]] = seq[r, :lengths[r]]
+            s_t = torch.tensor(s, device=device)
+            l_t = torch.tensor(lengths[rows], device=device)
+            h = session.session_encode(p["emb"], p["pos"], p["packed"],
+                                       n_blocks, s_t, l_t, SESSION_HEADS)
+            return h, session.session_readout(h, items), s_t, l_t
+
+        singles = [tuple(t[0] for t in run(
+            [r], pad_to_seq_tier(int(lengths[r]), SESSION_LADDERS[0]))[:2])
+            for r in range(b_max)]
+        for tier in ladders:
+            fits = [r for r in range(b_max) if lengths[r] <= tier]
+            for bt in SESSION_BATCH_TIERS:
+                rows = (fits * (bt // len(fits) + 1))[:bt]
+                h, scores, s_t, l_t = run(rows, tier)
+                h_plain = session.session_encode_plain(p, s_t, l_t,
+                                                       SESSION_HEADS)
+                s_plain = session.session_readout_plain(h, items)
+                for name, got, want in (("session_encode", h, h_plain),
+                                        ("session_readout", scores,
+                                         s_plain)):
+                    max_err[name] = max(max_err[name], float(
+                        (got - want).abs().max()))
+                    if not torch.allclose(got, want, **SESSION_TOL):
+                        tol_misses.append((name, d, n_blocks, tier, bt))
+                for j, r in enumerate(rows):
+                    if not (torch.equal(h[j], singles[r][0])
+                            and torch.equal(scores[j], singles[r][1])):
+                        bitwise_misses.append((d, n_blocks, tier, bt, r))
+                checks += 1
+    # times at the template's width, the batch and seq tiers' tops
+    params, seq, lengths = _session_inputs(SESSION_V, SESSION_D, 1,
+                                           SESSION_L, b_max, 99)
+    p = session.params_on(params, device)
+    items = p["emb"][:-1]
+    s_t = torch.tensor(seq, device=device)
+    l_t = torch.tensor(lengths, device=device)
+    idx = (l_t.long() - 1).clamp(0, SESSION_L - 1)
+    rows_t = torch.arange(b_max, device=device)
+
+    def encode():
+        return session.session_encode(p["emb"], p["pos"], p["packed"], 1,
+                                      s_t, l_t, SESSION_HEADS)
+
+    h = encode()
+    enc_bytes, enc_ops = session_encode_work(lengths, SESSION_D, 1,
+                                             SESSION_HEADS, SESSION_L)
+    rd_bytes = 4.0 * (b_max * SESSION_D + SESSION_V * SESSION_D
+                      + b_max * SESSION_V)
+    rd_ops = 2.0 * b_max * SESSION_V * SESSION_D
+    with torch.no_grad():
+        rows = {
+            "session_encode": dict(
+                ms=time_ms(encode, SESSION_REPS),
+                plain_ms=time_ms(lambda: session.session_encode_plain(
+                    p, s_t, l_t, SESSION_HEADS), 5),
+                library_ms=time_ms(lambda: session.encode(
+                    p, s_t, SESSION_HEADS)[rows_t, idx], SESSION_REPS),
+                bound=bound_ms(enc_bytes, enc_ops)),
+            "session_readout": dict(
+                ms=time_ms(lambda: session.session_readout(h, items),
+                           SESSION_REPS),
+                plain_ms=time_ms(lambda: session.session_readout_plain(
+                    h, items), 20),
+                library_ms=time_ms(lambda: torch.matmul(h, items.T),
+                                   SESSION_REPS),
+                bound=bound_ms(rd_bytes, rd_ops)),
+        }
+    # one query of 8 items at seq tier 8 and batch tier 1 (the second
+    # history, of length l)
+    single = _session_inputs(SESSION_V, SESSION_D, 1, 8, 2, 98)
+    p1 = session.params_on(single[0], device)
+    s1 = torch.tensor(single[1][1:], device=device)
+    l1 = torch.tensor(single[2][1:], device=device)
+    single_ms = time_ms(lambda: session.score(p1, s1, l1, SESSION_HEADS),
+                        SESSION_REPS)
+    out = {}
+    for name, row in rows.items():
+        bound, by = row.pop("bound")
+        out[name] = dict(row, bound_ms=bound, bound_by=by,
+                         max_abs_err=max_err[name],
+                         shape=[b_max, SESSION_L, SESSION_D, SESSION_V])
+    return {"kernels": out, "checks": checks,
+            "configs": [list(c) for c in SESSION_CONFIGS],
+            "seq_tiers": ladders, "batch_tiers": list(SESSION_BATCH_TIERS),
+            "tol_misses": tol_misses[:10], "bitwise_misses":
+            bitwise_misses[:10], "single_query_score_ms": single_ms,
+            "encode_shared": session.encode_shared_fits(
+                SESSION_L, SESSION_D, SESSION_HEADS, device)}
+
+
+def _session_windows(n_users: int, n_items: int, rng) -> dict:
+    """15b's windows: user → 2-32 distinct items, drawn Zipf, oldest
+    first (its events' distinct times in that order)."""
+    import numpy as np
+
+    p = 1.0 / np.arange(1, n_items + 1)
+    p /= p.sum()
+    sizes = rng.integers(2, SESSION_L + 1, n_users)
+    draws = rng.choice(n_items, (n_users, 4 * SESSION_L), p=p)
+    out = {}
+    for u in range(n_users):
+        _, first = np.unique(draws[u], return_index=True)
+        items = draws[u][np.sort(first)][:sizes[u]]
+        if len(items) < sizes[u]:
+            rest = np.setdiff1d(rng.permutation(n_items), items,
+                                assume_unique=True)
+            items = np.concatenate([items, rest[:sizes[u] - len(items)]])
+        out[f"u{u}"] = items.astype(np.int32)
+    return out
+
+
+def _item_ids(n_items: int):
+    """The item map of `_session_windows`' rows: row j is item "i<j>"."""
+    from predictionio_torch.data.bimap import BiMap
+
+    return BiMap.string_int([f"i{j}" for j in range(n_items)])
+
+
+def _session_queries(rng, n: int, n_items: int, users: int) -> list:
+    """`n` queries: every third a user's window, the others 1-40 Zipf
+    items (with repeats; over 32 the newest are kept), `num` 1-20."""
+    import numpy as np
+
+    p = 1.0 / np.arange(1, n_items + 1)
+    p /= p.sum()
+    out = []
+    for j in range(n):
+        num = int(rng.integers(1, 21))
+        if j % 3 == 0:
+            out.append({"user": f"u{int(rng.integers(0, users))}",
+                        "num": num})
+        else:
+            size = int(rng.integers(1, 41))
+            out.append({"items": [f"i{int(i)}" for i in
+                                  rng.choice(n_items, size, p=p)],
+                        "num": num})
+    return out
+
+
+def _fit_ms(fn, device) -> tuple:
+    """(fn's result, its CUDA-event ms, the host's seconds, the peak
+    device bytes)."""
+    import torch
+
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    return (out, start.elapsed_time(end), wall,
+            torch.cuda.max_memory_allocated(device))
+
+
+def _session_fit(device) -> dict:
+    """15b: the template's fit at SESSION_FIT_USERS users × SESSION_V
+    items (windows of `_session_windows`), SESSION_EPOCHS epochs at full
+    width: the fit's device ms by CUDA events (an epoch's: the whole
+    fit's over the epochs, upload and copy back included), wall, peak
+    memory, losses; a second fit bitwise the first. Then SESSION_QUERIES
+    queries through `batch_predict` in mixed batches, each answer equal
+    (every id and score) to that query's alone."""
+    import numpy as np
+    import torch
+
+    from predictionio_torch.ops import session
+    from predictionio_torch.templates.sessionrec import engine as sessionrec
+
+    rng = np.random.default_rng(15)
+    user_seqs = _session_windows(SESSION_FIT_USERS, SESSION_V, rng)
+    seq, lengths, n = sessionrec.training_batch(user_seqs, SESSION_V,
+                                                SESSION_L, SESSION_L)
+    params0 = sessionrec.init_params(SESSION_V, SESSION_D, 1, SESSION_L,
+                                     np.random.default_rng(3))
+
+    def fit():
+        return session.train_params(params0, seq, lengths, SESSION_HEADS,
+                                    SESSION_LR, SESSION_EPOCHS, device)
+
+    (params, losses), fit_ms, wall, peak = _fit_ms(fit, device)
+    (again, losses2), fit_ms2, wall2, _ = _fit_ms(fit, device)
+    torch.cuda.empty_cache()  # the train child beside needs the room
+    same = bool(np.array_equal(losses, losses2) and all(
+        np.array_equal(a, b) for a, b in zip(
+            session._flat(params), session._flat(again))))
+    model = sessionrec.served_model(params, _item_ids(SESSION_V), user_seqs,
+                                    SESSION_L, SESSION_HEADS, device)
+    algo = sessionrec.SessionRecAlgorithm(sessionrec.SessionRecParams())
+    queries = _session_queries(rng, SESSION_QUERIES, SESSION_V,
+                               SESSION_FIT_USERS)
+    t0 = time.perf_counter()
+    batched, at, k = [], 0, 0
+    while at < len(queries):
+        size = SESSION_MIXED_BATCHES[k % len(SESSION_MIXED_BATCHES)]
+        batched += algo.batch_predict(model, queries[at:at + size])
+        at, k = at + size, k + 1
+    batch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    singles = [algo.predict(model, q) for q in queries]
+    single_s = time.perf_counter() - t0
+    equal = sum(a == b for a, b in zip(batched, singles))
+    return {"users": SESSION_FIT_USERS, "items": SESSION_V,
+            "sequences": n, "batch_tier": int(seq.shape[0]),
+            "epochs": SESSION_EPOCHS,
+            "epoch_ms": fit_ms / SESSION_EPOCHS,
+            "epoch_ms_again": fit_ms2 / SESSION_EPOCHS,
+            "fit_wall_s": wall, "fit_wall_again_s": wall2,
+            "peak_bytes": peak, "loss_first": float(losses[0]),
+            "loss_final": float(losses[-1]),
+            "losses_finite": bool(np.isfinite(losses).all()),
+            "fits_bitwise": same, "queries": len(queries),
+            "batches": k, "batched_equal_single": int(equal),
+            "answered": sum(bool(a["itemScores"]) for a in singles),
+            "batch_predict_s": batch_s, "single_predict_s": single_s}
+
+
+def _session_card_cpu(device) -> dict:
+    """15c: at SESSION_CPU_SHAPE (users, items, epochs) the same seeded
+    windows and init fitted on the card and on the CPU: each epoch's loss
+    within rtol 1e-4; each model serving on its own device, the top-10
+    ids of 200 queries equal wherever the CPU's scores are more than
+    1e-5 apart."""
+    import numpy as np
+
+    from predictionio_torch.ops import session
+    from predictionio_torch.templates.sessionrec import engine as sessionrec
+
+    users, n_items, epochs = SESSION_CPU_SHAPE
+    rng = np.random.default_rng(16)
+    user_seqs = _session_windows(users, n_items, rng)
+    seq, lengths, _ = sessionrec.training_batch(user_seqs, n_items,
+                                                SESSION_L, SESSION_L)
+    params0 = sessionrec.init_params(n_items, SESSION_D, 1, SESSION_L,
+                                     np.random.default_rng(3))
+    fits, secs = {}, {}
+    for where in (device, "cpu"):
+        t0 = time.perf_counter()
+        fits[str(where)] = session.train_params(
+            params0, seq, lengths, SESSION_HEADS, SESSION_LR, epochs,
+            where)
+        secs[str(where)] = time.perf_counter() - t0
+    card, cpu = fits[str(device)], fits["cpu"]
+    algo = sessionrec.SessionRecAlgorithm(sessionrec.SessionRecParams())
+    queries = [dict(q, num=11) for q in _session_queries(
+        rng, 200, n_items, users)]
+    answers = {where: algo.batch_predict(sessionrec.served_model(
+        fits[where][0], _item_ids(n_items), user_seqs, SESSION_L,
+        SESSION_HEADS, where), queries) for where in fits}
+    checked = differ = 0
+    for got, want in zip(answers[str(device)], answers["cpu"]):
+        w_ids = [s["item"] for s in want["itemScores"]]
+        w_sc = [s["score"] for s in want["itemScores"]]
+        g_ids = [s["item"] for s in got["itemScores"]]
+        for j in range(min(10, len(w_ids) - 1)):
+            gap = min(w_sc[j - 1] - w_sc[j] if j else np.inf,
+                      w_sc[j] - w_sc[j + 1])
+            if gap > 1e-5:
+                checked += 1
+                differ += g_ids[j] != w_ids[j]
+    rel = np.abs(card[1] - cpu[1]) / np.abs(cpu[1])
+    return {"shape": list(SESSION_CPU_SHAPE), "card_s": secs[str(device)],
+            "cpu_s": secs["cpu"], "loss_card": card[1].tolist(),
+            "loss_cpu": cpu[1].tolist(), "loss_rel_max": float(rel.max()),
+            "losses_within": bool(np.allclose(card[1], cpu[1], rtol=1e-4,
+                                              atol=0)),
+            "untied_ids_checked": checked, "untied_ids_differ": differ}
+
+
+def _session_events(n_events: int, n_users: int, n_items: int, rng) -> list:
+    """15d's `view` events: n_events over n_users (each at least one, the
+    rest spread multinomially), each user's items a walk over the catalog
+    (the next item 1-3 ahead of the last with probability 0.8, else a
+    Zipf draw), all event times distinct (one second apart, user after
+    user)."""
+    import numpy as np
+
+    counts = 1 + rng.multinomial(n_events - n_users,
+                                 np.full(n_users, 1.0 / n_users))
+    p = 1.0 / np.arange(1, n_items + 1)
+    zipf = rng.choice(n_items, n_events, p=p / p.sum())
+    steps = rng.integers(1, 4, n_events)
+    walk = rng.random(n_events) < 0.8
+    t0 = datetime(2026, 5, 1, tzinfo=timezone.utc)
+    events, at = [], 0
+    for u, count in enumerate(counts):
+        item = int(zipf[at])
+        for j in range(at, at + int(count)):
+            if j > at:
+                item = ((item + int(steps[j])) % n_items if walk[j]
+                        else int(zipf[j]))
+            events.append({"event": "view", "entityType": "user",
+                           "entityId": f"u{u}", "targetEntityType": "item",
+                           "targetEntityId": f"i{item}",
+                           "eventTime": _stamp(t0, j)})
+        at += int(count)
+    return events
+
+
+def write_session_store(base: str, scale: str) -> None:
+    """15, in a writer child started with the run: the template's store
+    (SESSION_APP: `_session_events` at SESSION_SCALES[scale]) and the
+    evaluation's (SESSION_EVAL_APP at SESSION_EVAL_SCALES[scale]), each
+    written as a JSON-lines file and `console import`ed (the native
+    importer) into one sqlite pio.db under `base`, the files deleted
+    after; then SESSION_RESULT under `base`: the counts and seconds."""
+    import numpy as np
+
+    from predictionio_torch.tools import console
+
+    t_start = time.perf_counter()
+    os.environ["PIO_FS_BASEDIR"] = base
+    row = {"scale": scale}
+    for app, (n_events, n_users, n_items), seed in (
+            (SESSION_APP, SESSION_SCALES[scale], 15),
+            (SESSION_EVAL_APP, SESSION_EVAL_SCALES[scale], 17)):
+        events = _session_events(n_events, n_users, n_items,
+                                 np.random.default_rng(seed))
+        path = os.path.join(base, f"{app}.jsonl")
+        with open(path, "w") as f:
+            for event in events:
+                f.write(json.dumps(event) + "\n")
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            if console.main(["app", "new", app]) != 0:
+                raise AssertionError(f"console app new {app} failed")
+            t0 = time.perf_counter()
+            if console.main(["import", "--appname", app, "--input",
+                             path]) != 0:
+                raise AssertionError(f"console import of {app} failed")
+            import_s = time.perf_counter() - t0
+        os.unlink(path)
+        imported = said.getvalue().strip().splitlines()[-1]
+        if imported != f"Imported {n_events} events.":
+            raise AssertionError(f"console import said {imported!r}")
+        viewed: dict = {}
+        for event in events:
+            viewed.setdefault(event["entityId"], set()).add(
+                event["targetEntityId"])
+        row[app] = {"events": n_events, "users": n_users, "items": n_items,
+                    "items_viewed": len(set().union(*viewed.values())),
+                    "sequences": sum(len(v) >= 2 for v in viewed.values()),
+                    "import_s": import_s}
+    row["write_s"] = time.perf_counter() - t_start
+    with open(os.path.join(base, SESSION_RESULT), "w") as f:
+        json.dump(row, f)
+
+
+def _session_eval(device, base: str) -> dict:
+    """15d: SessionRecEvaluation in this process on SESSION_EVAL_APP
+    (SESSION_EVAL_K folds): MAP@10 of each cell of its (8, 16) × (1, 2)
+    grid, the best, the wall."""
+    from predictionio_torch.controller import WorkflowContext
+    from predictionio_torch.controller.evaluation import MetricEvaluator
+    from predictionio_torch.templates.sessionrec.evaluation import (
+        SessionRecEvaluation,
+    )
+
+    saved = {k: os.environ.get(k) for k in ("PIO_EVAL_APP_NAME",
+                                            "PIO_EVAL_K")}
+    os.environ.update(PIO_EVAL_APP_NAME=SESSION_EVAL_APP,
+                      PIO_EVAL_K=str(SESSION_EVAL_K))
+    try:
+        evaluation = SessionRecEvaluation()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    storage = _store_at(base)
+    try:
+        t0 = time.perf_counter()
+        result = MetricEvaluator.evaluate(
+            WorkflowContext(device=device, seed=0, storage=storage),
+            evaluation, evaluation.engine_params_list)
+        wall = time.perf_counter() - t0
+    finally:
+        storage.close()
+    cells = []
+    for r in result.all_results:
+        (_, algo_params), = r.engine_params.algorithm_params_list
+        cells.append({"embedDim": algo_params.embedDim,
+                      "numBlocks": algo_params.numBlocks,
+                      "map10": r.scores[result.metric_name]})
+    return {"cells": cells, "best": result.best.scores[result.metric_name],
+            "folds": SESSION_EVAL_K, "wall_s": wall}
+
+
+def phase_session(report: dict, device, tmp: str, writer, base: str) -> dict:
+    """Phase 15: (d) `console template get` and `build` of sessionrec on
+    the store that `writer` (the child running `write_session_store`)
+    writes under `base`, its `console train` started in a child; (a) the
+    kernels against their plain versions meanwhile, in this process, then
+    the main path: (b) the fit at scale and `batch_predict`, (c) the card
+    against the CPU, (d) the train's log, `console deploy` (with
+    SessionRecEvaluation in this process while it comes up: its
+    `ready_s` counts from the deploy's start), and SESSION_HTTP_QUERIES
+    queries against the in-process answers. Returns (this process's session
+    kernel launches on the main path, each console child's launch
+    record)."""
+    import numpy as np
+
+    from predictionio_torch.ops import session
+
+    import torch
+
+    t_phase = time.perf_counter()
+    card = report["card"]
+    written = _await_ratings(writer, base, SESSION_RESULT,
+                             "the session store's writer")
+    waited_s = time.perf_counter() - t_phase
+    # the train child's logits (~8 GB, three alive in a step) share the
+    # card with 15b's fit: hand back what earlier phases left cached
+    torch.cuda.empty_cache()
+    engine_json = _scaffolded("sessionrec", os.path.join(tmp, "Sess"),
+                              SESSION_APP)
+    dev = str(device)
+    t0 = time.perf_counter()
+    started = {"train": _start_child(["train", "--engine-json", engine_json,
+                                      "--device", dev], base)}
+    a_row = _session_kernels(device)
+    emit(dict(phase="session", part="a_kernels", card=card, **a_row))
+    if a_row["tol_misses"] or a_row["bitwise_misses"] or not a_row["checks"]:
+        raise AssertionError(f"15a: the kernels failed their bars: {a_row}")
+
+    session.reset_launches()  # the session main path starts here
+    b_row = _session_fit(device)
+    emit(dict(phase="session", part="b_fit", card=card, **b_row))
+    if not (b_row["fits_bitwise"] and b_row["losses_finite"]
+            and b_row["loss_final"] < b_row["loss_first"]
+            and b_row["batched_equal_single"] == b_row["queries"]
+            and b_row["answered"] == b_row["queries"]):
+        raise AssertionError(f"15b: the fit or the answers failed their "
+                             f"bars: {b_row}")
+    c_row = _session_card_cpu(device)
+    emit(dict(phase="session", part="c_card_cpu", card=card, **c_row))
+    if not (c_row["losses_within"] and c_row["untied_ids_checked"] > 100
+            and c_row["untied_ids_differ"] == 0):
+        raise AssertionError(f"15c: the card and the CPU differ: {c_row}")
+    done, walls = _finish_together(started, {"train": t0}, {}, "15")
+    _, err, train_rec = done["train"]
+    stages = _stage_seconds(err)
+    users = _count_logged(err, r"DataSource: (\d+) users with sequences")
+    trained = _count_logged(err, r"SessionRec: trained (\d+) sequences, "
+                                 r"(\d+) items")
+    want = written[SESSION_APP]
+    if (users != [want["users"]]
+            or trained != [want["sequences"], want["items_viewed"]]):
+        raise AssertionError(f"15d: the train read {users} users and "
+                             f"trained {trained}; the writer wrote {want}")
+    launch_path = os.path.join(tmp, "session-deploy.json")
+    deploy = _start_deploy(["--engine-json", engine_json, "--ip",
+                            "127.0.0.1", "--port", "0", "--device", dev],
+                           {"PIO_FS_BASEDIR": base}, launch_path)
+    storage = None
+    try:
+        t0 = time.perf_counter()
+        d_eval = _session_eval(device, base)  # while the server comes up
+        line = _read_deployed_line(deploy, 300.0)
+        ready_s = time.perf_counter() - t0
+        url = f"http://127.0.0.1:{int(line.rsplit(':', 1)[1])}"
+        rng = np.random.default_rng(18)
+        queries = _session_queries(rng, 3 * SESSION_HTTP_QUERIES,
+                                   want["items"], want["users"])
+        users_q = [q for q in queries if "user" in q]
+        items_q = [q for q in queries if "items" in q]
+        half = SESSION_HTTP_QUERIES // 2
+        queries = users_q[:half] + items_q[:SESSION_HTTP_QUERIES - half]
+        storage = _store_at(base)
+        predict = _latest_model(storage, engine_json)
+        served = _served_equal(url, queries, predict)
+        served["answered"] = sum(bool(predict(q)["itemScores"])
+                                 for q in queries)
+    finally:
+        _stop(deploy)
+        if storage is not None:
+            storage.close()
+    with open(launch_path) as f:
+        deploy_rec = json.load(f)
+    here = dict(session.launches)  # ... and ends here
+    d_row = dict(stages, wall_s=walls["train"], store=written,
+                 waited_s=waited_s, users=users[0], sequences=trained[0],
+                 items=trained[1], ready_s=ready_s, serve=served,
+                 eval=d_eval)
+    emit(dict(phase="session", part="d_console", card=card, **d_row))
+    if (served["equal"] != served["queries"]
+            or served["answered"] < served["queries"] // 2
+            or len(d_eval["cells"]) != 4
+            or not all(c["map10"] > 0 for c in d_eval["cells"])):
+        raise AssertionError(f"15d: served answers differ from the "
+                             f"in-process model's, or the evaluation "
+                             f"failed: {served} {d_eval}")
+    wall = time.perf_counter() - t_phase
+    emit({"phase": "session", "wall_s": wall, "card": card})
+    report["session"] = {"a": a_row, "b": b_row, "c": c_row, "d": d_row,
+                         "log": err.splitlines()[-30:], "wall_s": wall}
+    return here, {"train": train_rec, "deploy": deploy_rec}
+
+
 def _require_runtime_launches(children: dict, profiled: dict) -> None:
     """Phase 11's launch bars (card only): the resumed train launched
     `gj_aug_reg` (RUNTIME_ITERATIONS − RUNTIME_KILL + 1) / RUNTIME_ITERATIONS
@@ -6459,6 +7118,7 @@ def main(argv=None) -> int:
     props = tempfile.TemporaryDirectory()
     texts = tempfile.TemporaryDirectory()
     baskets = tempfile.TemporaryDirectory()
+    sessions = tempfile.TemporaryDirectory()
     writer = _start_store_writer(shop.name)
     ratings_writer = _start_store_writer(ratings.name, "2m",
                                          "write_ratings_store")
@@ -6467,6 +7127,8 @@ def main(argv=None) -> int:
     text_writer = _start_store_writer(texts.name, "50k", "write_text_store")
     basket_writer = _start_store_writer(baskets.name, "200k",
                                         "write_basket_store")
+    session_writer = _start_store_writer(sessions.name, "200k",
+                                         "write_session_store")
     # the run's PIO_FS_BASEDIR (the bucket cache of a console child that
     # names no store lives under it), unless a phase sets its own
     basedir = tempfile.TemporaryDirectory()
@@ -6475,30 +7137,32 @@ def main(argv=None) -> int:
         return _run(args, report, card, device, t_all, writer, shop.name,
                     fallbacks, ratings_writer, ratings.name, props_writer,
                     props.name, text_writer, texts.name, basket_writer,
-                    baskets.name)
+                    baskets.name, session_writer, sessions.name)
     finally:
         _stop(writer)
         _stop(ratings_writer)
         _stop(props_writer)
         _stop(text_writer)
         _stop(basket_writer)
+        _stop(session_writer)
         shop.cleanup()
         ratings.cleanup()
         props.cleanup()
         texts.cleanup()
         baskets.cleanup()
+        sessions.cleanup()
         basedir.cleanup()
 
 
 def _run(args, report: dict, card: str, device, t_all: float, writer,
          shop: str, fallbacks, ratings_writer, ratings: str, props_writer,
          props: str, text_writer, texts: str, basket_writer,
-         baskets: str) -> int:
-    """Phases 1-14 and the kernels line (`main`'s body, with the store
-    writers of phases 10-14 started)."""
+         baskets: str, session_writer, sessions: str) -> int:
+    """Phases 1-15 and the kernels line (`main`'s body, with the store
+    writers of phases 10-15 started)."""
     import torch
 
-    from predictionio_torch.ops import spd_solve
+    from predictionio_torch.ops import session, spd_solve
     from predictionio_torch.quality.datasets import synth_explicit
 
     phase_build(report, card, device)
@@ -6587,6 +7251,18 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
         basket_launches = {
             k: v + sum(c["launches"][k] for c in basket_children.values())
             for k, v in spd_solve.launches.items()}
+        spd_solve.reset_launches()  # the session path starts here (its
+        # own kernels' counts are zeroed inside, after 15a's comparisons)
+        session_here, session_children = phase_session(
+            report, device, tmp, session_writer, sessions)
+        # ... and ends here: this process's launches (15b-15d) and the
+        # console children's (the train, the deploy)
+        session_launches = {
+            k: v + sum(c["launches"][k] for c in session_children.values())
+            for k, v in spd_solve.launches.items()}
+        session_kernel_launches = {
+            k: v + sum(c["session"][k] for c in session_children.values())
+            for k, v in session_here.items()}
     _require_launches("fold", fold_launches, FOLD_KERNEL.values())
     # the runtime path: gj_aug_reg at rank 64, the Schur base at 128
     _require_launches("runtime", runtime_launches, FOLD_KERNEL.values())
@@ -6623,6 +7299,14 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
     if any(basket_launches.values()):
         raise AssertionError(f"on the basket path: solve kernels launched "
                              f"({basket_launches})")
+    # nor does the sessionrec path (its own two kernels, both launched)
+    _require_launches("session", session_launches, [])
+    if any(session_launches.values()):
+        raise AssertionError(f"on the session path: solve kernels launched "
+                             f"({session_launches})")
+    if not all(v > 0 for v in session_kernel_launches.values()):
+        raise AssertionError(f"on the session path: a session kernel never "
+                             f"launched ({session_kernel_launches})")
     # the path's launches: the grids in this process and the console
     # children's (each child's counts start at 0 with the process)
     children = [run["launches"] for run in eval_runs.values()]
@@ -6639,7 +7323,9 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
                           "runtime": runtime_launches,
                           "classify": classify_launches,
                           "text": text_launches,
-                          "basket": basket_launches}
+                          "basket": basket_launches,
+                          "session": session_launches,
+                          "session_kernels": session_kernel_launches}
 
     kernels = []
     for name, (replaces, source) in KERNELS.items():
@@ -6658,7 +7344,8 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
                          + runtime_launches[name]
                          + classify_launches[name]
                          + text_launches[name]
-                         + basket_launches[name]),
+                         + basket_launches[name]
+                         + session_launches[name]),
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -6675,10 +7362,25 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
             "launches_classify": classify_launches[name],
             "launches_text": text_launches[name],
             "launches_basket": basket_launches[name],
+            "launches_session": session_launches[name],
             "launches_per_epoch_2m": per_epoch,
             "launches_console_eval": {layout: run["launches"][name]
                                       for layout, run in eval_runs.items()},
         })
+    for name, replaces in SESSION_KERNELS.items():
+        row = report["session"]["a"]["kernels"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "predictionio_torch/csrc/session.cu",
+            "replaces": replaces,
+            "ranks": "no TPU counterpart: the sessionrec scorer, bitwise "
+                     "batched ≡ single at every tier",
+            "launches": session_kernel_launches[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": row["shape"],
+            "launches_session": session_kernel_launches[name]})
     report["kernels_line"] = kernels
     _require_native_log("\n".join(fallbacks.lines), "this process")
     report["wall_s"] = time.perf_counter() - t_all

@@ -11,17 +11,20 @@ The Similar Product template's model (unit item factors, the item map,
 the categories) and the E-Commerce template's (both factor matrices, the
 unit item factors, both maps, the categories and the app name) carry over
 through `similar_product_model_from_arrays` and `ecomm_model_from_arrays`;
-the Product Ranking template's model is an `ALSModel`.
+the Product Ranking template's model is an `ALSModel`. The sessionrec
+template's model (the attention params, the item map, the users' windows)
+carries over through `session_model_from_arrays`.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 
 from predictionio_torch.data.bimap import BiMap
 from predictionio_torch.models.als_model import ALSModel, SeenItems
+from predictionio_torch.models.session_model import SessionRecModel
 from predictionio_torch.templates.ecommerce.engine import ECommModelData
 from predictionio_torch.templates.recommendation.engine import PopularityModel
 from predictionio_torch.templates.similarproduct.engine import (
@@ -136,3 +139,40 @@ def ecomm_model_from_arrays(
         item_categories={k: list(v) for k, v in item_categories.items()},
         app_name=app_name,
     )
+
+
+def session_model_from_arrays(
+    params: Mapping,
+    item_ids: Mapping[str, int],
+    user_windows: Mapping[str, Sequence[str]],
+    max_seq_len: int,
+    n_heads: int,
+) -> SessionRecModel:
+    """The port's SessionRecModel from the attention params (emb [V+1, D],
+    pos [Lpos, D], blocks of wq, wk, wv, wo, w1, b1, w2, b2; numpy
+    arrays), the item id string → row map, user → window of item ids, the
+    window length and the head count. `session_vecs` are recomputed by
+    `session_vec_of`."""
+    def host(a):
+        return np.asarray(a, dtype=np.float32)
+
+    emb = host(params["emb"])
+    if emb.ndim != 2 or len(item_ids) != emb.shape[0] - 1:
+        raise ValueError(f"{len(item_ids)} items do not match the embedding "
+                         f"{emb.shape} (V + 1 rows, the last the pad row)")
+    if emb.shape[1] % n_heads:
+        raise ValueError(f"embedding width {emb.shape[1]} is not a multiple "
+                         f"of {n_heads} heads")
+    model = SessionRecModel(
+        params={"emb": emb, "pos": host(params["pos"]),
+                "blocks": [{k: host(v) for k, v in blk.items()}
+                           for blk in params["blocks"]]},
+        item_ids=BiMap(dict(item_ids)),
+        user_windows={str(u): tuple(w) for u, w in user_windows.items()},
+        session_vecs={},
+        max_seq_len=int(max_seq_len),
+        n_heads=int(n_heads),
+    )
+    model.session_vecs.update({u: model.session_vec_of(w)
+                               for u, w in model.user_windows.items()})
+    return model

@@ -44,15 +44,18 @@ A request whose deadline expires while queued is answered 503 by the
 dispatcher WITHOUT being dispatched — expired work never reaches the
 scoring path (`serving_deadline_misses_total`).
 
-The reference's sequence-length tier ladder (for session engines) and its
-span and device-attribution calls are left out: they come with the
-session template and the device telemetry.
+Session engines (templates/sessionrec) pad a second ragged axis, the
+history length, onto the sequence-tier ladder below (`seq_tier_ladder`,
+`seq_tiers_from_env`, `pad_to_seq_tier`). The reference's span and
+device-attribution calls are left out: they come with the device
+telemetry.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import threading
 import time
 from collections import deque
@@ -105,6 +108,59 @@ def bucket_ladder(max_batch: int) -> tuple:
         b <<= 1
     out.append(max_batch)
     return tuple(out)
+
+
+# -- sequence-length ladder ---------------------------------------------------
+# The batch ladder above bounds the BATCH dimension of a scorer; sequence
+# engines (templates/sessionrec) have a second ragged axis, the per-user
+# history length. Histories pad up to these fixed tiers with masked pad
+# positions (causal masking and the last-real-position readout make the
+# pads exact no-ops, so a history scores bitwise the same at every tier
+# that fits it), so a scorer sees tier-many lengths, not one per history.
+
+_SEQ_TIER_BASE = 8
+
+
+def seq_tier_ladder(max_len: int, base: int = _SEQ_TIER_BASE) -> tuple:
+    """Power-of-two sequence tiers from `base` up to (and including) the
+    smallest power of two ≥ max_len."""
+    out = []
+    t = max(1, base)
+    while t < max_len:
+        out.append(t)
+        t <<= 1
+    out.append(t)
+    return tuple(out)
+
+
+def seq_tiers_from_env(max_len: int) -> tuple:
+    """The sequence-tier ladder: PIO_SERVING_SEQ_TIERS (comma-separated
+    lengths, e.g. "8,32") when set, else the power-of-two ladder. Tiers
+    are sorted, deduped, and always cover max_len: a ladder whose top
+    tier undercuts the model's window length would silently truncate
+    histories, so one is appended if needed."""
+    raw = os.environ.get("PIO_SERVING_SEQ_TIERS", "").strip()
+    if raw:
+        try:
+            tiers = sorted({int(p) for p in raw.split(",") if p.strip()})
+            tiers = [t for t in tiers if t > 0]
+        except ValueError:
+            log.warning("ignoring unparseable PIO_SERVING_SEQ_TIERS=%r", raw)
+            tiers = []
+        if tiers:
+            if tiers[-1] < max_len:
+                tiers.append(max_len)
+            return tuple(tiers)
+    return seq_tier_ladder(max_len)
+
+
+def pad_to_seq_tier(n: int, tiers: Sequence[int]) -> int:
+    """Smallest tier ≥ n (the top tier for longer histories: callers
+    truncate to it, keeping the newest items)."""
+    for t in tiers:
+        if n <= t:
+            return int(t)
+    return int(tiers[-1])
 
 
 @dataclasses.dataclass

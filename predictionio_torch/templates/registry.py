@@ -159,6 +159,23 @@ BUILTIN_TEMPLATES: dict[str, TemplateInfo] = {
             },
             sample_query={"items": ["i1", "i3"], "num": 3},
         ),
+        TemplateInfo(
+            name="sessionrec",
+            description="Session-based next-item recommendation (causal "
+                        "self-attention over each user's recent-item "
+                        "window)",
+            engine_factory=(
+                "predictionio_torch.templates.sessionrec.SessionRecEngine"),
+            engine_json={
+                "datasource": {"params": {
+                    "appName": "MyApp", "eventNames": ["view", "buy"]}},
+                "algorithms": [{"name": "attention", "params": {
+                    "embedDim": 16, "numBlocks": 1, "numHeads": 2,
+                    "maxSeqLen": 32, "epochs": 30, "stepSize": 0.05,
+                    "seed": 3}}],
+            },
+            sample_query={"user": "u1", "num": 4},
+        ),
     ]
 }
 

@@ -19,9 +19,11 @@ from predictionio_torch.ops import (
     basket,
     classify,
     ranking,
+    session,
     spd_solve,
     text,
 )
+from predictionio_torch.templates.sessionrec import engine as sessionrec
 
 pytestmark = pytest.mark.cuda
 
@@ -1323,3 +1325,96 @@ def test_basket_rules_on_card_bitwise_equal_cpu(dev):
                      "confidence", "lift"):
             np.testing.assert_array_equal(getattr(got, name),
                                           getattr(want, name), err_msg=name)
+
+
+def _session_inputs(v, d, n_blocks, l, b, seed):
+    """Seeded params of the template's init and b right-padded histories
+    of lengths 1..l (the first row of length 1, the second of l)."""
+    rng = np.random.default_rng(seed)
+    params = sessionrec.init_params(v, d, n_blocks, l, rng)
+    lengths = rng.integers(1, l + 1, b).astype(np.int32)
+    lengths[:2] = (1, l)
+    seq = np.full((b, l), v, np.int32)
+    for r, n in enumerate(lengths):
+        seq[r, :n] = rng.choice(v, n, replace=False)
+    return params, seq, lengths
+
+
+@pytest.mark.parametrize("v,d,n_blocks,heads,l,b", [
+    (8_192, 16, 1, 2, 32, 64), (8_192, 8, 1, 2, 32, 64),
+    (8_192, 16, 2, 2, 32, 64), (500, 64, 2, 4, 256, 6)])
+def test_session_kernels_match_plain(dev, v, d, n_blocks, heads, l, b):
+    """`session_encode` and `session_readout` against their plain versions
+    on the same card tensors within rtol 1e-5 / atol 1e-6; the last case's
+    working set (5·L·D + H·L² floats, 1.3 MB) is past shared memory and
+    runs the workspace variant."""
+    params, seq, lengths = _session_inputs(v, d, n_blocks, l, b, seed=d + l)
+    p = session.params_on(params, dev)
+    seq_t = torch.tensor(seq, device=dev)
+    len_t = torch.tensor(lengths, device=dev)
+    assert session.encode_shared_fits(l, d, heads, dev) == (l < 256)
+    session.reset_launches()
+    h = session.session_encode(p["emb"], p["pos"], p["packed"], n_blocks,
+                               seq_t, len_t, heads)
+    scores = session.session_readout(h, p["emb"][:-1])
+    torch.cuda.synchronize()
+    assert session.launches == {"session_encode": 1, "session_readout": 1}
+    h_plain = session.session_encode_plain(p, seq_t, len_t, heads)
+    torch.testing.assert_close(h, h_plain, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(
+        scores, session.session_readout_plain(h, p["emb"][:-1]),
+        rtol=1e-5, atol=1e-6)
+    assert torch.isfinite(scores).all() and scores.shape == (b, v)
+
+
+def test_session_scorer_bitwise_batched_vs_single_at_every_tier(dev):
+    """On the card a history scores bitwise the same alone at every tier
+    that fits it (the default ladder 8, 16, 32 and 5, 12) and as a row of
+    a batch at every batch tier 1, 2, 4 … 64."""
+    params, seq, lengths = _session_inputs(8_192, 16, 1, 32, 64, seed=5)
+    p = session.params_on(params, dev)
+
+    singles = {}
+    for r in range(64):
+        n = int(lengths[r])
+        got = []
+        for tier in (5, 8, 12, 16, 32):
+            if tier < n:
+                continue
+            s = np.full((1, tier), 8_192, np.int32)
+            s[0, :n] = seq[r, :n]
+            got.append(session.score(p, torch.tensor(s, device=dev),
+                                     torch.tensor(lengths[r:r + 1],
+                                                  device=dev), 2)[0])
+        for other in got[1:]:
+            assert torch.equal(other, got[0]), r
+        singles[r] = got[0]
+    for bt in (1, 2, 4, 8, 16, 32, 64):
+        batch = session.score(p, torch.tensor(seq[:bt], device=dev),
+                              torch.tensor(lengths[:bt], device=dev), 2)
+        for r in range(bt):
+            assert torch.equal(batch[r], singles[r]), (bt, r)
+
+
+def test_sessionrec_fits_bitwise_on_card(dev):
+    """Two 5-epoch fits at 2 048 users × 1 000 items give the same bits on
+    the card (the gather's backward sums in a fixed order), and their
+    per-epoch losses agree with the CPU's within rtol 1e-4."""
+    rng = np.random.default_rng(0)
+    user_seqs = {f"u{u}": rng.choice(1_000, int(rng.integers(2, 33)),
+                                     replace=False).astype(np.int32)
+                 for u in range(2_048)}
+    seq, lengths, _ = sessionrec.training_batch(user_seqs, 1_000, 32, 32)
+    params = sessionrec.init_params(1_000, 16, 1, 32,
+                                    np.random.default_rng(3))
+    fits = [session.train_params(params, seq, lengths, 2, 0.05, 5, where)
+            for where in (dev, dev, torch.device("cpu"))]
+    (a, la), (b, lb), (_, lc) = fits
+    np.testing.assert_array_equal(la, lb)
+    for name in ("emb", "pos"):
+        np.testing.assert_array_equal(a[name], b[name])
+    for ba, bb in zip(a["blocks"], b["blocks"]):
+        for k in ba:
+            np.testing.assert_array_equal(ba[k], bb[k])
+    np.testing.assert_allclose(la, lc, rtol=1e-4)
+    assert la[-1] < la[0]

@@ -324,6 +324,16 @@ def test_entry_points_without_a_device_raise(no_cuda):
     for max_dense_items in (8192, 1):  # the dense path and the host's
         with pytest.raises(RuntimeError, match="device='cpu'"):
             basket.mine_rules(ui, ii, 4, 5, max_dense_items=max_dense_items)
+    # a sessionrec model that names no device scores on CUDA by default
+    from predictionio_torch import convert
+    from predictionio_torch.templates.sessionrec import engine as sessionrec
+
+    model = convert.session_model_from_arrays(
+        sessionrec.init_params(5, 4, 1, 8, np.random.default_rng(0)),
+        {f"i{j}": j for j in range(5)}, {"u": ("i1", "i2")}, 8, 2)
+    algo = sessionrec.SessionRecAlgorithm(sessionrec.SessionRecParams())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        algo.predict(model, {"user": "u", "num": 2})
 
 
 def test_console_without_a_device_fails(no_cuda, tmp_path, capsys):
@@ -369,7 +379,8 @@ def test_tf32_is_off():
 
 @pytest.mark.parametrize("name", ["similarproduct", "ecommerce",
                                   "productranking", "classification",
-                                  "leadscoring", "complementarypurchase"])
+                                  "leadscoring", "complementarypurchase",
+                                  "sessionrec"])
 def test_new_templates_console_without_a_device_fails(name, no_cuda,
                                                       tmp_path, monkeypatch,
                                                       capsys):
@@ -837,3 +848,82 @@ def test_basket_template_with_jax_and_reference_blocked():
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "BASKET-ISOLATED-OK" in proc.stdout
+
+
+_SESSIONREC_RUN = textwrap.dedent("""
+    import importlib.abc, json, os, sys, tempfile, threading, urllib.request
+
+    BLOCKED = {blocked!r}
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError("blocked import of " + name)
+            return None
+
+    before = {{m for m in sys.modules if m.split(".")[0] in BLOCKED}}
+    sys.meta_path.insert(0, Block())
+
+    from predictionio_torch.ops import attention, session
+    from predictionio_torch.storage.registry import Storage
+    from predictionio_torch.tools import console
+    from predictionio_torch.workflow.create_server import PredictionServer
+
+    tmp = tempfile.mkdtemp()
+    os.environ["PIO_FS_BASEDIR"] = os.path.join(tmp, "base")
+    events = os.path.join(tmp, "events.jsonl")
+    with open(events, "w") as f:
+        for u in range(20):
+            for k in range(5):
+                f.write(json.dumps({{
+                    "event": "view", "entityType": "user",
+                    "entityId": "u%d" % u, "targetEntityType": "item",
+                    "targetEntityId": "i%d" % ((u + k) % 9),
+                    "eventTime": "2026-03-01T%02d:%02d:00.000Z" % (
+                        u, k)}}) + "\\n")
+    assert console.main(["app", "new", "MyApp1"]) == 0
+    assert console.main(["import", "--appname", "MyApp1", "--input",
+                         events]) == 0
+    engine_dir = os.path.join(tmp, "sess")
+    assert console.main(["template", "get", "sessionrec", engine_dir,
+                         "--app-name", "MyApp1"]) == 0
+    engine_json = os.path.join(engine_dir, "engine.json")
+    assert console.main(["build", "--engine-json", engine_json]) == 0
+    assert console.main(["train", "--engine-json", engine_json,
+                         "--device", "cpu"]) == 0
+    server = PredictionServer(engine_json, ip="127.0.0.1", port=0,
+                              device="cpu", storage=Storage.get())
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    answers = []
+    for query in ({{"user": "u3", "num": 3}}, {{"items": ["i1", "i2"],
+                                               "num": 3}}):
+        req = urllib.request.Request(
+            "http://127.0.0.1:%d/queries.json" % server.port,
+            data=json.dumps(query).encode())
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            answers.append(json.loads(resp.read()))
+    server.shutdown()
+    server.server_close()
+    assert all(len(a["itemScores"]) == 3 for a in answers), answers
+    assert session.launches == {{"session_encode": 0, "session_readout": 0}}
+    Storage.get().close()
+    import torch
+    assert not torch.cuda.is_initialized()
+    after = {{m for m in sys.modules if m.split(".")[0] in BLOCKED}}
+    assert after == before, sorted(after - before)
+    print("SESSIONREC-ISOLATED-OK")
+""")
+
+
+def test_sessionrec_template_with_jax_and_reference_blocked():
+    """The attention op and the sessionrec template, scaffolded, built,
+    trained from a store and served over HTTP (both query forms), import
+    neither JAX nor the reference."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("PIO_TORCH_DEVICE", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _SESSIONREC_RUN.format(blocked=BLOCKED)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "SESSIONREC-ISOLATED-OK" in proc.stdout

@@ -37,8 +37,8 @@ from predictionio_torch.workflow.workflow_utils import (
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAMES = ("classification", "complementarypurchase", "ecommerce",
-         "leadscoring", "productranking", "recommendation", "similarproduct",
-         "textclassification")
+         "leadscoring", "productranking", "recommendation", "sessionrec",
+         "similarproduct", "textclassification")
 
 torch.set_num_threads(1)
 
@@ -66,7 +66,7 @@ def test_unknown_template_raises():
                                        "complementarypurchase, "
                                        "ecommerce, leadscoring, "
                                        "productranking, recommendation, "
-                                       "similarproduct, "
+                                       "sessionrec, similarproduct, "
                                        "textclassification"):
         get_template("nope")
 
