@@ -20,8 +20,10 @@ Phases (any failure exits non-zero and prints no result line):
              gj_cta.cu: KP = 96, 128 × the three layouts, the split
              kernel × the three, and the multi-RHS block kernel at
              KP = 64 × C = 32, 64 column slots and KP = 96, 128 × 32;
-             gj_multi_reg.cu: KP = 16, 32 × one or two column slots) must
-             show a 0-byte stack frame and no spills;
+             gj_multi_reg.cu: KP = 16, 32 × one or two column slots;
+             session.cu: the warp-body encoder at (D, H) = (8, 16) × (1,
+             2, 4) and the tiled readout) must show a 0-byte stack frame
+             and no spills;
              their SASS size goes to the report, with blocks an SM (for
              the split kernels the runtime's occupancy and dynamic shared
              bytes at K = 129, 192, 255, 256, the even ones for blocked2);
@@ -393,16 +395,21 @@ Phases (any failure exits non-zero and prints no result line):
              `console train` of the shipped engine.json (D 16, 1 block, 2
              heads, window 32, 30 epochs) in a child beside (a)-(c):
              (a) the two kernels of csrc/session.cu, `session_encode` (a
-             thread block a history) and `session_readout` (a thread a
-             row and item), against their plain versions on the card at
-             V 8,192 for (D, blocks) = (16, 1), (8, 1), (16, 2), at
-             every seq tier of the default ladder (8, 16, 32) and of
-             PIO_SERVING_SEQ_TIERS=5,12 (with 32) and every batch tier 1,
-             2, 4 … 64: within rtol 1e-5 / atol 1e-6, and every row
-             bitwise the same history scored alone at its own tier; each
-             kernel's ms at [64, 32, 16, 8,192] beside its plain
-             version's, the BLAS formulation's (`encode`; `torch.matmul`)
-             and its bound; then, with the kernels' counts zeroed, (b) the
+             warp a history at tiers ≤ 32) and `session_readout` (item
+             tiles in shared memory), against their plain versions on
+             the card at V 8,192 for (D, blocks) = (16, 1), (8, 1), (16,
+             2), at every seq tier of the default ladder (8, 16, 32) and
+             of PIO_SERVING_SEQ_TIERS=5,12 (with 32) and every batch tier
+             1, 2, 4 … 64: within rtol 1e-5 / atol 1e-6, bitwise their
+             first versions (`_v1`), `score`'s launch pair bitwise the
+             two launched apart, and every row bitwise the same history
+             scored alone at its own tier; at [64, 32, 16, 8,192] each
+             kernel, its `_v1` kernel and the BLAS formulation
+             (`encode`; `torch.matmul`) in turns (v1, new, BLAS, BLAS,
+             new, v1): ms a call by CUDA events, device ms a launch by
+             torch.profiler; its plain version's ms and its bound; one
+             query (tier 8, batch 1) through `score` beside the `_v1`
+             pair; then, with the kernels' counts zeroed, (b) the
              template's fit at 8,192 users × 8,192 items (windows of 2-32
              distinct Zipf items), 30 epochs: ms an epoch by CUDA events,
              wall, peak memory, losses, a second fit bitwise equal; 1,000
@@ -432,7 +439,8 @@ every kernel of a path must have launched there (on the serving path,
 `gj_aug_reg` in (d)'s child alone), and `gj_aug`, `gj_packed`
 and `gj_blocked2` (K > 256 only) and `gj_aug_multi` (K > 128 with M > 1
 only) on none; the paths of phases 12-15 solve no system and launch no
-solve kernel, and phase 15's path launches both session kernels. The eval path's counts add the console
+solve kernel, and phase 15's path launches both session kernels and
+neither `_v1` kernel. The eval path's counts add the console
 children's own to the grids'; the sequential trains phase 5a compares
 with run before its counts are zeroed. `--report PATH` also writes a JSON report
 with every number (the ptxas output, the profile's kernel table). The last
@@ -758,6 +766,10 @@ SESSION_CONFIGS = ((16, 1), (8, 1), (16, 2))
 SESSION_LADDERS = ((8, 16, 32), (5, 12, 32))
 SESSION_BATCH_TIERS = (1, 2, 4, 8, 16, 32, 64)
 SESSION_TOL = {"rtol": 1e-5, "atol": 1e-6}
+# (B, L) at the template's width past the batch and warp tiers: a fold
+# through one batch_predict (the readout's 32- and 64-row groups, 2 and 8
+# warp histories a block), and L 64 (the block body in shared memory)
+SESSION_WIDE = ((128, 32), (512, 32), (4_096, 32), (64, 64))
 SESSION_REPS = 200
 # 15b: the fit (8 192 users' windows, the template's epochs and step
 # size), the queries after it and the batch sizes they go in, cycled
@@ -781,6 +793,10 @@ SESSION_KERNELS = {
     "session_encode": "predictionio_tpu/templates/sessionrec/engine.py:179",
     "session_readout": "predictionio_tpu/templates/sessionrec/engine.py:222",
 }
+# session.cu's register-tiled kernels (six warp-body instantiations and the
+# tiled readout), which phase 1 holds to no stack frame and no spills
+SESSION_REG_KERNELS, SESSION_REG_COUNT = (
+    ("encode_warp_kernel", "readout_tile_kernel"), 7)
 # deploys the console in a child process and writes, when it exits, its
 # launch counts to the file named by its first argument
 _DEPLOY_CHILD = (
@@ -791,7 +807,8 @@ _DEPLOY_CHILD = (
     "with open(sys.argv[1], 'w') as f:\n"
     "    json.dump({'launches': spd_solve.launches,\n"
     "               'by_rank': spd_solve.launches_by_rank,\n"
-    "               'session': session.launches}, f)\n"
+    "               'session': {**session.launches,\n"
+    "                           **session.launches_v1}}, f)\n"
     "sys.exit(rc)\n")
 # serves the console's event server in a child process and writes, when
 # it exits, whether it ever initialised CUDA to the file named by its
@@ -849,7 +866,8 @@ _CONSOLE_CHILD = (
     "                  'by_rank': spd_solve.launches_by_rank,\n"
     "                  'grids': als_grid.grid_log,\n"
     "                  'sgns_steps': text.sampler_calls['sgns'],\n"
-    "                  'session': session.launches}),\n"
+    "                  'session': {**session.launches,\n"
+    "                              **session.launches_v1}}),\n"
     "      flush=True)\n"
     "sys.exit(rc)\n")
 
@@ -1002,6 +1020,19 @@ def phase_build(report: dict, card: str, device) -> None:
             raise AssertionError(f"{source}.cu: want {count} kernels with no "
                                  f"stack frame or spills, ptxas says {reg}")
         report["build"][f"ptxas_{source}"] = reg
+    # the session kernels: the warp body keeps a lane's rows in registers
+    # (every index a constant), the readout its 2 × 4 tile
+    reg = {fn: props for fn, props in _build.ptxas_kernels(
+        _build.build_log["session"][1]).items()
+        if any(k in fn for k in SESSION_REG_KERNELS)}
+    emit({"phase": "build", "ptxas_session": reg})
+    report["build"]["ptxas_session"] = reg
+    if len(reg) != SESSION_REG_COUNT or any(
+            props.get(key, 1) for props in reg.values()
+            for key in ("stack", "spill_stores", "spill_loads")):
+        raise AssertionError(f"session.cu: want {SESSION_REG_COUNT} kernels "
+                             f"with no stack frame or spills, ptxas says "
+                             f"{reg}")
 
 
 # -- phase 2 -----------------------------------------------------------------
@@ -6463,18 +6494,54 @@ def session_encode_work(lengths, d: int, n_blocks: int, n_heads: int,
     return nbytes, ops
 
 
+def device_ms_per_call(fn, calls: int, want: str = "",
+                       tries: int = 3) -> tuple:
+    """`fn` run `calls` times under torch.profiler (after one warm call):
+    the device's time a call (every kernel, copy and set) and each
+    kernel's ms a launch with its launch count, from `key_averages()`.
+    A window whose trace holds no device row, or none whose name holds
+    `want`, is run again, up to `tries` windows (CUPTI has returned such
+    windows on an H100); then (None, {})."""
+    import torch
+
+    from predictionio_torch.tools.profile_train import device_time_by_kernel
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_time_by_kernel(prof)
+        if any(want in r["name"] for r in rows):
+            return (sum(r["device_ms"] for r in rows) / calls,
+                    {r["name"]: (r["device_ms"] / r["calls"], r["calls"])
+                     for r in rows})
+    return None, {}
+
+
 def _session_kernels(device) -> dict:
     """15a: `session_encode` and `session_readout` against their plain
-    versions on the same card tensors, for each (D, blocks) of
-    SESSION_CONFIGS at V SESSION_V: every seq tier of the default ladder
-    and of PIO_SERVING_SEQ_TIERS=5,12 (each with the top tier), every
-    batch tier of SESSION_BATCH_TIERS (the rows whose history fits the
-    seq tier, repeated to fill the batch). Bars: within SESSION_TOL, and
-    every row's scores and state bitwise the same history's scored alone
-    at its smallest default tier. Then each kernel's ms at the template's
-    width, [64, 32, 16, 8 192], beside its plain version, the BLAS
-    formulation (`encode` + the last position; `torch.matmul`) and its
-    bound."""
+    versions and their first versions (`_v1`) on the same card tensors,
+    for each (D, blocks) of SESSION_CONFIGS at V SESSION_V: every seq tier
+    of the default ladder and of PIO_SERVING_SEQ_TIERS=5,12 (each with the
+    top tier), every batch tier of SESSION_BATCH_TIERS (the rows whose
+    history fits the seq tier, repeated to fill the batch). Bars: within
+    SESSION_TOL of the plain versions; bitwise the `_v1` kernels'; `score`
+    (the launch pair) bitwise the two kernels launched apart; and every
+    row's scores and state bitwise the same history's scored alone at its
+    smallest default tier. The same bars (every row checked alone: four
+    rows of each) at each (B, L) of SESSION_WIDE, whose plans must take
+    the branches it names. Then, at the template's width [64, 32, 16,
+    8 192], each kernel beside its `_v1` kernel and its yardstick (the BLAS
+    formulation: `encode` + the last position; `torch.matmul`) in turns
+    (v1, new, yardstick, yardstick, new, v1): ms a call by CUDA events
+    over SESSION_REPS calls, and device ms a launch by torch.profiler;
+    its plain version's ms and its bound; and one query of 8 items at
+    seq tier 8 and batch tier 1 through `score` beside the `_v1` pair."""
     import numpy as np
     import torch
 
@@ -6483,6 +6550,7 @@ def _session_kernels(device) -> dict:
 
     b_max = max(SESSION_BATCH_TIERS)
     checks, bitwise_misses, tol_misses = 0, [], []
+    v1_misses, pair_misses = [], []
     max_err = {"session_encode": 0.0, "session_readout": 0.0}
     ladders = sorted({t for ladder in SESSION_LADDERS for t in ladder})
     for d, n_blocks in SESSION_CONFIGS:
@@ -6519,11 +6587,64 @@ def _session_kernels(device) -> dict:
                         (got - want).abs().max()))
                     if not torch.allclose(got, want, **SESSION_TOL):
                         tol_misses.append((name, d, n_blocks, tier, bt))
+                h1 = session.session_encode_v1(p["emb"], p["pos"],
+                                               p["packed"], n_blocks, s_t,
+                                               l_t, SESSION_HEADS)
+                if not (torch.equal(h, h1) and torch.equal(
+                        scores, session.session_readout_v1(h1, items))):
+                    v1_misses.append((d, n_blocks, tier, bt))
+                if not torch.equal(scores, session.score(p, s_t, l_t,
+                                                         SESSION_HEADS)):
+                    pair_misses.append((d, n_blocks, tier, bt))
                 for j, r in enumerate(rows):
                     if not (torch.equal(h[j], singles[r][0])
                             and torch.equal(scores[j], singles[r][1])):
                         bitwise_misses.append((d, n_blocks, tier, bt, r))
                 checks += 1
+    # past the batch and warp tiers: the plans' B- and L-dependent branches
+    limits = session.card_limits(torch.cuda.current_device())
+    wide = []
+    for b, l in SESSION_WIDE:
+        params, seq, lengths = _session_inputs(SESSION_V, SESSION_D, 1, l, b,
+                                               b + l)
+        p = session.params_on(params, device)
+        items = p["emb"][:-1]
+        s_t = torch.tensor(seq, device=device)
+        l_t = torch.tensor(lengths, device=device)
+        plan = session.launch_plan(b, l, SESSION_D, SESSION_HEADS, SESSION_V,
+                                   1, *limits)
+        wide.append(dict(b=b, l=l, body=plan.body, histories=plan.histories,
+                         rd_rows=plan.rd_rows))
+        h = session.session_encode(p["emb"], p["pos"], p["packed"], 1, s_t,
+                                   l_t, SESSION_HEADS)
+        scores = session.session_readout(h, items)
+        for name, got, want in (
+                ("session_encode", h, session.session_encode_plain(
+                    p, s_t, l_t, SESSION_HEADS)),
+                ("session_readout", scores,
+                 session.session_readout_plain(h, items))):
+            max_err[name] = max(max_err[name], float(
+                (got - want).abs().max()))
+            if not torch.allclose(got, want, **SESSION_TOL):
+                tol_misses.append((name, SESSION_D, 1, l, b))
+        h1 = session.session_encode_v1(p["emb"], p["pos"], p["packed"], 1,
+                                       s_t, l_t, SESSION_HEADS)
+        if not (torch.equal(h, h1) and torch.equal(
+                scores, session.session_readout_v1(h1, items))):
+            v1_misses.append((SESSION_D, 1, l, b))
+        if not torch.equal(scores, session.score(p, s_t, l_t,
+                                                 SESSION_HEADS)):
+            pair_misses.append((SESSION_D, 1, l, b))
+        for r in (0, 1, b // 2, b - 1):
+            alone = session.score(p, s_t[r:r + 1], l_t[r:r + 1],
+                                  SESSION_HEADS)[0]
+            if not torch.equal(scores[r], alone):
+                bitwise_misses.append((SESSION_D, 1, l, b, r))
+        checks += 1
+    wide_taken = (any(w["body"] == "warp" and w["histories"] > 1
+                      for w in wide)
+                  and {32, 64} <= {w["rd_rows"] for w in wide}
+                  and any(w["body"] == "block" for w in wide))
     # times at the template's width, the batch and seq tiers' tops
     params, seq, lengths = _session_inputs(SESSION_V, SESSION_D, 1,
                                            SESSION_L, b_max, 99)
@@ -6533,54 +6654,105 @@ def _session_kernels(device) -> dict:
     l_t = torch.tensor(lengths, device=device)
     idx = (l_t.long() - 1).clamp(0, SESSION_L - 1)
     rows_t = torch.arange(b_max, device=device)
+    h = session.session_encode(p["emb"], p["pos"], p["packed"], 1, s_t, l_t,
+                               SESSION_HEADS)
+    # one query of 8 items at seq tier 8 and batch tier 1 (the second
+    # history, of length 8)
+    single = _session_inputs(SESSION_V, SESSION_D, 1, 8, 2, 98)
+    p1 = session.params_on(single[0], device)
+    s1 = torch.tensor(single[1][1:], device=device)
+    l1 = torch.tensor(single[2][1:], device=device)
 
-    def encode():
-        return session.session_encode(p["emb"], p["pos"], p["packed"], 1,
-                                      s_t, l_t, SESSION_HEADS)
+    def pair_v1():
+        h1 = session.session_encode_v1(p1["emb"], p1["pos"], p1["packed"], 1,
+                                       s1, l1, SESSION_HEADS)
+        return session.session_readout_v1(h1, p1["emb"][:-1])
 
-    h = encode()
+    # (v1, new, yardstick) a kernel; the kernels by their names in the
+    # profile
+    trio = {
+        "session_encode": (
+            lambda: session.session_encode_v1(
+                p["emb"], p["pos"], p["packed"], 1, s_t, l_t, SESSION_HEADS),
+            lambda: session.session_encode(
+                p["emb"], p["pos"], p["packed"], 1, s_t, l_t, SESSION_HEADS),
+            lambda: session.encode(p, s_t, SESSION_HEADS)[rows_t, idx]),
+        "session_readout": (
+            lambda: session.session_readout_v1(h, items),
+            lambda: session.session_readout(h, items),
+            lambda: torch.matmul(h, items.T)),
+        "score": (pair_v1, lambda: session.score(p1, s1, l1, SESSION_HEADS),
+                  None),
+    }
+    names = {"session_encode": ("encode_block_kernel", "encode_warp_kernel"),
+             "session_readout": ("readout_v1_kernel", "readout_tile_kernel")}
+    per_call = {k: {"v1": [], "new": [], "library": []} for k in trio}
+    on_device = {k: {"v1": [], "new": [], "library": []} for k in trio}
+    kernel_device = {k: {"v1": [], "new": []} for k in names}
+    with torch.no_grad():
+        for turn in (("v1", "new", "library"), ("library", "new", "v1")):
+            for name, fns in trio.items():
+                for which in turn:
+                    fn = fns[("v1", "new", "library").index(which)]
+                    if fn is None:
+                        continue
+                    per_call[name][which].append(time_ms(fn, SESSION_REPS))
+                    want = (names[name][which == "new"]
+                            if name in names and which != "library" else "")
+                    total, by_kernel = device_ms_per_call(fn, 20, want)
+                    on_device[name][which].append(total)
+                    if want:
+                        kernel_device[name][which].append(next(
+                            (ms for k, (ms, _) in by_kernel.items()
+                             if want in k), None))
+        plain = {
+            "session_encode": time_ms(lambda: session.session_encode_plain(
+                p, s_t, l_t, SESSION_HEADS), 5),
+            "session_readout": time_ms(
+                lambda: session.session_readout_plain(h, items), 20)}
     enc_bytes, enc_ops = session_encode_work(lengths, SESSION_D, 1,
                                              SESSION_HEADS, SESSION_L)
     rd_bytes = 4.0 * (b_max * SESSION_D + SESSION_V * SESSION_D
                       + b_max * SESSION_V)
     rd_ops = 2.0 * b_max * SESSION_V * SESSION_D
-    with torch.no_grad():
-        rows = {
-            "session_encode": dict(
-                ms=time_ms(encode, SESSION_REPS),
-                plain_ms=time_ms(lambda: session.session_encode_plain(
-                    p, s_t, l_t, SESSION_HEADS), 5),
-                library_ms=time_ms(lambda: session.encode(
-                    p, s_t, SESSION_HEADS)[rows_t, idx], SESSION_REPS),
-                bound=bound_ms(enc_bytes, enc_ops)),
-            "session_readout": dict(
-                ms=time_ms(lambda: session.session_readout(h, items),
-                           SESSION_REPS),
-                plain_ms=time_ms(lambda: session.session_readout_plain(
-                    h, items), 20),
-                library_ms=time_ms(lambda: torch.matmul(h, items.T),
-                                   SESSION_REPS),
-                bound=bound_ms(rd_bytes, rd_ops)),
-        }
-    # one query of 8 items at seq tier 8 and batch tier 1 (the second
-    # history, of length l)
-    single = _session_inputs(SESSION_V, SESSION_D, 1, 8, 2, 98)
-    p1 = session.params_on(single[0], device)
-    s1 = torch.tensor(single[1][1:], device=device)
-    l1 = torch.tensor(single[2][1:], device=device)
-    single_ms = time_ms(lambda: session.score(p1, s1, l1, SESSION_HEADS),
-                        SESSION_REPS)
+    bounds = {"session_encode": bound_ms(enc_bytes, enc_ops),
+              "session_readout": bound_ms(rd_bytes, rd_ops)}
+
+    def mean(xs):
+        """The mean of the measured values; None (not measured) if the
+        profiler returned none."""
+        got = [x for x in xs if x is not None]
+        return sum(got) / len(got) if got else None
+
     out = {}
-    for name, row in rows.items():
-        bound, by = row.pop("bound")
-        out[name] = dict(row, bound_ms=bound, bound_by=by,
-                         max_abs_err=max_err[name],
-                         shape=[b_max, SESSION_L, SESSION_D, SESSION_V])
-    return {"kernels": out, "checks": checks,
+    for name in names:
+        bound, by = bounds[name]
+        out[name] = dict(
+            ms=mean(per_call[name]["new"]), ms_turns=per_call[name]["new"],
+            device_ms=mean(kernel_device[name]["new"]),
+            plain_ms=plain[name], library_ms=mean(per_call[name]["library"]),
+            library_device_ms=mean(on_device[name]["library"]),
+            v1_ms=mean(per_call[name]["v1"]),
+            v1_ms_turns=per_call[name]["v1"],
+            v1_device_ms=mean(kernel_device[name]["v1"]),
+            bound_ms=bound, bound_by=by, max_abs_err=max_err[name],
+            shape=[b_max, SESSION_L, SESSION_D, SESSION_V])
+    plan = session.launch_plan(
+        b_max, SESSION_L, SESSION_D, SESSION_HEADS, SESSION_V, 1, *limits)
+    return {"kernels": out, "checks": checks, "wide": wide,
+            "wide_branches_taken": wide_taken,
             "configs": [list(c) for c in SESSION_CONFIGS],
             "seq_tiers": ladders, "batch_tiers": list(SESSION_BATCH_TIERS),
             "tol_misses": tol_misses[:10], "bitwise_misses":
-            bitwise_misses[:10], "single_query_score_ms": single_ms,
+            bitwise_misses[:10], "v1_misses": v1_misses[:10],
+            "pair_misses": pair_misses[:10],
+            "single_query_score_ms": mean(per_call["score"]["new"]),
+            "single_query_score_ms_turns": per_call["score"]["new"],
+            "single_query_score_device_ms": mean(on_device["score"]["new"]),
+            "single_query_v1_pair_ms": mean(per_call["score"]["v1"]),
+            "single_query_v1_pair_ms_turns": per_call["score"]["v1"],
+            "single_query_v1_pair_device_ms": mean(on_device["score"]["v1"]),
+            "plan": repr(plan),
             "encode_shared": session.encode_shared_fits(
                 SESSION_L, SESSION_D, SESSION_HEADS, device)}
 
@@ -6920,7 +7092,9 @@ def phase_session(report: dict, device, tmp: str, writer, base: str) -> dict:
                                       "--device", dev], base)}
     a_row = _session_kernels(device)
     emit(dict(phase="session", part="a_kernels", card=card, **a_row))
-    if a_row["tol_misses"] or a_row["bitwise_misses"] or not a_row["checks"]:
+    if (a_row["tol_misses"] or a_row["bitwise_misses"]
+            or a_row["v1_misses"] or a_row["pair_misses"]
+            or not a_row["checks"] or not a_row["wide_branches_taken"]):
         raise AssertionError(f"15a: the kernels failed their bars: {a_row}")
 
     session.reset_launches()  # the session main path starts here
@@ -6977,7 +7151,7 @@ def phase_session(report: dict, device, tmp: str, writer, base: str) -> dict:
             storage.close()
     with open(launch_path) as f:
         deploy_rec = json.load(f)
-    here = dict(session.launches)  # ... and ends here
+    here = {**session.launches, **session.launches_v1}  # ... and ends here
     d_row = dict(stages, wall_s=walls["train"], store=written,
                  waited_s=waited_s, users=users[0], sequences=trained[0],
                  items=trained[1], ready_s=ready_s, serve=served,
@@ -7304,9 +7478,11 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
     if any(session_launches.values()):
         raise AssertionError(f"on the session path: solve kernels launched "
                              f"({session_launches})")
-    if not all(v > 0 for v in session_kernel_launches.values()):
+    if (not all(session_kernel_launches[k] > 0 for k in SESSION_KERNELS)
+            or any(session_kernel_launches[f"{k}_v1"] for k in SESSION_KERNELS)):
         raise AssertionError(f"on the session path: a session kernel never "
-                             f"launched ({session_kernel_launches})")
+                             f"launched, or a first version did "
+                             f"({session_kernel_launches})")
     # the path's launches: the grids in this process and the console
     # children's (each child's counts start at 0 with the process)
     children = [run["launches"] for run in eval_runs.values()]
@@ -7379,8 +7555,13 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"],
-            "launches_session": session_kernel_launches[name]})
+            "shape": row["shape"], "device_ms": row["device_ms"],
+            "library_device_ms": row["library_device_ms"],
+            "launches_session": session_kernel_launches[name],
+            # the first version it replaced, timed in the same turns
+            "replaced": {"name": f"{name}_v1", "ms": row["v1_ms"],
+                         "device_ms": row["v1_device_ms"],
+                         "launches": session_kernel_launches[f"{name}_v1"]}})
     report["kernels_line"] = kernels
     _require_native_log("\n".join(fallbacks.lines), "this process")
     report["wall_s"] = time.perf_counter() - t_all

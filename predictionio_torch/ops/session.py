@@ -14,9 +14,13 @@ Two formulations of one function, for two jobs:
   batch that carries it. A BLAS product picks its kernel by shape and
   does not keep a row's order of summation at another batch, so the
   scorer sums in one fixed order a row. On a CUDA tensor it runs the two
-  kernels of ``csrc/session.cu``, `session_encode` (one thread block per
-  history) and `session_readout` (one thread per row and item), written
-  so by construction; on a CPU tensor their plain versions,
+  kernels of ``csrc/session.cu`` as one launch pair (`session_score`):
+  `session_encode` (a warp a history where the tier allows, else a
+  thread block a history) and `session_readout` (item tiles in shared
+  memory), written so by construction, and the same bits as their first
+  versions (`session_encode_v1`, `session_readout_v1`, kept for the A/B
+  on the card). `launch_plan` routes the bodies and sizes the grids by
+  shape. On a CPU tensor it runs their plain versions,
   `session_encode_plain` and `session_readout_plain`, which compute every
   contraction and every softmax sum as elementwise multiplies and adds in
   ascending index order (no fused multiply-add, no reduction kernel), so
@@ -25,13 +29,15 @@ Two formulations of one function, for two jobs:
   may differ in the last place, and which one an element meets depends
   on where it lies in the tensor.
 
-`launches` counts each kernel's launches (the plain versions never
-count).
+`launches` counts each kernel's launches (`score` adds one to each), and
+`launches_v1` the first versions' (the plain versions never count).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 from typing import Sequence
 
@@ -43,13 +49,16 @@ from predictionio_torch.ops.text import scatter_add_rows
 
 # kernel launches per wrapper (plain ints; the plain versions never count)
 launches = {"session_encode": 0, "session_readout": 0}
+# the first versions' launches (the A/B on the card; no path calls them)
+launches_v1 = {"session_encode_v1": 0, "session_readout_v1": 0}
 _BLOCK_KEYS = ("wq", "wk", "wv", "wo", "w1", "b1", "w2", "b2")
-_max_shared: dict[int, int] = {}
+_card_limits: dict[int, tuple[int, int]] = {}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, launches_v1):
+        for name in counts:
+            counts[name] = 0
 
 
 # -- training: the reference's formula ---------------------------------------
@@ -240,120 +249,341 @@ def session_readout_plain(h: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _lib():
-    from predictionio_torch.ops import _build
+# -- the kernels: launch plan ------------------------------------------------
 
-    lib = _build.load("session")
-    if not getattr(lib, "_pio_bound", False):
-        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+# The warp body's instantiations (D, H) (`csrc/session.cu`), its longest
+# tier (a lane a position) and its most histories a block.
+WARP_SHAPES = frozenset({(8, 1), (8, 2), (8, 4), (16, 1), (16, 2), (16, 4)})
+WARP_MAX_L = 32
+WARP_MAX_HISTORIES = 8
+# The block body's threads and the workspace variant's slots.
+BLOCK_THREADS, WORKSPACE_SLOTS = 128, 1024
+# The readout's threads, items a block, and its row groups, widest first.
+READOUT_THREADS, READOUT_TILE, READOUT_ROWS = 256, 128, (64, 32, 16)
+_GRID_Y_MAX = 65_535
+# The encoder's bodies, by their number in the plan (`session.cu`'s Body).
+BODIES = ("none", "warp", "block", "block_workspace")
+
+
+def work_floats(l: int, d: int, n_heads: int) -> int:
+    """Floats of one history's working set in the block body at tier `l`
+    (`session.cu`'s work_floats): x, q, k, v, a and the scores."""
+    return 5 * l * d + n_heads * l * l
+
+
+def warp_shared_bytes(l: int, d: int, n_blocks: int, histories: int) -> int:
+    """Shared bytes of a warp-body block holding `histories` histories:
+    the mbarrier's 16 bytes, the weights rounded up to 4 floats, and per
+    warp k and v [l, d + 4] and the lanes' score rows [32, (l + 1) | 1]."""
+    weights = n_blocks * (8 * d * d + 3 * d)
+    per_warp = 2 * l * (d + 4) + 32 * ((l + 1) | 1)
+    return 16 + 4 * (-(-weights // 4) * 4) + 4 * histories * per_warp
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """Where and how `session_encode`, `session_readout` and `score`
+    launch for one shape: the encoder's body (`BODIES`), grid, threads,
+    shared bytes, histories a block (warp body) and workspace floats; the
+    readout's grid (item tiles, row groups launched), rows a group and
+    shared bytes. `array` holds them as `csrc/session.cu` reads them (its
+    PlanEntry order), at `address`."""
+
+    b: int
+    l: int
+    d: int
+    heads: int
+    v: int
+    n_blocks: int
+    body: str
+    enc_grid: int
+    enc_threads: int
+    enc_shared: int
+    histories: int
+    scratch_floats: int
+    rd_grid: tuple
+    rd_rows: int
+    rd_shared: int
+    scale: float
+    array: ctypes.Array = dataclasses.field(init=False, repr=False,
+                                            compare=False)
+    address: int = dataclasses.field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        array = (ctypes.c_int64 * 14)(
+            BODIES.index(self.body), self.enc_grid, self.enc_threads,
+            self.enc_shared, *self.rd_grid, self.rd_shared, self.rd_rows,
+            self.b, self.l, self.d, self.heads, self.v, self.n_blocks)
+        object.__setattr__(self, "array", array)
+        object.__setattr__(self, "address", ctypes.addressof(array))
+
+    def score_shape(self) -> tuple[int, int]:
+        """Rows × V of `score`'s one allocation: the scores [B, V], then
+        h [B, D] and the workspace in the rows after."""
+        extra = self.b * self.d + self.scratch_floats
+        return self.b + -(-extra // self.v), self.v
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_plan(b: int, l: int, d: int, n_heads: int, v: int, n_blocks: int,
+                max_shared: int, sms: int) -> LaunchPlan:
+    """The launch plan of B histories at tier L (0: no encoder), width D,
+    H heads, V items (0: no readout) and n_blocks blocks on a card of
+    `sms` SMs whose blocks may opt into `max_shared` shared bytes.
+
+    The encoder takes the warp body (a warp a history) where L ≤ 32,
+    (D, H) is one of WARP_SHAPES, there are blocks' weights to stage and
+    a block of one history fits in shared memory, with as many histories
+    a block (up to 8) as keep about 2·sms blocks; else the block body (a
+    block a history), its working set in shared memory where it fits,
+    else in a workspace of min(B, WORKSPACE_SLOTS) slots. The readout
+    tiles V by READOUT_TILE and takes the widest row group of READOUT_ROWS
+    that still gives sms blocks (else the narrowest)."""
+    if n_heads <= 0 or d % n_heads:
+        raise ValueError(f"launch_plan: {n_heads} heads do not divide D {d}")
+    body, enc_grid, enc_threads, enc_shared, hist, scratch = \
+        "none", 0, 0, 0, 0, 0
+    if b > 0 and l > 0:
+        if (l <= WARP_MAX_L and (d, n_heads) in WARP_SHAPES and n_blocks > 0
+                and warp_shared_bytes(l, d, n_blocks, 1) <= max_shared):
+            hist = min(WARP_MAX_HISTORIES, max(1, -(-b // (2 * sms))))
+            while warp_shared_bytes(l, d, n_blocks, hist) > max_shared:
+                hist -= 1
+            body, enc_threads = "warp", 32 * hist
+            enc_grid = -(-b // hist)
+            enc_shared = warp_shared_bytes(l, d, n_blocks, hist)
+        elif work_floats(l, d, n_heads) * 4 <= max_shared:
+            body, enc_threads = "block", BLOCK_THREADS
+            enc_grid = min(b, 2 ** 31 - 1)
+            enc_shared = work_floats(l, d, n_heads) * 4
+        else:
+            body, enc_threads = "block_workspace", BLOCK_THREADS
+            enc_grid = min(b, WORKSPACE_SLOTS)
+            scratch = enc_grid * work_floats(l, d, n_heads)
+    rd_grid, rd_rows, rd_shared = (0, 0), READOUT_ROWS[-1], 0
+    if b > 0 and v > 0:
+        tiles = -(-v // READOUT_TILE)
+        rd_rows = next((r for r in READOUT_ROWS if tiles * -(-b // r) >= sms),
+                       READOUT_ROWS[-1])
+        rd_grid = (tiles, min(-(-b // rd_rows), _GRID_Y_MAX))
+        rd_shared = 4 * (READOUT_TILE * (d | 1) + rd_rows * d)
+        if rd_shared > max_shared:
+            raise ValueError(f"launch_plan: D {d} is too wide for the "
+                             f"readout's item tile ({rd_shared} shared bytes, "
+                             f"the card has {max_shared})")
+    return LaunchPlan(
+        b=b, l=l, d=d, heads=n_heads, v=v, n_blocks=n_blocks, body=body,
+        enc_grid=enc_grid, enc_threads=enc_threads, enc_shared=enc_shared,
+        histories=hist, scratch_floats=scratch, rd_grid=rd_grid,
+        rd_rows=rd_rows, rd_shared=rd_shared,
+        scale=float(np.float32(math.sqrt(d // n_heads))))
+
+
+# -- the kernels: wrappers ---------------------------------------------------
+
+_LIB = None
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from predictionio_torch.ops import _build
+
+        lib = _build.load("session")
+        p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                            ctypes.c_float)
         lib.session_max_shared_bytes.argtypes = [i32]
         lib.session_max_shared_bytes.restype = i32
-        lib.session_work_floats.argtypes = [i32, i32, i32]
-        lib.session_work_floats.restype = i64
-        lib.session_slots.argtypes = []
-        lib.session_slots.restype = i32
-        lib.session_encode.argtypes = [p, p, p, i32, p, p, p, p, i64, i32,
-                                       i32, i32, ctypes.c_float, i32, p]
+        lib.session_encode.argtypes = [p, p, p, p, p, p, p, p, f32, p]
         lib.session_encode.restype = i32
-        lib.session_readout.argtypes = [p, p, p, i64, i64, i32, p]
+        lib.session_readout.argtypes = [p, p, p, p, p]
         lib.session_readout.restype = i32
-        lib._pio_bound = True
-    return lib
+        lib.session_score.argtypes = [p, p, p, p, p, p, p, f32, p]
+        lib.session_score.restype = i32
+        lib.session_encode_v1.argtypes = [p, p, p, i32, p, p, p, p, i64, i32,
+                                          i32, i32, f32, i32, p]
+        lib.session_encode_v1.restype = i32
+        lib.session_readout_v1.argtypes = [p, p, p, i64, i64, i32, p]
+        lib.session_readout_v1.restype = i32
+        _LIB = lib
+    return _LIB
 
 
-def _check_f32(name: str, device: torch.device, **tensors) -> None:
-    for arg, t in tensors.items():
-        if t.device != device:
-            raise ValueError(f"{name}: {arg} is on {t.device}, not {device}")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous float32, got "
-                             f"{t.dtype}")
+def _stream(device: torch.device) -> int:
+    """The current CUDA stream of `device` as an integer handle."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def card_limits(index: int) -> tuple[int, int]:
+    """Device `index`'s shared bytes a block may opt into and its SM count
+    (`launch_plan`'s last two arguments), read once a device."""
+    limits = _card_limits.get(index)
+    if limits is None:
+        shared = _lib().session_max_shared_bytes(index)
+        if shared <= 0:
+            raise RuntimeError(f"session: cannot read device {index}'s "
+                               f"shared memory limit")
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        limits = _card_limits[index] = (shared, sms)
+    return limits
+
+
+def _f32_on(device: torch.device, *tensors: torch.Tensor) -> bool:
+    """Whether every tensor is contiguous float32 on `device` (written out:
+    this runs on every served query)."""
+    for t in tensors:
+        if (t.dtype is not torch.float32 or t.device != device
+                or not t.is_contiguous()):
+            return False
+    return True
+
+
+def _check_encode_args(name: str, emb, pos, packed, n_blocks: int, seq,
+                       lengths, n_heads: int) -> torch.device:
+    dev = seq.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: needs CUDA tensors (the plain version is "
+                         f"session_encode_plain)")
+    b, l = seq.shape
+    d = emb.shape[1]
+    if (not _f32_on(dev, emb, pos, packed) or d % n_heads
+            or pos.shape[0] < l or pos.shape[1] != d
+            or packed.numel() != n_blocks * (8 * d * d + 3 * d)
+            or packed.data_ptr() % 16  # the warp body's bulk copy
+            or seq.dtype is not torch.int32
+            or lengths.dtype is not torch.int32 or lengths.shape != (b,)
+            or lengths.device != dev or not seq.is_contiguous()
+            or not lengths.is_contiguous()):
+        raise ValueError(f"{name}: bad devices, shapes or types (want "
+                         f"contiguous float32 emb, pos, packed (16-byte "
+                         f"aligned) and int32 seq, lengths on {dev}): emb "
+                         f"{tuple(emb.shape)} {emb.dtype} {emb.device}, pos "
+                         f"{tuple(pos.shape)}, "
+                         f"packed {packed.numel()} for {n_blocks} blocks, "
+                         f"seq {tuple(seq.shape)} {seq.dtype}, lengths "
+                         f"{tuple(lengths.shape)} {lengths.dtype}, "
+                         f"{n_heads} heads")
+    return dev
+
+
+def _check_readout_args(name: str, h, items) -> torch.device:
+    dev = h.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: needs CUDA tensors (the plain version is "
+                         f"session_readout_plain)")
+    if (not _f32_on(dev, h, items) or h.dim() != 2 or items.dim() != 2
+            or items.shape[1] != h.shape[1]):
+        raise ValueError(f"{name}: want contiguous float32 h [B, D] and "
+                         f"items [V, D] on {dev}, got {tuple(h.shape)} "
+                         f"{h.dtype} and {tuple(items.shape)} {items.dtype} "
+                         f"on {items.device}")
+    return dev
+
+
+def _raise_on(err: int, name: str, plan: LaunchPlan) -> None:
+    if err:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({plan})")
 
 
 def encode_shared_fits(l: int, d: int, n_heads: int,
                        device: torch.device) -> bool:
-    """Whether one block of `session_encode` keeps a row's working set in
-    shared memory at tier `l`; otherwise a device workspace holds it."""
+    """Whether one block of the block body keeps a history's working set
+    in shared memory at tier `l`; otherwise a device workspace holds it."""
     idx = device.index if device.index is not None else \
         torch.cuda.current_device()
-    lib = _lib()
-    if idx not in _max_shared:
-        _max_shared[idx] = lib.session_max_shared_bytes(idx)
-    return lib.session_work_floats(l, d, n_heads) * 4 <= _max_shared[idx]
+    return work_floats(l, d, n_heads) * 4 <= card_limits(idx)[0]
 
 
 def session_encode(emb: torch.Tensor, pos: torch.Tensor,
                    packed: torch.Tensor, n_blocks: int, seq: torch.Tensor,
                    lengths: torch.Tensor, n_heads: int) -> torch.Tensor:
     """h [B, D]: the encoder's state at each row's last real position, on
-    the card (`csrc/session.cu`). emb [V+1, D], pos [Lpos ≥ L, D] and the
-    packed blocks (`pack_blocks`) float32; seq [B, L] and lengths [B]
-    int32, every id in [0, V]. Raises on a CPU tensor: callers that may
-    hold one go through `score`."""
-    dev = seq.device
-    if dev.type != "cuda":
-        raise ValueError("session_encode: needs CUDA tensors (the plain "
-                         "version is session_encode_plain)")
-    _check_f32("session_encode", dev, emb=emb, pos=pos, packed=packed)
+    the card (`csrc/session.cu`, the body `launch_plan` routes). emb
+    [V+1, D], pos [Lpos ≥ L, D] and the packed blocks (`pack_blocks`)
+    float32; seq [B, L] and lengths [B] int32, every id in [0, V]. Raises
+    on a CPU tensor: callers that may hold one go through `score`."""
+    dev = _check_encode_args("session_encode", emb, pos, packed, n_blocks,
+                             seq, lengths, n_heads)
     b, l = seq.shape
     d = emb.shape[1]
-    if (d % n_heads or pos.shape[0] < l or pos.shape[1] != d
-            or packed.numel() != n_blocks * (8 * d * d + 3 * d)
-            or lengths.shape != (b,) or seq.dtype != torch.int32
-            or lengths.dtype != torch.int32 or lengths.device != dev
-            or not seq.is_contiguous() or not lengths.is_contiguous()):
-        raise ValueError(f"session_encode: bad shapes or types: emb "
-                         f"{tuple(emb.shape)}, pos {tuple(pos.shape)}, "
-                         f"packed {packed.numel()} for {n_blocks} blocks, "
-                         f"seq {tuple(seq.shape)} {seq.dtype}, lengths "
-                         f"{tuple(lengths.shape)} {lengths.dtype}, "
-                         f"{n_heads} heads")
-    out = torch.empty((b, d), dtype=torch.float32, device=dev)
+    plan = launch_plan(b, l, d, n_heads, 0, n_blocks,
+                       *card_limits(dev.index))
+    out = emb.new_empty(b * d + plan.scratch_floats)
     if b == 0:
-        return out
-    lib = _lib()
-    scratch, grid = None, 0
-    if not encode_shared_fits(l, d, n_heads, dev):
-        grid = min(b, lib.session_slots())
-        scratch = torch.empty(grid * lib.session_work_floats(l, d, n_heads),
-                              dtype=torch.float32, device=dev)
-    scale = float(np.float32(math.sqrt(d // n_heads)))
-    err = lib.session_encode(
-        emb.data_ptr(), pos.data_ptr(), packed.data_ptr(), n_blocks,
-        seq.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), b, l, d, n_heads,
-        scale, grid, torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"session_encode launch failed: CUDA error {err} "
-                           f"(B={b}, L={l}, D={d}, H={n_heads})")
+        return out.view(0, d)
+    err = _lib().session_encode(
+        emb.data_ptr(), pos.data_ptr(), packed.data_ptr(), seq.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), out.data_ptr() + 4 * b * d,
+        plan.address, plan.scale, _stream(dev))
+    _raise_on(err, "session_encode", plan)
     launches["session_encode"] += 1
-    return out
+    return out[:b * d].view(b, d)
 
 
 def session_readout(h: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
     """scores [B, V] = h [B, D] @ items [V, D]ᵀ on the card
-    (`csrc/session.cu`); both contiguous float32. Raises on a CPU
-    tensor: the plain version is `session_readout_plain`."""
-    dev = h.device
-    if dev.type != "cuda":
-        raise ValueError("session_readout: needs CUDA tensors (the plain "
-                         "version is session_readout_plain)")
-    _check_f32("session_readout", dev, h=h, items=items)
-    if h.dim() != 2 or items.dim() != 2 or items.shape[1] != h.shape[1]:
-        raise ValueError(f"session_readout: shapes {tuple(h.shape)} and "
-                         f"{tuple(items.shape)} are not [B, D] and [V, D]")
+    (`csrc/session.cu`, the tiled readout); both contiguous float32.
+    Raises on a CPU tensor: the plain version is `session_readout_plain`."""
+    dev = _check_readout_args("session_readout", h, items)
+    b, d = h.shape
+    v = items.shape[0]
+    out = h.new_empty((b, v))
+    if b == 0 or v == 0:
+        return out
+    plan = launch_plan(b, 0, d, 1, v, 0, *card_limits(dev.index))
+    err = _lib().session_readout(h.data_ptr(), items.data_ptr(),
+                                 out.data_ptr(), plan.address, _stream(dev))
+    _raise_on(err, "session_readout", plan)
+    launches["session_readout"] += 1
+    return out
+
+
+def session_encode_v1(emb: torch.Tensor, pos: torch.Tensor,
+                      packed: torch.Tensor, n_blocks: int, seq: torch.Tensor,
+                      lengths: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """`session_encode`'s first version (the block body at every shape),
+    kept for the A/B on the card; no path of the port calls it."""
+    dev = _check_encode_args("session_encode_v1", emb, pos, packed,
+                             n_blocks, seq, lengths, n_heads)
+    b, l = seq.shape
+    d = emb.shape[1]
+    out = torch.empty((b, d), dtype=torch.float32, device=dev)
+    if b == 0:
+        return out
+    scratch, grid = None, 0
+    if not encode_shared_fits(l, d, n_heads, dev):
+        grid = min(b, WORKSPACE_SLOTS)
+        scratch = torch.empty(grid * work_floats(l, d, n_heads),
+                              dtype=torch.float32, device=dev)
+    scale = float(np.float32(math.sqrt(d // n_heads)))
+    err = _lib().session_encode_v1(
+        emb.data_ptr(), pos.data_ptr(), packed.data_ptr(), n_blocks,
+        seq.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), b, l, d, n_heads,
+        scale, grid, _stream(dev))
+    if err:
+        raise RuntimeError(f"session_encode_v1 launch failed: CUDA error "
+                           f"{err} (B={b}, L={l}, D={d}, H={n_heads})")
+    launches_v1["session_encode_v1"] += 1
+    return out
+
+
+def session_readout_v1(h: torch.Tensor, items: torch.Tensor) -> torch.Tensor:
+    """`session_readout`'s first version (a thread a row and item), kept
+    for the A/B on the card; no path of the port calls it."""
+    dev = _check_readout_args("session_readout_v1", h, items)
     b, d = h.shape
     v = items.shape[0]
     out = torch.empty((b, v), dtype=torch.float32, device=dev)
     if b == 0 or v == 0:
         return out
-    err = _lib().session_readout(h.data_ptr(), items.data_ptr(),
-                                 out.data_ptr(), b, v, d,
-                                 torch.cuda.current_stream(dev).cuda_stream)
+    err = _lib().session_readout_v1(
+        h.data_ptr(), items.data_ptr(), out.data_ptr(), b, v, d,
+        _stream(dev))
     if err:
-        raise RuntimeError(f"session_readout launch failed: CUDA error {err} "
-                           f"(B={b}, V={v}, D={d})")
-    launches["session_readout"] += 1
+        raise RuntimeError(f"session_readout_v1 launch failed: CUDA error "
+                           f"{err} (B={b}, V={v}, D={d})")
+    launches_v1["session_readout_v1"] += 1
     return out
 
 
@@ -362,14 +592,31 @@ def score(params: dict, seq: torch.Tensor, lengths: torch.Tensor,
     """Next-item scores [B, V] of the histories seq [B, L] (int32, right-
     padded with the pad row V) of lengths [B] (int32): the encoder's state
     at each row's last real position against the tied item embedding.
-    `params` is `params_on(…)` for seq's device; a CUDA seq runs
-    `session_encode` and `session_readout`, a CPU seq their plain
-    versions."""
+    `params` is `params_on(…)` for seq's device. A CPU seq runs the plain
+    versions; a CUDA seq one allocation and one launch pair
+    (`session_score`: the encoder, then the readout as its programmatic
+    dependent), counted under `session_encode` and `session_readout`, or
+    raises."""
     emb = params["emb"]
-    items = emb[:-1]
     if seq.device.type == "cpu":
         h = session_encode_plain(params, seq, lengths, n_heads)
-        return session_readout_plain(h, items)
-    h = session_encode(emb, params["pos"], params["packed"],
-                       len(params["blocks"]), seq, lengths, n_heads)
-    return session_readout(h, items)
+        return session_readout_plain(h, emb[:-1])
+    pos, packed = params["pos"], params["packed"]
+    n_blocks = len(params["blocks"])
+    dev = _check_encode_args("score", emb, pos, packed, n_blocks, seq,
+                             lengths, n_heads)
+    b, l = seq.shape
+    v, d = emb.shape[0] - 1, emb.shape[1]
+    if b == 0 or v == 0:
+        return emb.new_empty((b, v))
+    plan = launch_plan(b, l, d, n_heads, v, n_blocks,
+                       *card_limits(dev.index))
+    out = emb.new_empty(plan.score_shape())
+    err = _lib().session_score(
+        emb.data_ptr(), pos.data_ptr(), packed.data_ptr(), seq.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), plan.address, plan.scale,
+        _stream(dev))
+    _raise_on(err, "session_score", plan)
+    launches["session_encode"] += 1
+    launches["session_readout"] += 1
+    return out[:b]

@@ -1367,6 +1367,83 @@ def test_session_kernels_match_plain(dev, v, d, n_blocks, heads, l, b):
     assert torch.isfinite(scores).all() and scores.shape == (b, v)
 
 
+# the plain tests' four shapes, then the plan's B- and L-dependent
+# branches at the template's width: a fold's batch (the readout's 32- and
+# 64-row groups, 2 and 8 warp histories a block) and L 64 (the block body
+# in shared memory)
+SESSION_SHAPES = [(8_192, 16, 1, 2, 32, 64), (8_192, 8, 1, 2, 32, 64),
+                  (8_192, 16, 2, 2, 32, 64), (500, 64, 2, 4, 256, 6),
+                  (8_192, 16, 1, 2, 32, 128), (8_192, 16, 1, 2, 32, 512),
+                  (8_192, 16, 1, 2, 32, 4_096), (8_192, 16, 1, 2, 64, 64)]
+
+
+@pytest.mark.parametrize("v,d,n_blocks,heads,l,b", SESSION_SHAPES)
+def test_session_kernels_match_first_versions_bitwise(dev, v, d, n_blocks,
+                                                      heads, l, b):
+    """The redesigned `session_encode` and `session_readout` give the bits
+    of their first versions on the same card tensors, within rtol 1e-5 /
+    atol 1e-6 of their plain versions: the warp body at tier 32 (several
+    histories a block from B 512), the block body in shared memory at
+    L 64 and its workspace route at (500, 64, 2, 4, 256, 6); the tiled
+    readout at every shape (64-row groups from B 512)."""
+    params, seq, lengths = _session_inputs(v, d, n_blocks, l, b, seed=d + l)
+    p = session.params_on(params, dev)
+    seq_t = torch.tensor(seq, device=dev)
+    len_t = torch.tensor(lengths, device=dev)
+    items = p["emb"][:-1]
+    plan = session.launch_plan(
+        b, l, d, heads, v, n_blocks,
+        *session.card_limits(torch.cuda.current_device()))
+    assert plan.body == {32: "warp", 64: "block", 256: "block_workspace"}[l]
+    if b >= 512:
+        assert plan.histories > 1 and plan.rd_rows == 64
+    session.reset_launches()
+    h = session.session_encode(p["emb"], p["pos"], p["packed"], n_blocks,
+                               seq_t, len_t, heads)
+    h1 = session.session_encode_v1(p["emb"], p["pos"], p["packed"],
+                                   n_blocks, seq_t, len_t, heads)
+    scores = session.session_readout(h, items)
+    scores1 = session.session_readout_v1(h1, items)
+    torch.cuda.synchronize()
+    assert torch.equal(h, h1)
+    assert torch.equal(scores, scores1)
+    torch.testing.assert_close(
+        h, session.session_encode_plain(p, seq_t, len_t, heads),
+        rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(
+        scores, session.session_readout_plain(h, items), rtol=1e-5,
+        atol=1e-6)
+    assert session.launches == {"session_encode": 1, "session_readout": 1}
+    assert session.launches_v1 == {"session_encode_v1": 1,
+                                   "session_readout_v1": 1}
+
+
+@pytest.mark.parametrize("v,d,n_blocks,heads,l,b", SESSION_SHAPES)
+def test_session_score_is_the_pair_bitwise(dev, v, d, n_blocks, heads, l, b):
+    """`score` (one allocation, one `session_score` call: the readout as
+    the encoder's programmatic dependent) gives the bits of
+    `session_encode` then `session_readout` launched apart, twenty times
+    over, and counts one launch of each a call."""
+    params, seq, lengths = _session_inputs(v, d, n_blocks, l, b, seed=d + l)
+    p = session.params_on(params, dev)
+    seq_t = torch.tensor(seq, device=dev)
+    len_t = torch.tensor(lengths, device=dev)
+    session.reset_launches()
+    got = [session.score(p, seq_t, len_t, heads) for _ in range(20)]
+    torch.cuda.synchronize()
+    assert session.launches == {"session_encode": 20, "session_readout": 20}
+    h = session.session_encode(p["emb"], p["pos"], p["packed"], n_blocks,
+                               seq_t, len_t, heads)
+    want = session.session_readout(h, p["emb"][:-1])
+    torch.cuda.synchronize()
+    assert got[0].shape == (b, v)
+    for scores in got:
+        assert torch.equal(scores, want)
+    assert session.launches == {"session_encode": 21, "session_readout": 21}
+    assert session.launches_v1 == {"session_encode_v1": 0,
+                                   "session_readout_v1": 0}
+
+
 def test_session_scorer_bitwise_batched_vs_single_at_every_tier(dev):
     """On the card a history scores bitwise the same alone at every tier
     that fits it (the default ladder 8, 16, 32 and 5, 12) and as a row of
