@@ -423,8 +423,39 @@ Phases (any failure exits non-zero and prints no result line):
              deploy`, 100 queries (half {"user"}, half {"items"}) each
              equal to the persisted model's in-process answer (p50,
              p99), and SessionRecEvaluation in this process on Sess2k (3
-             folds; MAP@10 of each cell of (8, 16) × (1, 2)). Each line
-             carries the card's name and power limit.
+             folds; MAP@10 of each cell of (8, 16) × (1, 2)); (e) the
+             online session fold in that deploy child, started with
+             PIO_ONLINE=1: 20 rounds written into its pio.db with the
+             storage API (a never-seen user viewing 3 items, 4 existing
+             users one each, the first an item it viewed before, which
+             moves to the end of its window; one round's last view a
+             never-seen item), each polled with POST /queries.json until
+             the new user is served without what it viewed (30 s a
+             round). Bars: 20 of 20 rounds servable; every folded user's
+             served answer equal to the persisted model folded in this
+             process by `SessionFold` on the same histories read from
+             the store, and to its new window sent as {"items"}; GET /'s
+             `online.eventsFolded` equal to the events written;
+             `session_windows_folded_total` and
+             `session_cold_items_total` moved; the child launched both
+             session kernels and no `_v1` and no solve kernel. Then in
+             this process a backlog of 1,000 existing and 100 new users
+             folded, and 64 of them scored in one batch equal to each
+             alone. Reported: event → servable ms, the fold's ms for one
+             user and for the backlog. Each line carries the card's name
+             and power limit.
+16. parity — the quality-parity bar at BASELINE.md's parity
+             configuration: `run_parity` at `2m` (13,850 × 2,700),
+             rank 64, 10 iterations, λ 0.05, explicit and implicit (α
+             40), the port's ALS trained on the card, the MLlib-faithful
+             numpy ALS (`quality/mllib_als.py`) trained on the same split
+             by a child started with the run (niced, two BLAS threads),
+             which writes its factors and the implicit split to a file.
+             Bars: the port's explicit held-out RMSE at most the
+             MLlib-faithful side's + 0.01, both below 1.0; its implicit
+             MAP@10 at least 0.9 × the MLlib-faithful side's, both above
+             0.01; the trains launch `gj_aug_reg` alone. Reported: both
+             metrics, both sides' epoch seconds, the port's wall.
 
 Launch counts are zeroed just before each path (phases 3-4: train →
 serve; phase 5: eval → batchpredict; phase 6: fold; phase 7: online,
@@ -434,13 +465,16 @@ counts added; phase 10: templates, with every console child's counts
 added; phase 11: runtime, with its console children's counts added, the
 killed train's lost with it; phase 12: classify, with every console
 child's counts added; phases 13, 14 and 15: text, basket and session,
-likewise; phase 15's own kernels from 15b on) and read just after;
+likewise; phase 15's own kernels from 15b on, 15e's in-process scoring
+and its deploy child's folds and queries among them; phase 16: parity)
+and read just after;
 every kernel of a path must have launched there (on the serving path,
 `gj_aug_reg` in (d)'s child alone), and `gj_aug`, `gj_packed`
 and `gj_blocked2` (K > 256 only) and `gj_aug_multi` (K > 128 with M > 1
 only) on none; the paths of phases 12-15 solve no system and launch no
 solve kernel, and phase 15's path launches both session kernels and
-neither `_v1` kernel. The eval path's counts add the console
+neither `_v1` kernel; phase 16's launches `gj_aug_reg` alone. The eval
+path's counts add the console
 children's own to the grids'; the sequential trains phase 5a compares
 with run before its counts are zeroed. `--report PATH` also writes a JSON report
 with every number (the ptxas output, the profile's kernel table). The last
@@ -787,6 +821,32 @@ SESSION_APP, SESSION_EVAL_APP = "Sess200k", "Sess2k"
 SESSION_RESULT = "session.json"
 SESSION_HTTP_QUERIES = 100
 SESSION_EVAL_K = 3
+# 15e: the rounds written into 15d's deployed store (each one never-seen
+# user viewing SESSION_ONLINE_NEW_VIEWS items and SESSION_ONLINE_VIEWERS
+# existing users viewing one, the first an item it viewed before; round
+# SESSION_ONLINE_COLD_ROUND's last viewer a never-seen item), the seconds
+# a round may take to become servable, the in-process backlog (existing,
+# new users) and the folded users scored in one batch
+SESSION_ONLINE_ROUNDS = 20
+SESSION_ONLINE_NEW_VIEWS, SESSION_ONLINE_VIEWERS = 3, 4
+SESSION_ONLINE_COLD_ROUND = 7
+SESSION_ONLINE_TIMEOUT_S = 30.0
+SESSION_BACKLOG = (1_000, 100)
+SESSION_BATCH_CHECK = 64
+# phase 16: quality parity at BASELINE.md's parity configuration (rank
+# 64, 10 iterations, λ 0.05, α 40 for implicit), the bars (explicit RMSE
+# at most the MLlib-faithful side's + PARITY_RMSE_SLACK and both below
+# PARITY_RMSE_MAX; implicit MAP@10 at least PARITY_MAP_SHARE × its and
+# both above PARITY_MAP_MIN), and the MLlib-faithful side's child: its
+# result file and its BLAS threads
+PARITY_SCALE, PARITY_RANK, PARITY_ITERS = "2m", 64, 10
+PARITY_REG, PARITY_ALPHA, PARITY_SEED = 0.05, 40.0, 0
+PARITY_MODES = ("explicit", "implicit")
+PARITY_RMSE_SLACK, PARITY_RMSE_MAX = 0.01, 1.0
+PARITY_MAP_SHARE, PARITY_MAP_MIN = 0.9, 0.01
+PARITY_RESULT, PARITY_ARRAYS = "parity.json", "parity.npz"
+PARITY_THREADS = {k: "2" for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                                   "MKL_NUM_THREADS")}
 # the port's session kernels (no TPU counterpart): the reference's
 # function each takes over, and the port's source
 SESSION_KERNELS = {
@@ -3848,7 +3908,8 @@ def write_template_store(base: str, scale: str) -> None:
 
 
 def _start_store_writer(base: str, scale: str = TEMPLATE_SCALE,
-                        writer: str = "write_template_store"):
+                        writer: str = "write_template_store",
+                        env_extra: dict = None):
     """A store written by a child process (phase 10's
     `write_template_store`, phase 11's `write_ratings_store`) from the
     start of the run, so that it overlaps the phases before its own; its
@@ -3859,7 +3920,7 @@ def _start_store_writer(base: str, scale: str = TEMPLATE_SCALE,
         return subprocess.Popen(
             [sys.executable, "-c", _STORE_CHILD, HERE, base, scale, writer],
             stdout=log, stderr=subprocess.STDOUT, cwd=HERE,
-            env=dict(os.environ, PYTHONPATH=HERE))
+            env=dict(os.environ, PYTHONPATH=HERE, **(env_extra or {})))
     finally:
         log.close()
 
@@ -3929,9 +3990,10 @@ def _completed_instance(base: str, engine_json: str) -> str:
     return instance.id
 
 
-def _latest_model(storage, engine_json: str):
-    """A function answering one query with the latest completed instance
-    of `engine_json`'s engine in `storage`, as the deployed server does."""
+def _latest_models(storage, engine_json: str) -> tuple:
+    """(engine, engine params, models, components) of the latest completed
+    instance of `engine_json`'s engine in `storage`, loaded as the
+    deployed server loads them."""
     from predictionio_torch.workflow.workflow_utils import (
         extract_engine_params,
         get_engine,
@@ -3947,7 +4009,13 @@ def _latest_model(storage, engine_json: str):
         raise AssertionError(f"no completed instance of {variant.id}")
     models = engine.deserialize_models(
         storage.model_data_models().get(instance.id).models)
-    components = engine.components(ep)
+    return engine, ep, models, engine.components(ep)
+
+
+def _latest_model(storage, engine_json: str):
+    """A function answering one query with the latest completed instance
+    of `engine_json`'s engine in `storage`, as the deployed server does."""
+    engine, ep, models, components = _latest_models(storage, engine_json)
     return lambda q: engine.predict(ep, models, q, components=components)
 
 
@@ -7058,6 +7126,184 @@ def _session_eval(device, base: str) -> dict:
             "folds": SESSION_EVAL_K, "wall_s": wall}
 
 
+def _view_histories(storage, app_id: int, users, names) -> dict:
+    """Each user's every `names` event on an item as (item, 1.0, event
+    time), read with one `find` (the plane's gather reads the same)."""
+    from predictionio_torch.online.plane import _aware
+
+    hist: dict = {u: [] for u in users}
+    for e in storage.l_events().find(
+            app_id, entity_type="user", entity_id=sorted(users),
+            target_entity_type="item", event_names=list(names)):
+        if e.target_entity_id:
+            hist[str(e.entity_id)].append(
+                (str(e.target_entity_id), 1.0, _aware(e.event_time)))
+    return hist
+
+
+def _session_online(url: str, storage, engine_json: str, device) -> dict:
+    """15e: the online session fold in 15d's deployed server (PIO_ONLINE=1).
+    SESSION_ONLINE_ROUNDS rounds of views written into its store with the
+    storage API, each polled until its never-seen user is served; then
+    every folded user's served answer against the persisted model folded
+    in this process by `SessionFold` on the same histories (read from the
+    store) and against its new window sent as {"items"}; then, in
+    process, a backlog of SESSION_BACKLOG users folded and
+    SESSION_BATCH_CHECK of them scored in one batch and alone."""
+    import numpy as np
+
+    from predictionio_torch.data.datamap import DataMap
+    from predictionio_torch.data.events import Event
+    from predictionio_torch.online.session import SessionFold
+
+    engine, ep, models, components = _latest_models(storage, engine_json)
+    model = models[0]
+    (_, params), = ep.algorithm_params_list
+    fold = SessionFold(getattr(params, "maxSeqLen", model.max_seq_len))
+    names = list(ep.data_source_params.eventNames)
+    app_id = storage.meta_apps().get_by_name(SESSION_APP).id
+    le = storage.l_events()
+    rng = np.random.default_rng(19)
+    users = sorted(model.user_windows)
+    items = sorted(model.item_ids.keys())
+    before = _scrape(url)
+
+    def view(user, item, t):
+        le.insert(Event(event="view", entity_type="user", entity_id=user,
+                        target_entity_type="item", target_entity_id=item,
+                        properties=DataMap({}), event_time=t), app_id)
+
+    rounds, dirty, last_view = [], set(), {}
+    written = 0
+    for r in range(SESSION_ONLINE_ROUNDS):
+        new_user = f"sess-online-u{r}"
+        viewed = [str(i) for i in rng.choice(items, SESSION_ONLINE_NEW_VIEWS,
+                                             replace=False)]
+        rows = [(new_user, i) for i in viewed]
+        viewers = [str(u) for u in rng.choice(users, SESSION_ONLINE_VIEWERS,
+                                              replace=False)]
+        # the first viewer re-views its window's oldest item, which moves
+        # to the end; the cold round's last viewer views a never-seen item
+        rows.append((viewers[0], model.user_windows[viewers[0]][0]))
+        rows += [(u, str(rng.choice(items))) for u in viewers[1:]]
+        if r == SESSION_ONLINE_COLD_ROUND:
+            rows[-1] = (rows[-1][0], f"sess-online-cold{r}")
+        t0 = datetime.now(timezone.utc)
+        for j, (u, i) in enumerate(rows):
+            view(u, i, t0 + timedelta(milliseconds=j))
+            last_view[u] = i
+        committed = time.perf_counter()
+        written += len(rows)
+        dirty.update(u for u, _ in rows)
+        queries, servable_ms = 0, None
+        while time.perf_counter() - committed < SESSION_ONLINE_TIMEOUT_S:
+            got = [s["item"] for s in _post(
+                url, {"user": new_user, "num": 10})["itemScores"]]
+            queries += 1
+            if got and not set(got) & set(viewed):
+                servable_ms = (time.perf_counter() - committed) * 1e3
+                break
+            time.sleep(0.002)
+        rounds.append({"round": r, "servable_ms": servable_ms,
+                       "queries": queries})
+    # the last round's viewers may fold a poll after its new user
+    t_wait = time.perf_counter()
+    status = json.loads(_get(url + "/"))
+    while (status["online"]["eventsFolded"] < written
+           and time.perf_counter() - t_wait < SESSION_ONLINE_TIMEOUT_S):
+        time.sleep(0.05)
+        status = json.loads(_get(url + "/"))
+    after = _scrape(url)
+    # the persisted model folded here on the store's histories
+    hist = _view_histories(storage, app_id, dirty, names)
+    t0 = time.perf_counter()
+    folded, stats = fold.fold(model, hist)
+    fold_dirty_ms = (time.perf_counter() - t0) * 1e3
+
+    def predict(m, q):
+        return engine.predict(ep, [m], q, components=components)
+
+    differ, window_differ, served_ms = [], [], []
+    for u in sorted(dirty):
+        q = {"user": u, "num": 10}
+        t0 = time.perf_counter()
+        got = _post(url, q)
+        served_ms.append((time.perf_counter() - t0) * 1e3)
+        if got != predict(folded, q):
+            differ.append(u)
+        if _post(url, {"items": list(folded.user_windows[u]),
+                       "num": 10}) != got:
+            window_differ.append(u)
+    moved_last = sum(folded.user_windows[u][-1] == i
+                     for u, i in last_view.items()
+                     if model.item_ids.contains(i))
+
+    # in process: a backlog of existing and never-seen users
+    n_old, n_new = SESSION_BACKLOG
+    old = [str(u) for u in rng.choice(sorted(set(users) - dirty), n_old,
+                                      replace=False)]
+    t_read = time.perf_counter()
+    backlog = _view_histories(storage, app_id, old, names)
+    read_ms = (time.perf_counter() - t_read) * 1e3
+    now = datetime.now(timezone.utc)
+    for k, u in enumerate(old):
+        backlog[u].append((str(rng.choice(items)), 1.0,
+                           now + timedelta(milliseconds=k)))
+    for k in range(n_new):
+        backlog[f"sess-backlog-u{k}"] = [
+            (str(i), 1.0, now + timedelta(milliseconds=j))
+            for j, i in enumerate(rng.choice(items, 3, replace=False))]
+    one = old[0]
+    one_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fold.fold(model, {one: backlog[one]})
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    folded_b, stats_b = fold.fold(model, backlog)
+    backlog_ms = (time.perf_counter() - t0) * 1e3
+    check = sorted(rng.choice(sorted(backlog), SESSION_BATCH_CHECK,
+                              replace=False))
+    qs = [{"user": str(u), "num": 10} for u in check]
+    batch = engine.predict_batch(ep, [folded_b], qs, components=components)
+    batched_equal = sum(predict(folded_b, q) == a for q, a in zip(qs, batch))
+    servable = [r["servable_ms"] for r in rounds
+                if r["servable_ms"] is not None]
+    series = {
+        "windows_folded": "session_windows_folded_total",
+        "cold_items": "session_cold_items_total",
+        "e2s_count": "online_family_event_to_servable_seconds_count"
+                     '{family="sessionrec"}',
+        "e2s_sum": "online_family_event_to_servable_seconds_sum"
+                   '{family="sessionrec"}',
+        "foldin_count": "online_foldin_seconds_count",
+        "foldin_sum": "online_foldin_seconds_sum"}
+    return {
+        "rounds": len(rounds), "rounds_servable": len(servable),
+        "events_written": written,
+        "events_folded": status["online"]["eventsFolded"],
+        "event_to_servable_ms": [r["servable_ms"] for r in rounds],
+        "event_to_servable_ms_median": (float(np.median(servable))
+                                        if servable else None),
+        "event_to_servable_ms_max": max(servable, default=None),
+        "queries_until_servable": [r["queries"] for r in rounds],
+        "metrics": {k: _delta(after, before, v) for k, v in series.items()},
+        "folded_users": len(dirty), "fold_stats": dataclasses.asdict(stats),
+        "fold_dirty_ms": fold_dirty_ms, "served_differ": differ[:5],
+        "served_equal": len(dirty) - len(differ),
+        "window_equal": len(dirty) - len(window_differ),
+        "served_ms_p50": float(np.percentile(served_ms, 50)),
+        "reviewed_last": moved_last,
+        "reviewed_known": sum(model.item_ids.contains(i)
+                              for i in last_view.values()),
+        "backlog": {"users": len(backlog), "existing": n_old, "new": n_new,
+                    "read_ms": read_ms, "fold_ms": backlog_ms,
+                    "fold_one_ms": float(np.median(one_ms)),
+                    "fold_stats": dataclasses.asdict(stats_b),
+                    "batch": len(qs), "batched_equal_single": batched_equal,
+                    "answered": sum(bool(a["itemScores"]) for a in batch)}}
+
+
 def phase_session(report: dict, device, tmp: str, writer, base: str) -> dict:
     """Phase 15: (d) `console template get` and `build` of sessionrec on
     the store that `writer` (the child running `write_session_store`)
@@ -7067,7 +7313,8 @@ def phase_session(report: dict, device, tmp: str, writer, base: str) -> dict:
     against the CPU, (d) the train's log, `console deploy` (with
     SessionRecEvaluation in this process while it comes up: its
     `ready_s` counts from the deploy's start), and SESSION_HTTP_QUERIES
-    queries against the in-process answers. Returns (this process's session
+    queries against the in-process answers, (e) the online session fold
+    in that deploy (`_session_online`). Returns (this process's session
     kernel launches on the main path, each console child's launch
     record)."""
     import numpy as np
@@ -7123,9 +7370,11 @@ def phase_session(report: dict, device, tmp: str, writer, base: str) -> dict:
         raise AssertionError(f"15d: the train read {users} users and "
                              f"trained {trained}; the writer wrote {want}")
     launch_path = os.path.join(tmp, "session-deploy.json")
+    # the online plane from the start: it has nothing to fold until 15e
     deploy = _start_deploy(["--engine-json", engine_json, "--ip",
                             "127.0.0.1", "--port", "0", "--device", dev],
-                           {"PIO_FS_BASEDIR": base}, launch_path)
+                           {"PIO_FS_BASEDIR": base, "PIO_ONLINE": "1"},
+                           launch_path)
     storage = None
     try:
         t0 = time.perf_counter()
@@ -7145,6 +7394,9 @@ def phase_session(report: dict, device, tmp: str, writer, base: str) -> dict:
         served = _served_equal(url, queries, predict)
         served["answered"] = sum(bool(predict(q)["itemScores"])
                                  for q in queries)
+        t0 = time.perf_counter()
+        e_row = _session_online(url, storage, engine_json, device)
+        e_row["wall_s"] = time.perf_counter() - t0
     finally:
         _stop(deploy)
         if storage is not None:
@@ -7164,11 +7416,139 @@ def phase_session(report: dict, device, tmp: str, writer, base: str) -> dict:
         raise AssertionError(f"15d: served answers differ from the "
                              f"in-process model's, or the evaluation "
                              f"failed: {served} {d_eval}")
+    e_row["child_launches"] = {k: v for k, v in deploy_rec["launches"].items()
+                               if v}
+    e_row["child_session"] = deploy_rec["session"]
+    emit(dict(phase="session", part="e_online", card=card, **e_row))
+    backlog = e_row["backlog"]
+    folded = e_row["folded_users"]
+    if (e_row["rounds_servable"] != SESSION_ONLINE_ROUNDS
+            or e_row["events_folded"] != e_row["events_written"]
+            or e_row["served_equal"] != folded
+            or e_row["window_equal"] != folded
+            or e_row["reviewed_last"] != e_row["reviewed_known"]
+            or e_row["fold_stats"]["folded_users"] != folded
+            or e_row["fold_stats"]["new_items"] != 1
+            or e_row["metrics"]["windows_folded"] < folded
+            or e_row["metrics"]["cold_items"] < 1
+            or backlog["fold_stats"]["folded_users"] != sum(SESSION_BACKLOG)
+            or backlog["batched_equal_single"] != SESSION_BATCH_CHECK
+            or backlog["answered"] != SESSION_BATCH_CHECK
+            or e_row["child_launches"]
+            or not all(deploy_rec["session"][k] > 0 for k in SESSION_KERNELS)
+            or any(deploy_rec["session"][f"{k}_v1"]
+                   for k in SESSION_KERNELS)):
+        raise AssertionError(f"15e: the online session fold failed a bar: "
+                             f"{e_row}")
     wall = time.perf_counter() - t_phase
     emit({"phase": "session", "wall_s": wall, "card": card})
     report["session"] = {"a": a_row, "b": b_row, "c": c_row, "d": d_row,
-                         "log": err.splitlines()[-30:], "wall_s": wall}
+                         "e": e_row, "log": err.splitlines()[-30:],
+                         "wall_s": wall}
     return here, {"train": train_rec, "deploy": deploy_rec}
+
+
+def _split_digest(split) -> str:
+    """A digest of a RatingSplit's arrays and shape."""
+    import hashlib
+
+    h = hashlib.sha256(f"{split.n_users} {split.n_items}".encode())
+    for a in (split.train_u, split.train_i, split.train_r, split.test_u,
+              split.test_i, split.test_r):
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def write_parity_reference(base: str, scale: str) -> None:
+    """16, in a child started with the run (niced, PARITY_THREADS BLAS
+    threads): the MLlib-faithful side of `run_parity` at `scale` for each
+    of PARITY_MODES, with its split. Writes PARITY_ARRAYS under `base`
+    (each side's factors and epoch seconds, and the implicit split's
+    arrays, which this process is slow to synthesise) and then
+    PARITY_RESULT (each side's wall, the split's seconds and digest)."""
+    import numpy as np
+
+    from predictionio_torch.quality.parity import parity_split, reference_side
+
+    os.nice(10)  # below the phases it overlaps
+    arrays, row = {}, {"scale": scale}
+    for mode in PARITY_MODES:
+        t0 = time.perf_counter()
+        split = parity_split(mode, scale, PARITY_SEED)
+        split_s = time.perf_counter() - t0
+        side = reference_side(split, mode, PARITY_RANK, PARITY_ITERS,
+                              PARITY_REG, PARITY_ALPHA, PARITY_SEED)
+        arrays.update({f"{mode}_user_factors": side["user_factors"],
+                       f"{mode}_item_factors": side["item_factors"],
+                       f"{mode}_epoch_times": np.asarray(side["epoch_times"])})
+        if mode == "implicit":
+            arrays.update({f"split_{k}": getattr(split, k) for k in (
+                "train_u", "train_i", "train_r", "test_u", "test_i",
+                "test_r")})
+            arrays["split_shape"] = np.asarray([split.n_users,
+                                                split.n_items])
+        row[mode] = {"wall_s": side["wall_s"], "split_s": split_s,
+                     "digest": _split_digest(split)}
+    tmp = os.path.join(base, "partial.npz")
+    np.savez(tmp, **arrays)
+    os.replace(tmp, os.path.join(base, PARITY_ARRAYS))
+    with open(os.path.join(base, PARITY_RESULT), "w") as f:
+        json.dump(row, f)
+
+
+def phase_parity(report: dict, device, data, writer, base: str) -> dict:
+    """Phase 16: `run_parity` at PARITY_SCALE in each of PARITY_MODES, the
+    port's ALS trained on the card, the MLlib-faithful side the one that
+    `writer` (the child running `write_parity_reference`) trained on the
+    same split; `data` is phase 3's explicit split. Returns the rows."""
+    import numpy as np
+
+    from predictionio_torch.quality.datasets import RatingSplit
+    from predictionio_torch.quality.parity import run_parity
+
+    t_phase = time.perf_counter()
+    card = report["card"]
+    written = _await_ratings(writer, base, PARITY_RESULT,
+                             "the parity reference's child")
+    waited_s = time.perf_counter() - t_phase
+    with np.load(os.path.join(base, PARITY_ARRAYS)) as z:
+        arrays = {k: z[k] for k in z.files}
+    n_users, n_items = (int(v) for v in arrays["split_shape"])
+    splits = {"explicit": data, "implicit": RatingSplit(
+        *(arrays[f"split_{k}"] for k in ("train_u", "train_i", "train_r",
+                                        "test_u", "test_i", "test_r")),
+        n_users, n_items)}
+    rows = {}
+    for mode in PARITY_MODES:
+        if _split_digest(splits[mode]) != written[mode]["digest"]:
+            raise AssertionError(f"16: the {mode} split differs from the "
+                                 f"MLlib-faithful side's")
+        side = {"user_factors": arrays[f"{mode}_user_factors"],
+                "item_factors": arrays[f"{mode}_item_factors"],
+                "epoch_times": arrays[f"{mode}_epoch_times"].tolist(),
+                "wall_s": written[mode]["wall_s"]}
+        t0 = time.perf_counter()
+        out = run_parity(mode, PARITY_SCALE, rank=PARITY_RANK,
+                         iterations=PARITY_ITERS, reg=PARITY_REG,
+                         alpha=PARITY_ALPHA, seed=PARITY_SEED, device=device,
+                         split=splits[mode], ref_side=side)
+        out["call_s"] = time.perf_counter() - t0
+        out["ref"]["split_s"] = written[mode]["split_s"]
+        rows[mode] = out
+        emit(dict(phase="parity", part=mode, card=card, **out))
+    wall = time.perf_counter() - t_phase
+    ex, im = rows["explicit"], rows["implicit"]
+    key = "map10"
+    if not (ex["ours"]["rmse"] <= ex["ref"]["rmse"] + PARITY_RMSE_SLACK
+            and max(ex["ours"]["rmse"], ex["ref"]["rmse"]) < PARITY_RMSE_MAX
+            and im["ours"][key] >= PARITY_MAP_SHARE * im["ref"][key]
+            and min(im["ours"][key], im["ref"][key]) > PARITY_MAP_MIN):
+        raise AssertionError(f"16: the port's ALS failed the parity bars: "
+                             f"{rows}")
+    emit({"phase": "parity", "wall_s": wall, "waited_s": waited_s,
+          "card": card})
+    report["parity"] = {**rows, "wall_s": wall, "waited_s": waited_s}
+    return rows
 
 
 def _require_runtime_launches(children: dict, profiled: dict) -> None:
@@ -7293,6 +7673,7 @@ def main(argv=None) -> int:
     texts = tempfile.TemporaryDirectory()
     baskets = tempfile.TemporaryDirectory()
     sessions = tempfile.TemporaryDirectory()
+    parity = tempfile.TemporaryDirectory()
     writer = _start_store_writer(shop.name)
     ratings_writer = _start_store_writer(ratings.name, "2m",
                                          "write_ratings_store")
@@ -7303,6 +7684,11 @@ def main(argv=None) -> int:
                                         "write_basket_store")
     session_writer = _start_store_writer(sessions.name, "200k",
                                          "write_session_store")
+    # phase 16's MLlib-faithful side: host numpy, niced, its BLAS threads
+    # capped, so that it takes the cores the phases before it leave idle
+    parity_writer = _start_store_writer(parity.name, PARITY_SCALE,
+                                        "write_parity_reference",
+                                        PARITY_THREADS)
     # the run's PIO_FS_BASEDIR (the bucket cache of a console child that
     # names no store lives under it), unless a phase sets its own
     basedir = tempfile.TemporaryDirectory()
@@ -7311,7 +7697,8 @@ def main(argv=None) -> int:
         return _run(args, report, card, device, t_all, writer, shop.name,
                     fallbacks, ratings_writer, ratings.name, props_writer,
                     props.name, text_writer, texts.name, basket_writer,
-                    baskets.name, session_writer, sessions.name)
+                    baskets.name, session_writer, sessions.name,
+                    parity_writer, parity.name)
     finally:
         _stop(writer)
         _stop(ratings_writer)
@@ -7319,21 +7706,24 @@ def main(argv=None) -> int:
         _stop(text_writer)
         _stop(basket_writer)
         _stop(session_writer)
+        _stop(parity_writer)
         shop.cleanup()
         ratings.cleanup()
         props.cleanup()
         texts.cleanup()
         baskets.cleanup()
         sessions.cleanup()
+        parity.cleanup()
         basedir.cleanup()
 
 
 def _run(args, report: dict, card: str, device, t_all: float, writer,
          shop: str, fallbacks, ratings_writer, ratings: str, props_writer,
          props: str, text_writer, texts: str, basket_writer,
-         baskets: str, session_writer, sessions: str) -> int:
-    """Phases 1-15 and the kernels line (`main`'s body, with the store
-    writers of phases 10-15 started)."""
+         baskets: str, session_writer, sessions: str, parity_writer,
+         parity: str) -> int:
+    """Phases 1-16 and the kernels line (`main`'s body, with the store
+    writers of phases 10-15 and phase 16's MLlib-faithful side started)."""
     import torch
 
     from predictionio_torch.ops import session, spd_solve
@@ -7437,6 +7827,9 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
         session_kernel_launches = {
             k: v + sum(c["session"][k] for c in session_children.values())
             for k, v in session_here.items()}
+        spd_solve.reset_launches()  # the parity path starts here
+        phase_parity(report, device, data, parity_writer, parity)
+        parity_launches = dict(spd_solve.launches)  # ... and ends here
     _require_launches("fold", fold_launches, FOLD_KERNEL.values())
     # the runtime path: gj_aug_reg at rank 64, the Schur base at 128
     _require_launches("runtime", runtime_launches, FOLD_KERNEL.values())
@@ -7478,6 +7871,11 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
     if any(session_launches.values()):
         raise AssertionError(f"on the session path: solve kernels launched "
                              f"({session_launches})")
+    # the parity trains (rank 64, auto) on gj_aug_reg alone
+    _require_launches("parity", parity_launches, ["gj_aug_reg"])
+    if any(v for k, v in parity_launches.items() if k != "gj_aug_reg"):
+        raise AssertionError(f"on the parity path: kernels other than "
+                             f"gj_aug_reg launched ({parity_launches})")
     if (not all(session_kernel_launches[k] > 0 for k in SESSION_KERNELS)
             or any(session_kernel_launches[f"{k}_v1"] for k in SESSION_KERNELS)):
         raise AssertionError(f"on the session path: a session kernel never "
@@ -7501,7 +7899,8 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
                           "text": text_launches,
                           "basket": basket_launches,
                           "session": session_launches,
-                          "session_kernels": session_kernel_launches}
+                          "session_kernels": session_kernel_launches,
+                          "parity": parity_launches}
 
     kernels = []
     for name, (replaces, source) in KERNELS.items():
@@ -7521,7 +7920,8 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
                          + classify_launches[name]
                          + text_launches[name]
                          + basket_launches[name]
-                         + session_launches[name]),
+                         + session_launches[name]
+                         + parity_launches[name]),
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -7539,6 +7939,7 @@ def _run(args, report: dict, card: str, device, t_all: float, writer,
             "launches_text": text_launches[name],
             "launches_basket": basket_launches[name],
             "launches_session": session_launches[name],
+            "launches_parity": parity_launches[name],
             "launches_per_epoch_2m": per_epoch,
             "launches_console_eval": {layout: run["launches"][name]
                                       for layout, run in eval_runs.items()},

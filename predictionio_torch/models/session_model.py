@@ -21,7 +21,8 @@ without running the attention stack.
 `params` stays a dict of numpy arrays, so a model file holds no device
 tensor and loads on a machine without a card. The scorer's copy of the
 params on a device is made once per loaded model and device
-(`device_params`), never pickled.
+(`device_params`), never pickled; a model folded from it
+(`online/session.py`) gets its own dict of the same copies.
 """
 
 from __future__ import annotations

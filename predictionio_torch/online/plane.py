@@ -5,11 +5,13 @@ The loop: an `ingest.tailer.StoreTailer` (batch mode) polls rating
 events out of the durable store; each fresh batch names the dirty
 users/items; each variant's fold handles (`foldin.FoldModel` — `ALSFold`
 re-solving exactly the dirty factor rows against the fixed opposite
-side on the server's device) produce updated models; `swap.DeltaSwapper`
-publishes them into the server's served-state table and announces the
-touched users on the invalidation bus. Freshness is observed per event
-on the north-star histogram `online_event_to_servable_seconds` and
-sliced per model family on `online_family_event_to_servable_seconds`.
+side on the server's device, `session.SessionFold` rebuilding the dirty
+users' session windows and embeddings) produce updated models;
+`swap.DeltaSwapper` publishes them into the server's served-state table
+and announces the touched users on the invalidation bus. Freshness is
+observed per event on the north-star histogram
+`online_event_to_servable_seconds` and sliced per model family on
+`online_family_event_to_servable_seconds`.
 
 Crash safety is the tailer's at-least-once contract: the watermark
 advances only after fold+swap complete, and a fold re-solves each dirty
@@ -47,6 +49,7 @@ import torch
 from predictionio_torch.controller.context import WorkflowContext
 from predictionio_torch.ingest.tailer import OVERLAP, StoreTailer
 from predictionio_torch.models.als_model import ALSModel
+from predictionio_torch.models.session_model import SessionRecModel
 from predictionio_torch.online import foldin
 from predictionio_torch.online.foldin import ALSFold, FoldModel
 from predictionio_torch.online.metrics import (
@@ -59,6 +62,7 @@ from predictionio_torch.online.metrics import (
     ONLINE_PARITY_CHECKS,
     ONLINE_PARITY_DRIFT,
 )
+from predictionio_torch.online.session import SessionFold
 from predictionio_torch.online.swap import DeltaSwapper, StaleState
 from predictionio_torch.ops.als import ALSConfig
 from predictionio_torch.telemetry.lineage import LINEAGE, context_of
@@ -207,6 +211,10 @@ class OnlinePlane:
                         seed=getattr(params, "seed", None) or 0,
                         split_cap=getattr(params, "splitCap", 32768),
                     ))))
+                elif isinstance(model, SessionRecModel):
+                    folds.append((idx, SessionFold(
+                        max_seq_len=getattr(params, "maxSeqLen",
+                                            model.max_seq_len))))
             if not folds:
                 log.info("online: variant %r serves no foldable model; "
                          "skipped", variant)
@@ -368,7 +376,7 @@ class OnlinePlane:
                 if old is None or t >= old[0]:
                     pairs[other] = (t, v)
         # histories carry (opposing_id, value, event_time) triples: ALS
-        # folds consume the (id, value) pairs, a session fold would need
+        # folds consume the (id, value) pairs, the session fold needs
         # (id, time) to rebuild windows — one gather serves every family
         return ({u: [(o, v, t) for o, (t, v) in u_tracked[u].items()]
                  for u in users if u_tracked[u]},

@@ -1495,3 +1495,68 @@ def test_sessionrec_fits_bitwise_on_card(dev):
             np.testing.assert_array_equal(ba[k], bb[k])
     np.testing.assert_allclose(la, lc, rtol=1e-4)
     assert la[-1] < la[0]
+
+
+def test_folded_session_model_bitwise_batched_vs_single(dev):
+    """A SessionRecModel folded by the online session fold serves on the
+    card bitwise the same for each folded user alone and in one batch of
+    64, and the same as its new window sent as {"items"}; the folded
+    model's device copy is the old model's tensors."""
+    from datetime import datetime, timedelta, timezone
+
+    from predictionio_torch import convert
+    from predictionio_torch.online.session import SessionFold
+
+    rng = np.random.default_rng(4)
+    params = sessionrec.init_params(2_000, 16, 1, 32, rng)
+    ids = {f"i{k}": k for k in range(2_000)}
+    model = convert.session_model_from_arrays(
+        params, ids, {f"u{u}": tuple(f"i{k}" for k in
+                                     rng.choice(2_000, 5, replace=False))
+                      for u in range(200)}, 32, 2)
+    model.device = "cuda"
+    algo = sessionrec.SessionRecAlgorithm(sessionrec.SessionRecParams())
+    before = algo.batch_predict(model, [{"user": "u0", "num": 10}])
+    t0 = datetime(2026, 5, 1, tzinfo=timezone.utc)
+    hist = {f"u{u}": [(f"i{int(k)}", 1.0, t0 + timedelta(seconds=int(s)))
+                      for k, s in zip(rng.integers(0, 2_100, 40),
+                                      rng.integers(0, 30, 40))]
+            for u in range(100, 164)}
+    folded, stats = SessionFold(32).fold(model, hist)
+    assert stats.folded_users == 64 and stats.new_items > 0
+    assert folded._on_device is not model._on_device
+    assert folded.device_params(dev) is model.device_params(dev)
+    users = sorted(hist)
+    batch = algo.batch_predict(folded, [{"user": u, "num": 10}
+                                        for u in users])
+    session.reset_launches()
+    for u, got in zip(users, batch):
+        assert got["itemScores"], u
+        assert algo.predict(folded, {"user": u, "num": 10}) == got, u
+        window = list(folded.user_windows[u])
+        assert algo.predict(folded, {"items": window, "num": 10}) == got, u
+    assert session.launches == {"session_encode": 128,
+                                "session_readout": 128}
+    assert algo.batch_predict(model, [{"user": "u0", "num": 10}]) == before
+
+
+def test_run_parity_on_card_against_cpu(dev):
+    """`run_parity` at `100k` with the port's ALS on the card and on the
+    CPU, from the same initial item factors: the same MLlib-faithful side
+    and RMSE within rel 2e-3 (the trajectory bar); the card's trains run
+    `gj_aug_reg` alone."""
+    from predictionio_torch.quality.parity import parity_split, run_parity
+
+    split = parity_split("explicit", "100k", 5)
+    init = (np.random.default_rng(5).standard_normal((split.n_items, 8))
+            / np.sqrt(8)).astype(np.float32)
+    kw = dict(mode="explicit", scale="100k", rank=8, iterations=3, reg=0.1,
+              seed=5, split=split, init_item_factors=init)
+    card = run_parity(**kw, device=dev)
+    launches = {k: v for k, v in spd_solve.launches.items() if v}
+    cpu = run_parity(**kw, device="cpu")
+    assert card["ref"]["rmse"] == cpu["ref"]["rmse"]
+    np.testing.assert_allclose(card["ours"]["rmse"], cpu["ours"]["rmse"],
+                               rtol=2e-3)
+    assert card["ours"]["device"] == torch.cuda.get_device_name(dev)
+    assert list(launches) == ["gj_aug_reg"]

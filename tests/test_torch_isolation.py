@@ -927,3 +927,54 @@ def test_sessionrec_template_with_jax_and_reference_blocked():
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "SESSIONREC-ISOLATED-OK" in proc.stdout
+
+
+_SESSION_FOLD_PARITY_RUN = textwrap.dedent("""
+    import importlib.abc, sys
+    from datetime import datetime, timezone
+
+    BLOCKED = {blocked!r}
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError("blocked import of " + name)
+            return None
+
+    before = {{m for m in sys.modules if m.split(".")[0] in BLOCKED}}
+    sys.meta_path.insert(0, Block())
+
+    import numpy as np
+    from predictionio_torch import convert
+    from predictionio_torch.online.session import SessionFold
+    from predictionio_torch.quality.__main__ import main
+    from predictionio_torch.quality.parity import run_parity
+    from predictionio_torch.templates.sessionrec.engine import init_params
+
+    params = init_params(6, 4, 1, 8, np.random.default_rng(0))
+    model = convert.session_model_from_arrays(
+        params, {{"i%d" % k: k for k in range(6)}}, {{"u0": ("i1",)}}, 8, 2)
+    t = datetime(2026, 1, 1, tzinfo=timezone.utc)
+    folded, stats = SessionFold(8).fold(
+        model, {{"u1": [("i2", 1.0, t), ("cold", 1.0, t)]}})
+    assert folded.user_windows == {{"u0": ("i1",), "u1": ("i2",)}}
+    assert stats.folded_users == 1 and stats.new_items == 1
+    out = run_parity("explicit", "100k", rank=4, iterations=1, device="cpu")
+    assert out["ours"]["device"] == "cpu" and out["ref"]["rmse"] > 0
+    after = {{m for m in sys.modules if m.split(".")[0] in BLOCKED}}
+    assert after == before, sorted(after - before)
+    print("SESSION-FOLD-PARITY-ISOLATED-OK")
+""")
+
+
+def test_session_fold_and_parity_with_jax_and_reference_blocked():
+    """The online session fold and the quality-parity harness import
+    neither JAX nor the reference, and fold and score on the CPU."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("PIO_TORCH_DEVICE", None)
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         _SESSION_FOLD_PARITY_RUN.format(blocked=BLOCKED)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "SESSION-FOLD-PARITY-ISOLATED-OK" in proc.stdout
